@@ -1,0 +1,263 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path once on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, one per printed line group; any failure ends the run non-zero:
+  1. environment: torch / CUDA versions, the card's name and power limit,
+     the TF32 flags. Raises without CUDA;
+  2. build: both CUDA kernels from gppvae_tpu_torch/csrc with nvcc for
+     sm_90a;
+  3. kernel vs plain on the card: factor_prep at (5700,56,16), (5701,56,16),
+     (6401,256,16), (256,2048,8); nll_core at R = 56 and R = 256, value and
+     gradients through the autograd.Function against autograd of the plain
+     version; median times of kernel and plain version (CUDA events);
+  4. the slice at the full width of BASELINE's GPPVAE-joint: synthetic
+     rotated digits (P = 400, Q = 16, 32×32×1), train_vae for 1 epoch, then
+     train_gppvae --mode joint for 3 epochs from its vae_weights, both
+     through their `main(argv)`; checks finite metrics, a falling loss, the
+     kernels' launch counts, no plain-version call on a CUDA tensor, and the
+     final GP NLL on the card against a float64 CPU evaluation;
+  5. the last line: {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import torch
+
+SHAPES_FACTOR_PREP = [(5700, 56, 16), (5701, 56, 16), (6401, 256, 16), (256, 2048, 8)]
+SHAPES_NLL_CORE = [(5700, 56, 16), (6401, 256, 16)]  # (N, R, L)
+FACTOR_PREP_REL_BOUND = 1e-5  # max abs err / max |plain|, fp32 sums of N terms
+NLL_VALUE_REL_BOUND = 1e-5
+NLL_GRAD_REL_BOUND = 1e-4  # per gradient, err / max |plain grad|
+SLICE_NLL_REL_BOUND = 1e-4  # card (fp32, kernels) vs CPU float64, N = 5700
+SLICE_ARGS = ["--data", "synthetic", "--num_objects", "400", "--num_views", "16",
+              "--seed", "0", "--device", "cuda"]
+
+
+def say(*parts) -> None:
+    print(*parts, flush=True)
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def time_ms(fn, reps: int = 50) -> float:
+    """Median milliseconds of one call, between CUDA events on the stream."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def max_err(got, want) -> tuple[float, float]:
+    """(max abs error, max abs error / max |want|) over paired tensors."""
+    err = max(float((g - w).detach().abs().max()) for g, w in zip(got, want))
+    scale = max(float(w.detach().abs().max()) for w in want)
+    return err, err / max(scale, 1e-30)
+
+
+def phase_environment() -> str:
+    say("== 1 environment")
+    say(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: chip_smoke.py runs on a GPU")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    say(f"nvidia-smi: {smi.stdout.strip() or smi.stderr.strip()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    say(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn {torch.backends.cudnn.allow_tf32}")
+    return torch.cuda.get_device_name(0)
+
+
+def phase_build() -> None:
+    from gppvae_tpu_torch.ops import _build
+
+    say("== 2 build")
+    t0 = time.perf_counter()
+    _build.load()
+    say(f"built {_build.SOURCES} for sm_90a in {time.perf_counter() - t0:.2f} s")
+    for line in _build.nvcc_log().splitlines():
+        if "registers" in line or "Compiling entry" in line:
+            say("  " + line.strip())
+
+
+def phase_kernels() -> dict:
+    from gppvae_tpu_torch import ops
+
+    say("== 3 kernel vs plain")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    stats = {}
+    for n, r, l in SHAPES_FACTOR_PREP:
+        U = torch.randn(n, r, device="cuda", generator=gen) / math.sqrt(r)
+        Z = torch.randn(n, l, device="cuda", generator=gen)
+        got = ops.launch_factor_prep(U, Z)
+        want = ops.factor_prep_torch(U, Z)
+        again = ops.launch_factor_prep(U, Z)
+        torch.cuda.synchronize()
+        err, rel = max_err(got, want)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        say(f"factor_prep N={n} R={r} L={l}: max abs err {err:.3e}, rel {rel:.3e} "
+            f"(bound {FACTOR_PREP_REL_BOUND:.0e}); zn shape {tuple(got[2].shape)}; "
+            f"bit-identical rerun {same}")
+        check(rel <= FACTOR_PREP_REL_BOUND, f"factor_prep {n, r, l} error")
+        check(got[2].dim() == 0, "factor_prep zn is 0-d")
+        check(same, "factor_prep is deterministic")
+        if (n, r, l) == SHAPES_FACTOR_PREP[0]:
+            stats["factor_prep"] = {"max_abs_err": err}
+            # gradients through the Function vs autograd of the plain version
+            A = torch.randn(r, r, device="cuda", generator=gen)
+            B = torch.randn(r, l, device="cuda", generator=gen)
+
+            def loss(fn, U, Z):
+                G, UtZ, zn = fn(U, Z)
+                return torch.sum(G * A) + torch.sum(UtZ * B) + 3.0 * zn
+
+            U1, Z1 = U.clone().requires_grad_(), Z.clone().requires_grad_()
+            g_k = torch.autograd.grad(loss(ops.factor_prep, U1, Z1), (U1, Z1))
+            U2, Z2 = U.clone().requires_grad_(), Z.clone().requires_grad_()
+            g_p = torch.autograd.grad(loss(ops.factor_prep_torch, U2, Z2), (U2, Z2))
+            torch.cuda.synchronize()
+            gerr, grel = max_err(g_k, g_p)
+            say(f"factor_prep grads: max abs err {gerr:.3e}, rel {grel:.3e} "
+                f"(bound {FACTOR_PREP_REL_BOUND:.0e})")
+            check(grel <= FACTOR_PREP_REL_BOUND, "factor_prep gradients")
+            stats["factor_prep"]["ms"] = time_ms(lambda: ops.launch_factor_prep(U, Z))
+            stats["factor_prep"]["plain_ms"] = time_ms(lambda: ops.factor_prep_torch(U, Z))
+
+    for n, r, l in SHAPES_NLL_CORE:
+        U = torch.randn(n, r, device="cuda", generator=gen) / math.sqrt(r)
+        Z = torch.randn(n, l, device="cuda", generator=gen)
+        G, UtZ, zn = ops.factor_prep_torch(U, Z)
+        vn = torch.tensor(0.37, device="cuda")
+        leaves_k = [t.clone().requires_grad_() for t in (G, UtZ, zn, vn)]
+        nll_k = ops.woodbury_nll_core(*leaves_k, n, l)
+        g_k = torch.autograd.grad(nll_k, leaves_k)
+        leaves_p = [t.clone().requires_grad_() for t in (G, UtZ, zn, vn)]
+        nll_p = ops.woodbury_nll_core_torch(*leaves_p, n, l)
+        g_p = torch.autograd.grad(nll_p, leaves_p)
+        k_out = ops.launch_nll_core(G, UtZ, zn, vn, n, l)
+        p_out = ops.nll_core_torch(G, UtZ, zn, vn, n, l)
+        torch.cuda.synchronize()
+        verr, vrel = max_err([nll_k], [nll_p])
+        rerr, _ = max_err(k_out[1:], p_out[1:])
+        say(f"nll_core R={r} L={l}: nll {nll_k.item():.6f} vs {nll_p.item():.6f}, "
+            f"rel {vrel:.3e} (bound {NLL_VALUE_REL_BOUND:.0e}); X, W max abs err {rerr:.3e}")
+        check(vrel <= NLL_VALUE_REL_BOUND, f"nll_core R={r} value")
+        for name, a, b in zip(("G", "UtZ", "zn", "vn"), g_k, g_p):
+            gerr, grel = max_err([a], [b])
+            say(f"  d/d{name}: max abs err {gerr:.3e}, rel {grel:.3e} "
+                f"(bound {NLL_GRAD_REL_BOUND:.0e})")
+            check(grel <= NLL_GRAD_REL_BOUND, f"nll_core R={r} gradient {name}")
+        if r == 56:
+            stats["woodbury_nll_core"] = {
+                "max_abs_err": verr,
+                "ms": time_ms(lambda: ops.launch_nll_core(G, UtZ, zn, vn, n, l)),
+                "plain_ms": time_ms(lambda: ops.nll_core_torch(G, UtZ, zn, vn, n, l)),
+            }
+    for name, s in stats.items():
+        say(f"{name} at the main path's shape: kernel {s['ms']:.4f} ms, "
+            f"plain {s['plain_ms']:.4f} ms (median of 50, CUDA events)")
+    return stats
+
+
+def phase_slice() -> dict:
+    from gppvae_tpu_torch import gp, ops
+    from gppvae_tpu_torch.models import encode_all
+    from gppvae_tpu_torch.train import train_gppvae, train_vae
+
+    say("== 4 slice: train_vae 1 epoch → train_gppvae --mode joint 3 epochs "
+        "(P=400, Q=16, zdim 16, R=56, bs 128, f32)")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        ops.reset_launch_counts()
+        train_vae.main([*SLICE_ARGS, "--epochs", "1", "--outdir", f"{tmp}/vae"])
+        result = train_gppvae.main([
+            *SLICE_ARGS, "--mode", "joint", "--epochs", "3",
+            "--vae_weights", f"{tmp}/vae/{train_vae.WEIGHTS_FILE}",
+            "--outdir", f"{tmp}/gppvae",
+        ])
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    say(f"launch counts over the main path: {counts}")
+    hist = result.history
+    for h in hist:
+        phases = " ".join(f"{k} {v:.5f}" for k, v in h.items()
+                          if k.startswith("sec_") and k != "sec_epoch")
+        say(f"epoch {h['epoch']}: loss {h['loss']:.4f} gp_nll_full {h['gp_nll_full']:.6f} "
+            f"oos_mse {h['oos_mse']:.6f} sec_epoch {h['sec_epoch']:.4f} ({phases})")
+    check(all(math.isfinite(v) for h in hist for k, v in h.items()
+              if isinstance(v, float)), "every metric is finite")
+    check(hist[-1]["loss"] < hist[0]["loss"], "loss falls from the first epoch to the last")
+    check(counts["launch_factor_prep.launches"] >= 3, "factor_prep launched >= 3 times")
+    check(counts["launch_nll_core.launches"] >= 3, "nll_core launched >= 3 times")
+    check(counts["factor_prep_torch.cuda_calls"] == 0
+          and counts["nll_core_torch.cuda_calls"] == 0,
+          "no plain version ran on a CUDA tensor")
+
+    # the trained model's exact GP NLL on the rows it trained on: kernels on
+    # the card vs CPU float64
+    data, p = result.data, result.gp_params
+    num_train = data["images_tr"].shape[0]
+    with torch.no_grad():
+        Z = encode_all(result.model, data["images_tr"], 1024)
+        V = gp.build_effect_rows(p["X"], p["W"], data["d_tr"], data["q_tr"])
+        v_sig, v_noise = gp.variances_from_log(p["log_vs"], p["log_vn"])
+        nll_card = float(gp.gp_nll_from_features(Z, V, v_sig[0], v_noise))
+        nll_cpu = float(gp.gp_nll_from_features(
+            Z.cpu().double(), [v.cpu().double() for v in V],
+            v_sig[0].cpu().double(), v_noise.cpu().double()))
+    rel = abs(nll_card - nll_cpu) / abs(nll_cpu)
+    say(f"final GP NLL: card (kernels, f32) {nll_card:.4f}, CPU f64 {nll_cpu:.4f}, "
+        f"rel {rel:.3e} (bound {SLICE_NLL_REL_BOUND:.0e}); Z {tuple(Z.shape)}")
+    check(rel <= SLICE_NLL_REL_BOUND, "final GP NLL agrees with CPU float64")
+    check(num_train == 5700 and Z.shape == (num_train, 16) and bool(torch.isfinite(Z).all()),
+          "latents finite, (5700, 16)")
+    return counts
+
+
+def main() -> None:
+    kind = phase_environment()
+    phase_build()
+    stats = phase_kernels()
+    counts = phase_slice()
+    sources = {
+        "factor_prep": ("gppvae_tpu_torch/csrc/factor_prep.cu",
+                        "gppvae_tpu/ops/pallas_gemm.py:162", "launch_factor_prep.launches"),
+        "woodbury_nll_core": ("gppvae_tpu_torch/csrc/nll_core.cu",
+                              "gppvae_tpu/ops/pallas_chol.py:167", "launch_nll_core.launches"),
+    }
+    kernels = [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": counts[key], **stats[name]}
+        for name, (src, rep, key) in sources.items()
+    ]
+    say(json.dumps({"kernels": kernels}))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,38 @@
+"""Low-rank (Woodbury) GP prior over the latents: features, NLL, Taylor
+surrogate and predictive posterior. Mirrors gppvae_tpu.gp."""
+
+from gppvae_tpu_torch.gp.features import (
+    build_effect_rows,
+    build_V,
+    fourier_view_features,
+    kron_rows,
+    normalize_rows,
+    polynomial_view_features,
+)
+from gppvae_tpu_torch.gp.taylor import (
+    TaylorCoefficients,
+    surrogate_batch_term,
+    taylor_expand,
+)
+from gppvae_tpu_torch.gp.woodbury import (
+    MIN_V_NOISE,
+    GPFactors,
+    PosteriorCore,
+    factorize,
+    gp_nll_from_features,
+    kinv_z_core,
+    posterior_core,
+    predict_from_core,
+    predict_latents,
+    scaled_features,
+    variances_from_log,
+)
+
+__all__ = [
+    "GPFactors", "MIN_V_NOISE", "PosteriorCore", "TaylorCoefficients",
+    "build_V", "build_effect_rows", "factorize", "fourier_view_features",
+    "gp_nll_from_features", "kinv_z_core", "kron_rows", "normalize_rows",
+    "polynomial_view_features", "posterior_core", "predict_from_core",
+    "predict_latents", "scaled_features", "surrogate_batch_term",
+    "taylor_expand", "variances_from_log",
+]

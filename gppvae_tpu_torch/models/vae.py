@@ -1,0 +1,133 @@
+"""Convolutional VAE encoder/decoder (nn.Module).
+
+Counterpart of gppvae_tpu/models/vae.py. The public layout is the JAX
+package's: images are NHWC (N, H, W, C) float32, latents (N, zdim), and the
+decoder returns NHWC logits. Only the conv stacks run in NCHW.
+
+Two layout facts make the converted flax weights give the same function:
+  * flax `padding="SAME"` at stride 2 pads (lo, hi) = (0, 1) on an even
+    axis; `Conv2d(padding=1)` would pad (1, 1). The encoder pads explicitly
+    (`_same_pad`) before an unpadded stride-2 conv;
+  * the encoder flattens in H, W, C order and the decoder's dense output is
+    reshaped as (h, w, c), as flax does.
+Nearest-resize ×2 (`jax.image.resize(..., "nearest")`) is
+`F.interpolate(scale_factor=2, mode="nearest")`.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def _same_pad(size: int, k: int = 3, s: int = 2) -> tuple[int, int]:
+    """(lo, hi) padding of one axis for XLA/flax 'SAME' at stride s."""
+    out = -(-size // s)
+    total = max((out - 1) * s + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def _flax_init_(module: nn.Module, generator: torch.Generator | None) -> None:
+    """flax's default init: truncated-normal lecun kernels, zero biases."""
+    w = module.weight
+    fan_in = w.shape[1] * math.prod(w.shape[2:])
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
+        nn.init.zeros_(module.bias)
+
+
+class ConvEncoder(nn.Module):
+    """Stride-2 3×3 conv stack → flatten (H, W, C) → dense → (μ, log σ²)."""
+
+    def __init__(self, zdim: int, image_shape: Sequence[int],
+                 features: Sequence[int] = (32, 64, 128)):
+        super().__init__()
+        H, W, C = image_shape
+        self.convs = nn.ModuleList()
+        cin = C
+        for f in features:
+            self.convs.append(nn.Conv2d(cin, f, 3, stride=2))
+            cin = f
+            H, W = -(-H // 2), -(-W // 2)
+        self.dense = nn.Linear(H * W * cin, 2 * zdim * 4)
+        self.head_mu = nn.Linear(2 * zdim * 4, zdim)
+        self.head_logvar = nn.Linear(2 * zdim * 4, zdim)
+
+    def forward(self, y: torch.Tensor):
+        h = y.permute(0, 3, 1, 2)  # NHWC → NCHW
+        for conv in self.convs:
+            ph, pw = _same_pad(h.shape[2]), _same_pad(h.shape[3])
+            h = F.elu(conv(F.pad(h, (pw[0], pw[1], ph[0], ph[1]))))
+        h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)  # flatten H, W, C
+        h = F.elu(self.dense(h))
+        return self.head_mu(h), self.head_logvar(h)
+
+
+class ConvDecoder(nn.Module):
+    """Dense → reshape (h, w, c) → (nearest-resize ×2 + 3×3 conv) stack →
+    3×3 conv to C logit channels, returned NHWC."""
+
+    def __init__(self, zdim: int, image_shape: Sequence[int],
+                 features: Sequence[int] = (128, 64, 32), upsample: str = "resize"):
+        super().__init__()
+        if upsample != "resize":
+            raise NotImplementedError(
+                f"dec_upsample {upsample!r} is not ported; only 'resize' "
+                "(ROADMAP: subpixel decoder)"
+            )
+        H, W, C = image_shape
+        depth = len(features)
+        self.h0, self.w0 = H // 2**depth, W // 2**depth
+        if self.h0 * 2**depth != H or self.w0 * 2**depth != W:
+            raise ValueError(f"image {H}×{W} not divisible by 2^{depth}; adjust features")
+        self.f0 = features[0]
+        self.dense = nn.Linear(zdim, self.h0 * self.w0 * self.f0)
+        self.convs = nn.ModuleList()
+        cin = self.f0
+        for f in features:
+            self.convs.append(nn.Conv2d(cin, f, 3, padding=1))
+            cin = f
+        self.out = nn.Conv2d(cin, C, 3, padding=1)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        h = F.elu(self.dense(z))
+        h = h.reshape(z.shape[0], self.h0, self.w0, self.f0).permute(0, 3, 1, 2)
+        for conv in self.convs:
+            h = F.elu(conv(F.interpolate(h, scale_factor=2, mode="nearest")))
+        return self.out(h).permute(0, 2, 3, 1)  # NCHW → NHWC logits
+
+
+class VAE(nn.Module):
+    """Encoder + decoder; one state_dict for the vae_weights handoff."""
+
+    def __init__(self, zdim: int, image_shape: Sequence[int],
+                 enc_features: Sequence[int] = (32, 64, 128),
+                 dec_features: Sequence[int] = (128, 64, 32),
+                 upsample: str = "resize",
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.zdim = zdim
+        self.image_shape = tuple(image_shape)
+        self.encoder = ConvEncoder(zdim, image_shape, enc_features)
+        self.decoder = ConvDecoder(zdim, image_shape, dec_features, upsample)
+        for m in self.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                _flax_init_(m, generator)
+
+    def encode(self, y: torch.Tensor):
+        return self.encoder(y)
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        return self.decoder(z)
+
+
+@torch.no_grad()
+def encode_all(model: VAE, images: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Grad-free latent means of every row, `chunk` rows at a time (Phase A)."""
+    return torch.cat([model.encode(images[s:s + chunk])[0]
+                      for s in range(0, images.shape[0], chunk)])

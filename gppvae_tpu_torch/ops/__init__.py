@@ -1,0 +1,53 @@
+"""GP hot ops: the two kernels of the port and their dispatch.
+
+Same public names as gppvae_tpu/ops/dispatch.py (`factor_prep`,
+`woodbury_nll_core`). The version is chosen by the tensor's device, not by a
+backend switch: a CPU tensor takes the plain PyTorch version, a CUDA float32
+tensor launches the hand-written CUDA kernel (csrc/), anything else raises.
+There is no fallback from the kernel to the plain version.
+
+The plain versions are exported under their own names for the tests and
+for chip_smoke.py's kernel-vs-plain comparison; the main path never calls
+them on a CUDA tensor (`cuda_calls` counts it if something does). Each
+kernel wrapper counts its launches (`launches`).
+
+`gram`, `matmul_tn` and `sqnorm` have no kernel (gppvae_tpu/ops/
+pallas_gemm.py:239-241): the GP layer writes them as plain products.
+"""
+
+from gppvae_tpu_torch.ops.factor_prep import (
+    factor_prep,
+    factor_prep_torch,
+    launch_factor_prep,
+)
+from gppvae_tpu_torch.ops.nll_core import (
+    MAX_RANK,
+    launch_nll_core,
+    nll_core_torch,
+    woodbury_nll_core,
+    woodbury_nll_core_torch,
+)
+
+_COUNTERS = (
+    (launch_factor_prep, "launches"),
+    (launch_nll_core, "launches"),
+    (factor_prep_torch, "cuda_calls"),
+    (nll_core_torch, "cuda_calls"),
+)
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches and plain-version calls on CUDA tensors so far."""
+    return {f"{fn.__name__}.{attr}": getattr(fn, attr) for fn, attr in _COUNTERS}
+
+
+def reset_launch_counts() -> None:
+    for fn, attr in _COUNTERS:
+        setattr(fn, attr, 0)
+
+
+__all__ = [
+    "MAX_RANK", "factor_prep", "factor_prep_torch", "launch_counts",
+    "launch_factor_prep", "launch_nll_core", "nll_core_torch",
+    "reset_launch_counts", "woodbury_nll_core", "woodbury_nll_core_torch",
+]

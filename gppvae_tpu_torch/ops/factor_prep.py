@@ -1,0 +1,115 @@
+"""factor_prep: (UᵀU, UᵀZ, ‖Z‖²) in one pass over the N rows.
+
+Counterpart of gppvae_tpu/ops/pallas_gemm.py (`factor_prep_pallas`, whose
+Pallas kernel `_factor_prep_pallas` this module's CUDA kernel replaces). The
+kernel is `csrc/factor_prep.cu`: a split-N reduction in fp32 FMA with a
+fixed-order second pass (see the note at the top of that file for what bounds
+it on the H100 and why it is built that way).
+
+Which version runs is decided by the tensor's device alone: a CPU tensor
+takes the plain PyTorch version, a CUDA float32 tensor launches the kernel,
+anything else raises. Both sit inside one autograd.Function whose backward
+is the closed form of `_fp_bwd` (pallas_gemm.py:197-204) in torch.matmul.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from gppvae_tpu_torch.ops import _build
+
+
+def factor_prep_torch(U: torch.Tensor, Z: torch.Tensor):
+    """Plain version: (UᵀU, UᵀZ, ‖Z‖²) with ‖Z‖² a 0-d tensor. Counts the
+    calls it gets on a CUDA tensor in `factor_prep_torch.cuda_calls`."""
+    if U.is_cuda:
+        factor_prep_torch.cuda_calls += 1
+    return U.T @ U, U.T @ Z, torch.sum(Z * Z)
+
+
+factor_prep_torch.cuda_calls = 0
+
+
+def launch_factor_prep(U: torch.Tensor, Z: torch.Tensor):
+    """Run the CUDA kernel on float32 CUDA tensors U (N, R) and Z (N, L).
+    Returns (G (R, R), UtZ (R, L), zn ()) as new tensors; counts launches in
+    `launch_factor_prep.launches`."""
+    _check_cuda_f32(U, Z)
+    if U.dim() != 2 or Z.dim() != 2 or U.shape[0] != Z.shape[0]:
+        raise ValueError(f"factor_prep wants U (N, R), Z (N, L); got "
+                         f"{tuple(U.shape)}, {tuple(Z.shape)}")
+    N, R = U.shape
+    L = Z.shape[1]
+    if N < 1 or R < 1 or L < 1:
+        raise ValueError(f"factor_prep needs N, R, L >= 1; got {N}, {R}, {L}")
+    U = U.contiguous()
+    Z = Z.contiguous()
+    lib = _build.load()
+    with torch.cuda.device(U.device):
+        ws = torch.empty(lib.gppvae_factor_prep_workspace(N, R, L),
+                         device=U.device, dtype=torch.float32)
+        G = torch.empty((R, R), device=U.device, dtype=torch.float32)
+        UtZ = torch.empty((R, L), device=U.device, dtype=torch.float32)
+        zn = torch.empty((), device=U.device, dtype=torch.float32)
+        stream = torch.cuda.current_stream(U.device).cuda_stream
+        err = lib.gppvae_factor_prep(
+            _ptr(U), _ptr(Z), _ptr(G), _ptr(UtZ), _ptr(zn), _ptr(ws),
+            N, R, L, ctypes.c_void_p(stream),
+        )
+    _build.check(err, "factor_prep kernel")
+    launch_factor_prep.launches += 1
+    return G, UtZ, zn
+
+
+launch_factor_prep.launches = 0
+
+
+class FactorPrep(torch.autograd.Function):
+    """factor_prep with the closed-form backward of pallas_gemm._fp_bwd:
+    dU = U(dG + dGᵀ) + Z·dUtZᵀ, dZ = U·dUtZ + 2·dzn·Z."""
+
+    @staticmethod
+    def forward(ctx, U, Z):
+        ctx.save_for_backward(U, Z)
+        if U.is_cuda:
+            return launch_factor_prep(U, Z)
+        with torch.no_grad():
+            return factor_prep_torch(U, Z)
+
+    @staticmethod
+    def backward(ctx, dG, dUtZ, dzn):
+        U, Z = ctx.saved_tensors
+        dU = U @ (dG + dG.T) + Z @ dUtZ.T
+        dZ = U @ dUtZ + (2.0 * dzn) * Z
+        return dU, dZ
+
+
+def factor_prep(U: torch.Tensor, Z: torch.Tensor):
+    """(UᵀU, UᵀZ, ‖Z‖²) for U (N, R), Z (N, L): the plain version for CPU
+    tensors, the CUDA kernel for float32 CUDA tensors; raises otherwise."""
+    _check_device(U, Z)
+    return FactorPrep.apply(U, Z)
+
+
+def _check_device(*ts: torch.Tensor) -> None:
+    dev = {t.device.type for t in ts}
+    if dev == {"cpu"}:
+        return
+    if dev == {"cuda"}:
+        _check_cuda_f32(*ts)
+        return
+    raise ValueError(f"tensors must all be on the CPU or all on CUDA; got {dev}")
+
+
+def _check_cuda_f32(*ts: torch.Tensor) -> None:
+    for t in ts:
+        if not t.is_cuda:
+            raise ValueError(f"the CUDA kernel needs CUDA tensors, got {t.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"the CUDA kernels take float32, got {t.dtype}")
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())

@@ -1,0 +1,418 @@
+"""GPPVAE training driver ('joint' and 'dis').
+
+Counterpart of gppvae_tpu/train/train_gppvae.py, in the order of its
+phase-per-dispatch path (`_run_profiled`), one epoch at a time:
+
+  Phase A  grad-free encode of every training row → Z₀ (N×L latent means)
+  Phase B  the exact Woodbury NLL at (Z₀, V₀) and its Taylor coefficients by
+           autodiff (gp.taylor_expand); this launches both CUDA kernels
+           (ops.factor_prep → ops.woodbury_nll_core) and their backwards
+  Phase C  minibatch steps on the surrogate: encode → sample → decode with
+           gradients, the GP surrogate term and the entropy term; one
+           guarded Adam for the VAE and one for the GP parameters
+  Eval     a fresh encode, GP-predictive latents for the held-out cells,
+           decoded; pixel MSE → oos_mse
+
+    python -m gppvae_tpu_torch.train.train_gppvae --data synthetic \
+        --mode joint --vae_weights out/vae/vae_weights.pt --device cuda
+
+Random draws come from a torch.Generator seeded by --seed; `train_gppvae`
+also takes injected initial params and a `draws(epoch)` callable, so that a
+test can feed it the JAX trainer's own draws.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import os
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+
+from gppvae_tpu.data.dataset import GridDataset
+from gppvae_tpu.utils.metrics import MetricsLogger
+from gppvae_tpu_torch import gp
+from gppvae_tpu_torch.convert import gp_params_from_numpy
+from gppvae_tpu_torch.eval.oos import predict_heldout
+from gppvae_tpu_torch.models import VAE, encode_all
+from gppvae_tpu_torch.train.batching import epoch_batches, masked_means, num_batches
+from gppvae_tpu_torch.train.device import PhaseTimer, resolve_device, set_float32_precision
+from gppvae_tpu_torch.train.losses import (
+    gaussian_recon_nll,
+    logit_saturation_penalty,
+    neg_entropy,
+)
+from gppvae_tpu_torch.train.optim import GuardedAdam
+
+_METRIC_KEYS = (
+    "loss", "recon_term", "gp_term", "pen_term", "mse",
+    "gp_nll_full", "v_sig", "v_noise", "oos_mse",
+)
+FINAL_PARAMS_FILE = "final_params.pt"
+
+# options of the JAX trainer the port does not carry yet: each raises when
+# set away from this default (ROADMAP "Left to port")
+_UNPORTED = {
+    "learn_sigma_y": False,
+    "object_kernel": "linear",
+    "extra_effects": (),
+    "compute_dtype": "float32",
+    "dec_upsample": "resize",
+    "polish_epochs": 0,
+    "grad_accum_steps": 1,
+    "refresh_every_steps": 0,
+    "resume": None,
+    "profile_dir": None,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class GPPVAETrainConfig:
+    mode: str = "joint"  # 'joint' | 'dis'
+    zdim: int = 16
+    epochs: int = 100
+    batch_size: int = 128
+    lr_vae: float = 2e-4
+    lr_gp: float = 1e-3
+    seed: int = 0
+    sigma_y: float = 0.1
+    learn_sigma_y: bool = False
+    obj_feature_dim: int = 8  # object rank M
+    view_num_freqs: int = 3  # Fourier view features → M_w = 2f + 1
+    view_feature_dim: int | None = None
+    object_kernel: str = "linear"
+    extra_effects: tuple = ()
+    init_v_sig: float = 1.0
+    init_v_noise: float = 0.5
+    enc_features: Sequence[int] = (32, 64, 128)
+    dec_features: Sequence[int] = (128, 64, 32)
+    compute_dtype: str = "float32"
+    dec_upsample: str = "resize"
+    polish_epochs: int = 0
+    clip_grad_norm: float = 1e5  # global-norm clip in front of Adam (<=0 off)
+    sat_penalty: float = 1.0  # saturation-death barrier weight (<=0 off)
+    grad_accum_steps: int = 1
+    refresh_every_steps: int = 0
+    vae_weights: str | None = None  # train_vae's vae_weights.pt
+    resume: str | None = None
+    profile_dir: str | None = None
+    encode_chunk: int = 1024  # Phase-A chunk (activation footprint cap)
+    outdir: str | None = None
+    data: str | None = None  # the CLI --data flag, recorded in config.json
+
+
+@dataclasses.dataclass
+class GPPVAETrainResult:
+    model: VAE
+    gp_params: dict  # {'X', 'W' (joint), 'log_vs', 'log_vn'}
+    fixed_W: torch.Tensor | None  # the fixed view features in 'dis' mode
+    config: GPPVAETrainConfig
+    history: list[dict]
+    data: dict  # the tensors trained on, on the device: images_tr, d_tr, q_tr, *_ho
+
+
+def _check_ported(config: GPPVAETrainConfig) -> None:
+    if config.mode not in ("joint", "dis"):
+        raise ValueError(f"unknown mode {config.mode!r}; want 'joint' or 'dis'")
+    for name, default in _UNPORTED.items():
+        value = getattr(config, name)
+        if value != default:
+            raise NotImplementedError(
+                f"{name}={value!r} is not ported to gppvae_tpu_torch yet (see "
+                "ROADMAP); the JAX trainer gppvae_tpu.train has it"
+            )
+
+
+def _init_view_features(config: GPPVAETrainConfig, dataset: GridDataset,
+                        generator: torch.Generator) -> torch.Tensor:
+    """Fixed view features (Q, M_w) float32 from the view auxiliary:
+    Fourier features of rotation angles, polynomial features of a linear
+    axis, else random unit rows (drawn from `generator`, so not the JAX
+    package's draw)."""
+    aux = dataset.view_aux
+    if aux.shape[1] == 1 and dataset.periodic_views:
+        freqs = config.view_num_freqs
+        if config.view_feature_dim is not None:
+            if config.view_feature_dim < 3 or config.view_feature_dim % 2 == 0:
+                raise ValueError(
+                    "view_feature_dim must be odd ≥ 3 for periodic view aux "
+                    f"(got {config.view_feature_dim}); Fourier rank is 1+2f"
+                )
+            freqs = (config.view_feature_dim - 1) // 2
+        angles = torch.from_numpy(np.asarray(aux[:, 0], np.float32))
+        return gp.fourier_view_features(angles, num_freqs=freqs)
+    if aux.shape[1] == 1:
+        degree = (config.view_feature_dim or (2 * config.view_num_freqs + 1)) - 1
+        pos = torch.from_numpy(np.asarray(aux[:, 0], np.float32))
+        return gp.polynomial_view_features(pos, degree=degree)
+    Mw = config.view_feature_dim or (2 * config.view_num_freqs + 1)
+    return gp.normalize_rows(torch.randn((dataset.num_views, Mw), generator=generator))
+
+
+def _setup(dataset: GridDataset, config: GPPVAETrainConfig, device: torch.device,
+           generator: torch.Generator, init_params: dict | None = None):
+    """(model, gp_params, fixed_W, data, num_train). init_params may give
+    {'vae': state_dict, 'gp': {name: array}}, each replacing the fresh
+    init (and --vae_weights)."""
+    init_params = init_params or {}
+    model = VAE(config.zdim, dataset.image_shape, config.enc_features,
+                config.dec_features, config.dec_upsample, generator=generator)
+    if "vae" in init_params:
+        model.load_state_dict({k: torch.as_tensor(v) for k, v in init_params["vae"].items()})
+    elif config.vae_weights:
+        model.load_state_dict(torch.load(config.vae_weights, map_location="cpu",
+                                         weights_only=True))
+    model.to(device)
+
+    W0 = _init_view_features(config, dataset, generator)
+    M = config.obj_feature_dim
+    gp_init = {
+        "X": torch.randn((dataset.num_objects, M), generator=generator) / math.sqrt(M),
+        "log_vs": torch.full((1,), math.log(config.init_v_sig)),
+        "log_vn": torch.tensor(math.log(config.init_v_noise)),
+    }
+    fixed_W = None
+    if config.mode == "joint":
+        gp_init["W"] = W0
+    else:
+        fixed_W = W0.to(device)
+    for k, v in gp_params_from_numpy(init_params.get("gp", {})).items():
+        if k not in gp_init:
+            raise KeyError(f"unknown GP param {k!r} for mode {config.mode!r}")
+        gp_init[k] = v
+    gp_params = {k: torch.nn.Parameter(v.to(device=device, dtype=torch.float32))
+                 for k, v in gp_init.items()}
+
+    def rows(idx):
+        return torch.from_numpy(np.asarray(idx, np.int64)).to(device)
+
+    tr, ho = dataset.train_idx, dataset.heldout_idx
+    data = {
+        "images_tr": torch.from_numpy(dataset.images[tr]).to(device),
+        "d_tr": rows(dataset.object_ids[tr]),
+        "q_tr": rows(dataset.view_ids[tr]),
+        "y_ho": torch.from_numpy(dataset.images[ho]).to(device),
+        "d_ho": rows(dataset.object_ids[ho]),
+        "q_ho": rows(dataset.view_ids[ho]),
+    }
+    return model, gp_params, fixed_W, data, len(tr)
+
+
+class _Loop:
+    """The epoch's building blocks over one model, its GP params and data."""
+
+    def __init__(self, model: VAE, gp_params: dict, fixed_W, data: dict,
+                 num_train: int, config: GPPVAETrainConfig):
+        self.model, self.gp, self.fixed_W = model, gp_params, fixed_W
+        self.data, self.num_train, self.config = data, num_train, config
+        if config.batch_size > num_train:
+            raise ValueError(f"batch_size {config.batch_size} exceeds train set {num_train}")
+        self.nb = num_batches(num_train, config.batch_size)
+        self.chunk = min(config.encode_chunk, num_train)
+        self.opt_vae = GuardedAdam(model.parameters(), config.lr_vae, config.clip_grad_norm)
+        self.opt_gp = GuardedAdam([gp_params[k] for k in sorted(gp_params)],
+                                  config.lr_gp, config.clip_grad_norm)
+
+    def view_W(self):
+        return self.gp["W"] if self.config.mode == "joint" else self.fixed_W
+
+    def aux(self) -> dict:
+        return {"log_vs": self.gp["log_vs"], "log_vn": self.gp["log_vn"]}
+
+    def nll_fn(self, Z, Vs, aux):
+        v_sig, v_noise = gp.variances_from_log(aux["log_vs"], aux["log_vn"])
+        return gp.gp_nll_from_features(
+            Z, Vs, [v_sig[i] for i in range(len(Vs))], v_noise,
+            num_rows=self.num_train,
+        )
+
+    # -- Phase A
+    def encode(self) -> torch.Tensor:
+        return encode_all(self.model, self.data["images_tr"], self.chunk)
+
+    # -- Phase B
+    def solve(self, Z0: torch.Tensor) -> gp.TaylorCoefficients:
+        d = self.data
+        with torch.no_grad():
+            V0 = gp.build_effect_rows(self.gp["X"], self.view_W(), d["d_tr"], d["q_tr"])
+        return gp.taylor_expand(self.nll_fn, Z0, V0,
+                                {k: v.detach() for k, v in self.aux().items()})
+
+    # -- Phase C
+    def minibatch_step(self, coeffs, pos, w, eps) -> torch.Tensor:
+        """One guarded-Adam step on both groups; returns the (5,) metrics
+        [loss, recon, gp_term, pen, mse] (masked means; gp_term per bs)."""
+        config, d, bs = self.config, self.data, self.config.batch_size
+        y = d["images_tr"][pos]
+        mu, logvar = self.model.encode(y)
+        z = mu + torch.exp(0.5 * logvar) * eps
+        logits = self.model.decode(z)
+        recon, mse = gaussian_recon_nll(y, torch.sigmoid(logits), config.sigma_y)
+        if config.sat_penalty > 0:
+            recon = recon + config.sat_penalty * logit_saturation_penalty(logits)
+        v = gp.build_effect_rows(self.gp["X"], self.view_W(), d["d_tr"][pos], d["q_tr"][pos])
+        gp_term = gp.surrogate_batch_term(
+            coeffs, pos, z, v, self.aux(), self.num_train, weights=w) / bs
+        pen_rows = neg_entropy(logvar)
+        # sum over VALID rows / constant bs (batching.py convention)
+        loss = (torch.sum(w * recon) + torch.sum(w * pen_rows)) / bs + gp_term
+        recon_m, pen_m, mse_m = masked_means(w, recon, pen_rows, mse)
+        self.opt_vae.zero_grad()
+        self.opt_gp.zero_grad()
+        loss.backward()
+        self.opt_vae.step()
+        self.opt_gp.step()
+        return torch.stack([loss, recon_m, gp_term, pen_m, mse_m]).detach()
+
+    def minibatch_epoch(self, coeffs, batches, weights, eps) -> torch.Tensor:
+        """All steps of one plan; the (5,) metrics averaged over steps."""
+        rows = [self.minibatch_step(coeffs, batches[b], weights[b], eps[b])
+                for b in range(batches.shape[0])]
+        return torch.stack(rows).mean(dim=0)
+
+    # -- eval
+    def oos(self, Z: torch.Tensor):
+        d = self.data
+        return predict_heldout(self.model, self.gp, self.fixed_W, Z, d["d_tr"],
+                               d["q_tr"], d["d_ho"], d["q_ho"], d["y_ho"])
+
+    def run_epoch(self, draws: Callable, epoch: int) -> tuple[dict, dict]:
+        """One epoch: Phase A, B, C, then eval, each timed to a device sync.
+        Returns ({_METRIC_KEYS: float}, {phase: seconds})."""
+        device = self.data["images_tr"].device
+        timer = PhaseTimer(device)
+        with timer.phase("A_encode"):
+            Z0 = self.encode()
+        with timer.phase("B_solve"):
+            coeffs = self.solve(Z0)
+        with timer.phase("C_minibatch"):
+            batches, weights, eps = draws(epoch)
+            cm = self.minibatch_epoch(coeffs, batches.to(device),
+                                      weights.to(device), eps.to(device))
+        with timer.phase("eval_oos"):
+            _, oos_mse = self.oos(self.encode())
+        row = [*cm.tolist(), float(coeffs.value) / self.num_train,
+               math.exp(float(self.gp["log_vs"][0].detach())),
+               math.exp(float(self.gp["log_vn"].detach())), float(oos_mse)]
+        return dict(zip(_METRIC_KEYS, row)), timer.seconds
+
+
+def make_draws(generator: torch.Generator, num_train: int, bs: int, zdim: int) -> Callable:
+    """draws(epoch) → (batches, weights, eps (nb, bs, zdim)), in epoch
+    order from `generator`."""
+    nb = num_batches(num_train, bs)
+
+    def draws(epoch: int):
+        batches, weights = epoch_batches(generator, num_train, bs)
+        return batches, weights, torch.randn((nb, bs, zdim), generator=generator)
+
+    return draws
+
+
+def train_gppvae(
+    dataset: GridDataset,
+    config: GPPVAETrainConfig,
+    *,
+    device: torch.device | str,
+    init_params: dict | None = None,
+    draws: Callable | None = None,
+    log: MetricsLogger | None = None,
+) -> GPPVAETrainResult:
+    _check_ported(config)
+    device = resolve_device(str(device))
+    set_float32_precision(config.compute_dtype)
+    own_log = log is None
+    log = log or MetricsLogger(config.outdir)
+    if config.outdir:
+        os.makedirs(config.outdir, exist_ok=True)
+        with open(os.path.join(config.outdir, "config.json"), "w") as f:
+            json.dump({**dataclasses.asdict(config), "device": str(device)}, f,
+                      indent=1, default=list)
+    gen = torch.Generator().manual_seed(config.seed)
+    model, gp_params, fixed_W, data, num_train = _setup(
+        dataset, config, device, gen, init_params)
+    loop = _Loop(model, gp_params, fixed_W, data, num_train, config)
+    draws = draws or make_draws(gen, num_train, config.batch_size, config.zdim)
+
+    history: list[dict] = []
+    for epoch in range(config.epochs):
+        metrics, seconds = loop.run_epoch(draws, epoch)
+        rec = {
+            "driver": f"train_gppvae[{config.mode}]",
+            "epoch": epoch,
+            **metrics,
+            "sec_epoch": sum(seconds.values()),
+            **{f"sec_{k}": v for k, v in seconds.items()},
+        }
+        log.log(rec)
+        history.append(rec)
+
+    if config.outdir:
+        torch.save(
+            {"vae": {k: v.cpu() for k, v in model.state_dict().items()},
+             "gp": {k: v.detach().cpu() for k, v in gp_params.items()},
+             "fixed_W": None if fixed_W is None else fixed_W.cpu()},
+            os.path.join(config.outdir, FINAL_PARAMS_FILE),
+        )
+    if own_log:
+        log.close()
+    return GPPVAETrainResult(model=model, gp_params=gp_params, fixed_W=fixed_W,
+                             config=config, history=history, data=data)
+
+
+def main(argv=None) -> GPPVAETrainResult:
+    import argparse
+
+    p = argparse.ArgumentParser(description="GPPVAE training (dis/joint)")
+    p.add_argument("--data", default="synthetic",
+                   help="synthetic | sklearn | mnist:<dir> | faces[:h5:<path>] | npz:<path>")
+    p.add_argument("--outdir", default="./out/gppvae")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--mode", default="joint", choices=["joint", "dis"])
+    p.add_argument("--vae_weights", default=None,
+                   help="vae_weights.pt from train_vae (the handoff)")
+    p.add_argument("--zdim", type=int, default=16)
+    p.add_argument("--bs", type=int, default=128)
+    p.add_argument("--lr", type=float, default=2e-4, help="VAE learning rate")
+    p.add_argument("--gp_lr", type=float, default=1e-3)
+    p.add_argument("--epochs", type=int, default=100)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--sigma_y", type=float, default=0.1)
+    p.add_argument("--xdim", type=int, default=8, help="object feature rank M")
+    p.add_argument("--view_freqs", type=int, default=3)
+    p.add_argument("--view_feature_dim", type=int, default=None)
+    p.add_argument("--num_objects", type=int, default=400)
+    p.add_argument("--num_views", type=int, default=16)
+    p.add_argument("--clip_grad_norm", type=float, default=1e5)
+    p.add_argument("--init_v_sig", type=float, default=1.0)
+    p.add_argument("--init_v_noise", type=float, default=0.5)
+    p.add_argument("--enc_features", default="32,64,128")
+    p.add_argument("--dec_features", default="128,64,32")
+    p.add_argument("--encode_chunk", type=int, default=1024)
+    p.add_argument("--image_size", type=int, default=None)
+    args = p.parse_args(argv)
+
+    from gppvae_tpu.config.datasets import build_dataset_from_flag
+
+    device = resolve_device(args.device)
+    ds = build_dataset_from_flag(args.data, args.num_objects, args.num_views,
+                                 args.seed, image_size=args.image_size)
+    config = GPPVAETrainConfig(
+        mode=args.mode, zdim=args.zdim, epochs=args.epochs, batch_size=args.bs,
+        lr_vae=args.lr, lr_gp=args.gp_lr, seed=args.seed, sigma_y=args.sigma_y,
+        obj_feature_dim=args.xdim, view_num_freqs=args.view_freqs,
+        view_feature_dim=args.view_feature_dim, clip_grad_norm=args.clip_grad_norm,
+        init_v_sig=args.init_v_sig, init_v_noise=args.init_v_noise,
+        enc_features=tuple(int(f) for f in args.enc_features.split(",")),
+        dec_features=tuple(int(f) for f in args.dec_features.split(",")),
+        encode_chunk=args.encode_chunk, vae_weights=args.vae_weights,
+        outdir=args.outdir, data=args.data,
+    )
+    return train_gppvae(ds, config, device=device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,226 @@
+"""The port's training drivers against the JAX trainer.
+
+At the golden config (tests/test_golden.py): the port starts from the JAX
+trainer's own initial params (gppvae_tpu.train.train_gppvae._setup, converted)
+and is fed the JAX trainer's own draws (batching.epoch_keys → epoch_batches,
+then ε from split(fold_in(epoch_key, 1), nb)). Tolerances (float32):
+  * one Phase-C step: metrics rtol 1e-5; every updated param atol 2e-6 /
+    rtol 1e-4 (Adam's first step moves each param by ~lr = 5e-4, so the
+    atol is 0.4 % of one step);
+  * the 2-epoch GPPVAE trajectory ('joint' and 'dis'): every history key
+    rtol 1e-4.
+The optimizer test runs in float64 and holds the port to optax at 1e-12.
+"""
+
+import functools
+import importlib
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from gppvae_tpu.data import build_rotated_digits
+from gppvae_tpu.train.batching import epoch_batches as jax_epoch_batches
+from gppvae_tpu.train.batching import epoch_keys
+from gppvae_tpu_torch import ops
+from gppvae_tpu_torch.convert import flax_to_state_dict
+from gppvae_tpu_torch.train import train_gppvae, train_vae
+from gppvae_tpu_torch.train.optim import GuardedAdam
+
+# the module (gppvae_tpu.train re-exports a function of the same name)
+jtrain = importlib.import_module("gppvae_tpu.train.train_gppvae")
+REPO = Path(__file__).resolve().parent.parent
+GOLDEN = dict(mode="joint", zdim=6, epochs=2, batch_size=16, lr_vae=5e-4,
+              lr_gp=5e-3, seed=7, obj_feature_dim=4, view_num_freqs=2,
+              enc_features=(8, 16), dec_features=(16, 8))
+GOLDEN_CLI = ["--data", "synthetic", "--num_objects", "10", "--num_views", "8",
+              "--zdim", "6", "--bs", "16", "--enc_features", "8,16",
+              "--dec_features", "16,8", "--seed", "7", "--device", "cpu"]
+
+
+@functools.cache
+def _golden(mode):
+    ds = build_rotated_digits("synthetic", num_objects=10, num_views=8, seed=7)
+    jcfg = jtrain.GPPVAETrainConfig(**{**GOLDEN, "mode": mode})
+    model, params, fixed_W, arrays, rng, num_train = jtrain._setup(ds, jcfg, None, None)
+    init = {
+        "vae": flax_to_state_dict(jax.tree.map(np.asarray, params["vae"])),
+        "gp": {k: np.asarray(v) for k, v in params["gp"].items()},
+    }
+    return dict(ds=ds, jcfg=jcfg, model=model, params=params, fixed_W=fixed_W,
+                arrays=arrays, rng=rng, num_train=num_train, init=init)
+
+
+@pytest.fixture
+def golden():
+    return _golden("joint")
+
+
+def _jax_plan(rng, epoch, num_train, bs, zdim, nb=None):
+    """The JAX trainer's draws for one epoch (train_gppvae.py:456,507-508)."""
+    key = epoch_keys(rng, epoch, 1)[0]
+    batches, weights = jax_epoch_batches(key, num_train, bs)
+    nb = nb or batches.shape[0]
+    step_keys = jax.random.split(jax.random.fold_in(key, 1), nb)
+    eps = jnp.stack([jax.random.normal(k, (bs, zdim), jnp.float32) for k in step_keys])
+    return key, batches[:nb], weights[:nb], eps
+
+
+def _to_torch(*arrays):
+    return [torch.from_numpy(np.array(a)) for a in arrays]
+
+
+def _port(golden, **overrides):
+    cfg = train_gppvae.GPPVAETrainConfig(**{**GOLDEN, **overrides})
+    model, gp_params, fixed_W, data, n = train_gppvae._setup(
+        golden["ds"], cfg, torch.device("cpu"), torch.Generator().manual_seed(0),
+        golden["init"])
+    return train_gppvae._Loop(model, gp_params, fixed_W, data, n, cfg)
+
+
+def test_one_phase_c_step_matches_jax(golden, monkeypatch):
+    g = golden
+    cfg = g["jcfg"]
+    accum = 1
+    opt_vae = jtrain.make_optimizer(cfg.lr_vae, cfg.clip_grad_norm, accum)
+    opt_gp = jtrain.make_optimizer(cfg.lr_gp, cfg.clip_grad_norm, accum)
+    jloop = jtrain._Loop(g["model"], opt_vae, opt_gp, cfg, g["num_train"], None)
+    a = g["arrays"]
+    Z0, coeffs = jloop.refresh_and_solve(g["params"], g["fixed_W"], a["images_tr"],
+                                         a["d_tr"], a["q_tr"])
+    key, batches, weights, eps = _jax_plan(g["rng"], 0, g["num_train"], 16, 6, nb=1)
+    # run the JAX trainer's own minibatch scan for its first step only
+    monkeypatch.setattr(jtrain, "epoch_batches", lambda k, n, bs: (batches, weights))
+    jloop.nb = 1
+    params1, _, _, jm = jloop.minibatch_epoch(
+        g["params"], opt_vae.init(g["params"]["vae"]), opt_gp.init(g["params"]["gp"]),
+        g["fixed_W"], a["images_tr"], a["d_tr"], a["q_tr"], coeffs, key)
+
+    loop = _port(g)
+    tZ0 = loop.encode()
+    np.testing.assert_allclose(tZ0.numpy(), np.asarray(Z0), rtol=1e-4, atol=1e-5)
+    tcoeffs = loop.solve(tZ0)
+    np.testing.assert_allclose(float(tcoeffs.value), float(coeffs.value), rtol=1e-5)
+    pos, w, e = _to_torch(batches[0], weights[0], eps[0])
+    m = loop.minibatch_step(tcoeffs, pos.long(), w, e)
+    np.testing.assert_allclose(m.numpy(), np.asarray(jm), rtol=1e-5)
+
+    want = flax_to_state_dict(jax.tree.map(np.asarray, params1["vae"]))
+    for k, v in loop.model.state_dict().items():
+        np.testing.assert_allclose(v.numpy(), want[k].numpy(), rtol=1e-4, atol=2e-6,
+                                   err_msg=k)
+    for k, v in loop.gp.items():
+        np.testing.assert_allclose(v.detach().numpy(), np.asarray(params1["gp"][k]),
+                                   rtol=1e-4, atol=2e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("mode", ["joint", "dis"])
+def test_two_epoch_trajectory_matches_jax(mode):
+    g = _golden(mode)
+    jres = jtrain.train_gppvae(g["ds"], g["jcfg"], log=_Quiet())
+    nb = -(-g["num_train"] // 16)
+
+    def draws(epoch):
+        _, batches, weights, eps = _jax_plan(g["rng"], epoch, g["num_train"], 16, 6)
+        assert batches.shape[0] == nb
+        b, w, e = _to_torch(batches, weights, eps)
+        return b.long(), w, e
+
+    cfg = train_gppvae.GPPVAETrainConfig(**{**GOLDEN, "mode": mode})
+    res = train_gppvae.train_gppvae(g["ds"], cfg, device="cpu", init_params=g["init"],
+                                    draws=draws, log=_Quiet())
+    assert len(res.history) == len(jres.history) == 2
+    for ours, theirs in zip(res.history, jres.history):
+        for k in train_gppvae._METRIC_KEYS:
+            np.testing.assert_allclose(ours[k], theirs[k], rtol=1e-4, err_msg=k)
+        assert ours["sec_epoch"] > 0
+
+
+class _Quiet:
+    def log(self, rec):
+        pass
+
+
+def test_cli_entry_points_on_cpu(tmp_path):
+    ops.reset_launch_counts()
+    vae = train_vae.main([*GOLDEN_CLI, "--epochs", "1", "--outdir", str(tmp_path / "vae")])
+    weights = tmp_path / "vae" / train_vae.WEIGHTS_FILE
+    assert weights.is_file() and np.isfinite(vae.history[0]["loss"])
+    res = train_gppvae.main([*GOLDEN_CLI, "--epochs", "1", "--mode", "joint",
+                             "--xdim", "4", "--view_freqs", "2",
+                             "--vae_weights", str(weights),
+                             "--outdir", str(tmp_path / "gppvae")])
+    rec = res.history[0]
+    assert all(np.isfinite(rec[k]) for k in train_gppvae._METRIC_KEYS)
+    assert (tmp_path / "gppvae" / train_gppvae.FINAL_PARAMS_FILE).is_file()
+    assert (tmp_path / "gppvae" / "metrics.jsonl").is_file()
+    assert set(ops.launch_counts().values()) == {0}  # CPU: plain versions only
+
+
+def test_device_and_unported_options_raise(golden):
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            train_gppvae.main(["--device", "cuda", "--epochs", "1"])
+    for bad in (dict(compute_dtype="bfloat16"), dict(dec_upsample="subpixel"),
+                dict(learn_sigma_y=True), dict(grad_accum_steps=2),
+                dict(refresh_every_steps=3), dict(extra_effects=("object",)),
+                dict(object_kernel="rbf"), dict(resume="x"), dict(profile_dir="x")):
+        cfg = train_gppvae.GPPVAETrainConfig(**{**GOLDEN, **bad})
+        with pytest.raises(NotImplementedError, match="not ported"):
+            train_gppvae.train_gppvae(golden["ds"], cfg, device="cpu", log=_Quiet())
+
+
+def test_package_imports_no_jax(tmp_path):
+    code = (
+        "import importlib, pkgutil, sys, gppvae_tpu_torch\n"
+        "for m in pkgutil.walk_packages(gppvae_tpu_torch.__path__, 'gppvae_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from gppvae_tpu_torch.train import train_gppvae\n"
+        f"train_gppvae.main({[*GOLDEN_CLI, '--epochs', '1', '--xdim', '4', '--view_freqs', '2']!r}"
+        " + ['--outdir', sys.argv[1]])\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax', 'optax')))\n"
+        "assert not bad, bad\n"
+        "print('NO_JAX_OK')\n"
+    )
+    # with GPPVAE_COMPILE_CACHE set, gppvae_tpu/__init__.py imports jax
+    env = {k: v for k, v in os.environ.items() if k != "GPPVAE_COMPILE_CACHE"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "NO_JAX_OK" in out.stdout
+
+
+def test_guarded_adam_matches_optax_spike_guard():
+    """Adam through the guard equals the JAX trainer's spike_guard(optax.adam)
+    in float64: plain steps, a step above the clip, and a non-finite step
+    that must leave params, moments and step count untouched."""
+    rng = np.random.default_rng(0)
+    p0 = {"a": rng.standard_normal((4, 3)), "b": rng.standard_normal(5)}
+    scale = [1.0, 1.0, 1e6, np.nan, 1.0, 0.5]  # a spike above clip 1e3, then NaN
+    grads = [{k: rng.standard_normal(v.shape) * s for k, v in p0.items()} for s in scale]
+
+    opt = jtrain.spike_guard(optax.adam(1e-2), 1e3)
+    jp = jax.tree.map(jnp.asarray, p0)
+    state = opt.init(jp)
+    tp = {k: torch.nn.Parameter(torch.tensor(v)) for k, v in p0.items()}
+    topt = GuardedAdam([tp[k] for k in sorted(tp)], lr=1e-2, clip_grad_norm=1e3)
+    for g in grads:
+        upd, state = opt.update(jax.tree.map(jnp.asarray, g), state, jp)
+        jp = optax.apply_updates(jp, upd)
+        for k, p in tp.items():
+            p.grad = torch.tensor(g[k])
+        stepped = topt.step()
+        assert stepped == bool(np.all([np.isfinite(v).all() for v in g.values()]))
+        for k in p0:
+            np.testing.assert_allclose(tp[k].detach().numpy(), np.asarray(jp[k]),
+                                       rtol=1e-12, atol=1e-14)
+    assert topt.notfinite_count == int(state["notfinite_count"]) == 1
+    assert int(topt.adam.state[tp["a"]]["step"]) == 5
