@@ -18,7 +18,21 @@ Phases, one per printed line group; any failure ends the run non-zero:
      through their `main(argv)`; checks finite metrics, a falling loss, the
      kernels' launch counts, no plain-version call on a CUDA tensor, and the
      final GP NLL on the card against a float64 CPU evaluation;
-  5. the last line: {"ok": true, "device": {...}}.
+  5. (a) the headline (bench.py config 3b): the same slice with --dtype
+     bfloat16 --dec_upsample subpixel, and --polish_epochs 1 for the joint
+     run; checks that both Adams restarted at the float32 switch and the
+     bf16 latents against the same weights in f32;
+     (b) the GP options at face-view 128² (config 4 widths): rbf object
+     kernel (32 RFF features), an extra object effect, learn_sigma_y,
+     grad_accum_steps 2, refresh_every_steps 3, subpixel, 2 epochs; R = 232
+     runs nll_core's global-scratch branch inside training; checks the
+     launch count per refresh, the final GP NLL against CPU float64, and
+     times both kernels at R = 232;
+     (c) rbf-nystrom on the digits, 1 epoch;
+  6. the last line: {"ok": true, "device": {...}}.
+
+Every path (4, 5a-c) sets the kernels' counts to 0 just before it and reads
+them just after; the `kernels` line sums its launches over the paths.
 """
 
 from __future__ import annotations
@@ -39,8 +53,17 @@ FACTOR_PREP_REL_BOUND = 1e-5  # max abs err / max |plain|, fp32 sums of N terms
 NLL_VALUE_REL_BOUND = 1e-5
 NLL_GRAD_REL_BOUND = 1e-4  # per gradient, err / max |plain grad|
 SLICE_NLL_REL_BOUND = 1e-4  # card (fp32, kernels) vs CPU float64, N = 5700
+# bf16 vs f32 latents of the same trained weights, max abs err / max |Z|:
+# 4.8e-3 measured on an H100; the CPU bound of bf16 against flax's bf16
+LATENT_BF16_REL_BOUND = 2e-2
 SLICE_ARGS = ["--data", "synthetic", "--num_objects", "400", "--num_views", "16",
               "--seed", "0", "--device", "cuda"]
+HEADLINE = ["--dtype", "bfloat16", "--dec_upsample", "subpixel"]
+FACES_ARGS = ["--data", "faces", "--num_objects", "50", "--num_views", "8",
+              "--image_size", "128", "--zdim", "32", "--bs", "64", "--seed", "0",
+              "--device", "cuda", "--dec_upsample", "subpixel", "--object_kernel", "rbf",
+              "--rff_features", "32", "--extra_effects", "object", "--learn_sigma_y",
+              "--grad_accum_steps", "2", "--refresh_every_steps", "3"]
 
 
 def say(*parts) -> None:
@@ -184,25 +207,24 @@ def phase_kernels() -> dict:
     return stats
 
 
-def phase_slice() -> dict:
-    from gppvae_tpu_torch import gp, ops
-    from gppvae_tpu_torch.models import encode_all
-    from gppvae_tpu_torch.train import train_gppvae, train_vae
+def drive(label: str, fn):
+    """Run one path with the kernels' counts set to 0 just before it and
+    read just after; checks that no plain version ran on a CUDA tensor.
+    Returns (fn's result, counts)."""
+    from gppvae_tpu_torch import ops
 
-    say("== 4 slice: train_vae 1 epoch → train_gppvae --mode joint 3 epochs "
-        "(P=400, Q=16, zdim 16, R=56, bs 128, f32)")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        ops.reset_launch_counts()
-        train_vae.main([*SLICE_ARGS, "--epochs", "1", "--outdir", f"{tmp}/vae"])
-        result = train_gppvae.main([
-            *SLICE_ARGS, "--mode", "joint", "--epochs", "3",
-            "--vae_weights", f"{tmp}/vae/{train_vae.WEIGHTS_FILE}",
-            "--outdir", f"{tmp}/gppvae",
-        ])
-        torch.cuda.synchronize()
-        counts = ops.launch_counts()
-    say(f"launch counts over the main path: {counts}")
-    hist = result.history
+    ops.reset_launch_counts()
+    result = fn()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    say(f"{label}: launch counts {counts}")
+    check(counts["factor_prep_torch.cuda_calls"] == 0
+          and counts["nll_core_torch.cuda_calls"] == 0,
+          f"{label}: no plain version ran on a CUDA tensor")
+    return result, counts
+
+
+def report(hist) -> None:
     for h in hist:
         phases = " ".join(f"{k} {v:.5f}" for k, v in h.items()
                           if k.startswith("sec_") and k != "sec_epoch")
@@ -210,31 +232,161 @@ def phase_slice() -> dict:
             f"oos_mse {h['oos_mse']:.6f} sec_epoch {h['sec_epoch']:.4f} ({phases})")
     check(all(math.isfinite(v) for h in hist for k, v in h.items()
               if isinstance(v, float)), "every metric is finite")
-    check(hist[-1]["loss"] < hist[0]["loss"], "loss falls from the first epoch to the last")
-    check(counts["launch_factor_prep.launches"] >= 3, "factor_prep launched >= 3 times")
-    check(counts["launch_nll_core.launches"] >= 3, "nll_core launched >= 3 times")
-    check(counts["factor_prep_torch.cuda_calls"] == 0
-          and counts["nll_core_torch.cuda_calls"] == 0,
-          "no plain version ran on a CUDA tensor")
 
-    # the trained model's exact GP NLL on the rows it trained on: kernels on
-    # the card vs CPU float64
-    data, p = result.data, result.gp_params
-    num_train = data["images_tr"].shape[0]
+
+def final_nll_check(result, label: str) -> tuple:
+    """The trained model's exact GP NLL on the rows it trained on: kernels
+    on the card vs CPU float64. Returns (Z, Vs, v_sigs, v_noise)."""
+    from gppvae_tpu_torch import gp
+    from gppvae_tpu_torch.models import encode_all
+
+    data, p, cfg = result.data, result.gp_params, result.config
+    W = p["W"] if "W" in p else result.fixed_W
     with torch.no_grad():
         Z = encode_all(result.model, data["images_tr"], 1024)
-        V = gp.build_effect_rows(p["X"], p["W"], data["d_tr"], data["q_tr"])
+        Vs = gp.build_effect_rows(p["X"], W, data["d_tr"], data["q_tr"],
+                                  extra_effects=cfg.extra_effects, x_map=result.x_map)
         v_sig, v_noise = gp.variances_from_log(p["log_vs"], p["log_vn"])
-        nll_card = float(gp.gp_nll_from_features(Z, V, v_sig[0], v_noise))
+        v_sigs = [v_sig[i] for i in range(len(Vs))]
+        nll_card = float(gp.gp_nll_from_features(Z, Vs, v_sigs, v_noise))
         nll_cpu = float(gp.gp_nll_from_features(
-            Z.cpu().double(), [v.cpu().double() for v in V],
-            v_sig[0].cpu().double(), v_noise.cpu().double()))
+            Z.cpu().double(), [v.cpu().double() for v in Vs],
+            [v.cpu().double() for v in v_sigs], v_noise.cpu().double()))
     rel = abs(nll_card - nll_cpu) / abs(nll_cpu)
-    say(f"final GP NLL: card (kernels, f32) {nll_card:.4f}, CPU f64 {nll_cpu:.4f}, "
-        f"rel {rel:.3e} (bound {SLICE_NLL_REL_BOUND:.0e}); Z {tuple(Z.shape)}")
-    check(rel <= SLICE_NLL_REL_BOUND, "final GP NLL agrees with CPU float64")
-    check(num_train == 5700 and Z.shape == (num_train, 16) and bool(torch.isfinite(Z).all()),
-          "latents finite, (5700, 16)")
+    say(f"{label} final GP NLL: card (kernels, f32) {nll_card:.4f}, CPU f64 {nll_cpu:.4f}, "
+        f"rel {rel:.3e} (bound {SLICE_NLL_REL_BOUND:.0e}); Z {tuple(Z.shape)}, "
+        f"R = {sum(v.shape[1] for v in Vs)}")
+    check(rel <= SLICE_NLL_REL_BOUND, f"{label}: final GP NLL agrees with CPU float64")
+    check(bool(torch.isfinite(Z).all()), f"{label}: latents finite")
+    return Z, Vs, v_sigs, v_noise
+
+
+def phase_slice() -> dict:
+    from gppvae_tpu_torch.train import train_gppvae, train_vae
+
+    say("== 4 slice: train_vae 1 epoch → train_gppvae --mode joint 3 epochs "
+        "(P=400, Q=16, zdim 16, R=56, bs 128, f32)")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        def run():
+            train_vae.main([*SLICE_ARGS, "--epochs", "1", "--outdir", f"{tmp}/vae"])
+            return train_gppvae.main([
+                *SLICE_ARGS, "--mode", "joint", "--epochs", "3",
+                "--vae_weights", f"{tmp}/vae/{train_vae.WEIGHTS_FILE}",
+                "--outdir", f"{tmp}/gppvae",
+            ])
+
+        result, counts = drive("4 slice", run)
+    hist = result.history
+    report(hist)
+    check(hist[-1]["loss"] < hist[0]["loss"], "loss falls from the first epoch to the last")
+    check(counts["launch_factor_prep.launches"] == 3, "factor_prep launched once per epoch")
+    check(counts["launch_nll_core.launches"] == 3, "nll_core launched once per epoch")
+    Z, *_ = final_nll_check(result, "4 slice")
+    check(Z.shape == (5700, 16), "latents (5700, 16)")
+    return counts
+
+
+def path_headline() -> dict:
+    from gppvae_tpu_torch.models import encode_all
+    from gppvae_tpu_torch.train import train_gppvae, train_vae
+
+    say("== 5a headline (config 3b): bf16 + subpixel, train_vae 1 epoch → "
+        "train_gppvae --mode joint 3 epochs, the last in f32 (--polish_epochs 1)")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        def run():
+            train_vae.main([*SLICE_ARGS, *HEADLINE, "--epochs", "1", "--outdir", f"{tmp}/vae"])
+            return train_gppvae.main([
+                *SLICE_ARGS, *HEADLINE, "--mode", "joint", "--epochs", "3",
+                "--polish_epochs", "1",
+                "--vae_weights", f"{tmp}/vae/{train_vae.WEIGHTS_FILE}",
+                "--outdir", f"{tmp}/gppvae",
+            ])
+
+        result, counts = drive("5a headline", run)
+    hist = result.history
+    report(hist)
+    check(hist[-1]["loss"] < hist[0]["loss"], "loss falls from the first epoch to the last")
+    check(counts["launch_factor_prep.launches"] == 3 and counts["launch_nll_core.launches"] == 3,
+          "each kernel launched once per epoch")
+    opts = result.optimizers
+    nb = -(-result.data["images_tr"].shape[0] // result.config.batch_size)
+    say(f"Adam steps after the switch: vae {opts['vae'].steps}, gp {opts['gp'].steps} "
+        f"(one f32 epoch = {nb} steps; no restart would give {3 * nb})")
+    check(opts["vae"].steps == opts["gp"].steps == nb, "both Adams restarted at the f32 switch")
+    check(result.model.dtype == torch.float32, "the polish tail runs float32")
+    final_nll_check(result, "5a headline")
+    images = result.data["images_tr"]
+    result.model.dtype = torch.bfloat16
+    Z_bf16 = encode_all(result.model, images, 1024)
+    result.model.dtype = torch.float32
+    Z_f32 = encode_all(result.model, images, 1024)
+    rel = float((Z_bf16 - Z_f32).abs().max()) / float(Z_f32.abs().max())
+    say(f"latents of the trained weights, bf16 vs f32 compute: max abs err / max |Z| "
+        f"{rel:.3e} (bound {LATENT_BF16_REL_BOUND:.0e}); dtype {Z_bf16.dtype}")
+    check(Z_bf16.dtype == torch.float32 and rel <= LATENT_BF16_REL_BOUND,
+          "bf16 latents agree with f32 latents of the same weights")
+    return counts
+
+
+def path_faces() -> dict:
+    from gppvae_tpu_torch import ops
+    from gppvae_tpu_torch.train import train_gppvae
+
+    say("== 5b GP options at face-view 128² (config 4 widths): rbf (32 RFF) + object "
+        "effect, learn_sigma_y, grad_accum 2, refresh every 3 steps, subpixel, 2 epochs")
+    epochs, refresh = 2, 3
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        result, counts = drive("5b faces", lambda: train_gppvae.main([
+            *FACES_ARGS, "--mode", "joint", "--epochs", str(epochs), "--outdir", f"{tmp}/g"]))
+    hist = result.history
+    report(hist)
+    nb = -(-result.data["images_tr"].shape[0] // result.config.batch_size)
+    launches = epochs * -(-nb // refresh)  # epochs × (1 + refreshes per epoch)
+    check(counts["launch_factor_prep.launches"] == launches
+          and counts["launch_nll_core.launches"] == launches,
+          f"each kernel launched {launches} times (epochs × (1 + refreshes))")
+    check("log_sy" in result.gp_params and result.gp_params["log_vs"].shape == (2,),
+          "sigma_y learned, two signal variances")
+    Z, Vs, v_sigs, v_noise = final_nll_check(result, "5b faces")
+    R = sum(v.shape[1] for v in Vs)
+    check(R == 232, "R = 32·7 + 8 = 232")
+
+    # both kernels at this path's shapes, against their plain versions
+    U = torch.cat([torch.sqrt(s) * v for s, v in zip(v_sigs, Vs)], dim=1).contiguous()
+    got, want = ops.launch_factor_prep(U, Z), ops.factor_prep_torch(U, Z)
+    err, rel = max_err(got, want)
+    check(rel <= FACTOR_PREP_REL_BOUND, "factor_prep at R = 232")
+    G, UtZ, zn = want
+    n, L = Z.shape
+    k_out = ops.launch_nll_core(G, UtZ, zn, v_noise, n, L)
+    p_out = ops.nll_core_torch(G, UtZ, zn, v_noise, n, L)
+    verr, vrel = max_err(k_out[:1], p_out[:1])
+    check(vrel <= NLL_VALUE_REL_BOUND, "nll_core at R = 232")
+    timed = {
+        "factor_prep": (err, lambda: ops.launch_factor_prep(U, Z),
+                        lambda: ops.factor_prep_torch(U, Z)),
+        "woodbury_nll_core": (verr, lambda: ops.launch_nll_core(G, UtZ, zn, v_noise, n, L),
+                              lambda: ops.nll_core_torch(G, UtZ, zn, v_noise, n, L)),
+    }
+    for name, (e, kernel, plain) in timed.items():
+        say(f"{name} at N={n}, R={R}, L={L}: max abs err {e:.3e}; kernel {time_ms(kernel):.4f} ms, "
+            f"plain {time_ms(plain):.4f} ms (median of 50, CUDA events)")
+    return counts
+
+
+def path_nystrom() -> dict:
+    from gppvae_tpu_torch.train import train_gppvae
+
+    say("== 5c rbf-nystrom on the digits: 16 landmarks (R = 112), 1 epoch")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        result, counts = drive("5c nystrom", lambda: train_gppvae.main([
+            *SLICE_ARGS, "--mode", "joint", "--epochs", "1", "--object_kernel", "rbf-nystrom",
+            "--nystrom_rank", "16", "--outdir", f"{tmp}/g"]))
+    report(result.history)
+    check(counts["launch_factor_prep.launches"] == 1 and counts["launch_nll_core.launches"] == 1,
+          "each kernel launched once")
+    _, Vs, _, _ = final_nll_check(result, "5c nystrom")
+    check(Vs[0].shape[1] == 112, "R = 16·7 = 112")
     return counts
 
 
@@ -242,18 +394,19 @@ def main() -> None:
     kind = phase_environment()
     phase_build()
     stats = phase_kernels()
-    counts = phase_slice()
+    paths = [phase_slice(), path_headline(), path_faces(), path_nystrom()]
     sources = {
         "factor_prep": ("gppvae_tpu_torch/csrc/factor_prep.cu",
                         "gppvae_tpu/ops/pallas_gemm.py:162", "launch_factor_prep.launches"),
         "woodbury_nll_core": ("gppvae_tpu_torch/csrc/nll_core.cu",
                               "gppvae_tpu/ops/pallas_chol.py:167", "launch_nll_core.launches"),
     }
-    kernels = [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[key], **stats[name]}
-        for name, (src, rep, key) in sources.items()
-    ]
+    kernels = []
+    for name, (src, rep, key) in sources.items():
+        per_path = [c[key] for c in paths]
+        check(all(per_path), f"{name} launched in every path: {per_path}")
+        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
+                        "launches": sum(per_path), **stats[name]})
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -73,3 +73,14 @@ def gp_params_from_numpy(gp: Mapping, device: torch.device | str = "cpu",
     """GP params {X, [W], log_vs, log_vn} (numpy or jax arrays) → tensors."""
     return {k: torch.tensor(np.asarray(v), dtype=dtype, device=device)
             for k, v in gp.items()}
+
+
+def rff_draws_from_map(map_fn) -> tuple[torch.Tensor, torch.Tensor]:
+    """(Ω, b) float32 tensors from the closure that the JAX package's
+    `gp.make_rff_map` returns (features.py:155-165 closes over `omega` and
+    `phase`), so that `gp.make_rff_map(draws, ...)` computes the same
+    map. Reads the closure's cells; needs no jax import."""
+    cells = dict(zip(map_fn.__code__.co_freevars,
+                     (c.cell_contents for c in map_fn.__closure__)))
+    return (torch.tensor(np.asarray(cells["omega"]), dtype=torch.float32),
+            torch.tensor(np.asarray(cells["phase"]), dtype=torch.float32))

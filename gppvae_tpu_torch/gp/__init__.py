@@ -2,13 +2,18 @@
 surrogate and predictive posterior. Mirrors gppvae_tpu.gp."""
 
 from gppvae_tpu_torch.gp.features import (
+    OBJECT_KERNELS,
     build_effect_rows,
     build_V,
     fourier_view_features,
     kron_rows,
+    make_rff_map,
+    make_x_map,
     normalize_rows,
     polynomial_view_features,
+    rff_draws,
 )
+from gppvae_tpu_torch.gp.nystrom import nystrom_features, pivoted_cholesky_landmarks
 from gppvae_tpu_torch.gp.taylor import (
     TaylorCoefficients,
     surrogate_batch_term,
@@ -29,10 +34,12 @@ from gppvae_tpu_torch.gp.woodbury import (
 )
 
 __all__ = [
-    "GPFactors", "MIN_V_NOISE", "PosteriorCore", "TaylorCoefficients",
-    "build_V", "build_effect_rows", "factorize", "fourier_view_features",
-    "gp_nll_from_features", "kinv_z_core", "kron_rows", "normalize_rows",
+    "GPFactors", "MIN_V_NOISE", "OBJECT_KERNELS",
+    "PosteriorCore", "TaylorCoefficients", "build_V", "build_effect_rows",
+    "factorize", "fourier_view_features", "gp_nll_from_features",
+    "kinv_z_core", "kron_rows", "make_rff_map", "make_x_map",
+    "normalize_rows", "nystrom_features", "pivoted_cholesky_landmarks",
     "polynomial_view_features", "posterior_core", "predict_from_core",
-    "predict_latents", "scaled_features", "surrogate_batch_term",
-    "taylor_expand", "variances_from_log",
+    "predict_latents", "rff_draws", "scaled_features",
+    "surrogate_batch_term", "taylor_expand", "variances_from_log",
 ]

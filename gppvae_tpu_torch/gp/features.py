@@ -4,13 +4,22 @@ Counterpart of gppvae_tpu/gp/features.py. The GP feature row of sample n
 with object d(n) and view q(n) is v_n = x_{d(n)} ⊗ w_{q(n)}, so that
 V Vᵀ = (X Xᵀ)_d ∘ (W Wᵀ)_q: the object×view product kernel at rank M·M_w.
 
-Only the linear object kernel is ported; gathers are plain indexing (the
-JAX package's `_take_rows_onehot` worked around TPU scatter).
+The object kernel is linear, or RBF through random Fourier features of
+the normalized object features (`make_rff_map`), optionally compressed onto
+landmark objects (`make_x_map('rbf-nystrom')`, gp/nystrom.py). Gathers are
+plain indexing: the JAX package's one-hot backward of `take_rows`
+(features.py:36-64) worked around TPU scatter and gives the same values.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+from gppvae_tpu_torch.gp.nystrom import nystrom_features
+
+OBJECT_KERNELS = ("linear", "rbf", "rbf-nystrom")
 
 
 def normalize_rows(X: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -50,6 +59,56 @@ def polynomial_view_features(positions: torch.Tensor, degree: int = 3) -> torch.
     return W / torch.linalg.norm(W, dim=1, keepdim=True)
 
 
+def rff_draws(in_dim: int, num_features: int, seed: int = 0):
+    """(Ω (in_dim, m), b (m,)) float32 for `make_rff_map`: Ω ~ N(0, I),
+    b ~ U[0, 2π), from a torch.Generator seeded by `seed`. The JAX package
+    draws them from threefry (features.py:155-159), which torch cannot
+    reproduce; convert.rff_draws_from_map carries the JAX draws over."""
+    g = torch.Generator().manual_seed(seed)
+    omega = torch.randn((in_dim, num_features), generator=g)
+    phase = torch.rand((num_features,), generator=g) * (2.0 * math.pi)
+    return omega, phase
+
+
+def make_rff_map(draws, lengthscale: float = 1.0):
+    """Random Fourier feature map φ(f) = √(2/m)·cos(f Ω/ℓ + b), so that
+    E[φ(f)·φ(f')] = exp(−‖f−f'‖²/(2ℓ²)). draws: (Ω (in_dim, m), b (m,)),
+    from `rff_draws` or injected; they move to the input's device and dtype
+    at each call. Returns (map_fn, m)."""
+    omega, phase = draws
+    if omega.dim() != 2 or tuple(phase.shape) != (omega.shape[1],):
+        raise ValueError(f"RFF draws of shapes {tuple(omega.shape)}, {tuple(phase.shape)}; "
+                         "want (in_dim, m), (m,)")
+    num_features = omega.shape[1]
+    scale = math.sqrt(2.0 / num_features)
+
+    def map_fn(F: torch.Tensor) -> torch.Tensor:
+        om = omega.to(device=F.device, dtype=F.dtype)
+        return scale * torch.cos(F @ (om / lengthscale) + phase.to(device=F.device, dtype=F.dtype))
+
+    return map_fn, num_features
+
+
+def make_x_map(kind: str, draws=None, lengthscale: float = 1.0, nystrom_idx=None):
+    """Object-kernel feature map: 'linear' → None; 'rbf' → the RFF map of
+    `draws` (Ω, b); 'rbf-nystrom' → the RFF map compressed onto the landmark
+    object rows `nystrom_idx` (rank len(nystrom_idx))."""
+    if kind == "linear":
+        return None
+    if kind not in OBJECT_KERNELS:
+        raise ValueError(f"unknown object_kernel {kind!r}")
+    if draws is None:
+        raise ValueError(f"object_kernel {kind!r} needs the RFF draws (gp.rff_draws)")
+    fn, _ = make_rff_map(draws, lengthscale)
+    if kind == "rbf":
+        return fn
+    if nystrom_idx is None:
+        raise ValueError("object_kernel 'rbf-nystrom' needs landmark indices "
+                         "(the trainer selects them; final_params.pt carries them)")
+    idx = torch.as_tensor(nystrom_idx, dtype=torch.int64)
+    return lambda F: nystrom_features(fn(F), idx.to(F.device))
+
+
 def kron_rows(Xrows: torch.Tensor, Wrows: torch.Tensor) -> torch.Tensor:
     """Row-wise Kronecker (Khatri–Rao) product: (n, M), (n, M_w) → (n, M·M_w)."""
     n, M = Xrows.shape
@@ -69,18 +128,16 @@ def build_V(
     normalize_W: bool = False,
     x_map=None,
 ) -> torch.Tensor:
-    """Per-sample feature rows V (n, M·M_w) from object features X (P, M),
+    """Per-sample feature rows V (n, M'·M_w) from object features X (P, M),
     view features W (Q, M_w) and the (n,) object/view ids; differentiable
-    in X and W."""
-    if x_map is not None:
-        raise NotImplementedError(
-            "only the linear object kernel is ported (ROADMAP Queue 1 item 9, "
-            "object_kernel rbf / rbf-nystrom)"
-        )
+    in X and W. x_map: a feature map applied to the (normalized) object
+    features, e.g. from make_x_map; None = the linear kernel."""
     if normalize_X:
         X = normalize_rows(X)
     if normalize_W:
         W = normalize_rows(W)
+    if x_map is not None:
+        X = x_map(X)
     return kron_rows(X[object_ids], W[view_ids])
 
 
@@ -93,12 +150,16 @@ def build_effect_rows(
     extra_effects: tuple = (),
     x_map=None,
 ) -> list[torch.Tensor]:
-    """Feature rows of every random effect, in variance order. The slice
-    ports the object⊗view product effect alone."""
-    if extra_effects:
-        raise NotImplementedError(
-            f"extra_effects {tuple(extra_effects)!r} are not ported "
-            "(ROADMAP Queue 1 item 9)"
-        )
-    return [build_V(X, W, object_ids, view_ids,
-                    normalize_X=True, normalize_W=True, x_map=x_map)]
+    """Feature rows of every random effect, in variance order: [object⊗view
+    product, *extra_effects], where 'object' adds rows x_d (an effect per
+    object shared across views) and 'view' rows w_q."""
+    effects = [build_V(X, W, object_ids, view_ids,
+                       normalize_X=True, normalize_W=True, x_map=x_map)]
+    for e in extra_effects:
+        if e == "object":
+            effects.append(normalize_rows(X)[object_ids])
+        elif e == "view":
+            effects.append(normalize_rows(W)[view_ids])
+        else:
+            raise ValueError(f"unknown extra effect {e!r}; want 'object' or 'view'")
+    return effects

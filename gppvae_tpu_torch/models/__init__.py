@@ -1,5 +1,5 @@
 """Conv VAE encoder/decoder. Mirrors gppvae_tpu.models."""
 
-from gppvae_tpu_torch.models.vae import VAE, ConvDecoder, ConvEncoder, encode_all
+from gppvae_tpu_torch.models.vae import UPSAMPLES, VAE, ConvDecoder, ConvEncoder, encode_all
 
-__all__ = ["VAE", "ConvDecoder", "ConvEncoder", "encode_all"]
+__all__ = ["UPSAMPLES", "VAE", "ConvDecoder", "ConvEncoder", "encode_all"]

@@ -12,6 +12,20 @@ Two layout facts make the converted flax weights give the same function:
     reshaped as (h, w, c), as flax does.
 Nearest-resize ×2 (`jax.image.resize(..., "nearest")`) is
 `F.interpolate(scale_factor=2, mode="nearest")`.
+
+`dtype` is flax's compute dtype: parameters stay float32, every conv and
+dense layer casts its input, weight and bias to `dtype` (flax's
+`promote_dtype`), and μ, log σ² and the logits come back float32. It is an
+attribute of the modules, not an autocast region, so nothing outside the
+VAE (the GP path and its kernels) ever sees a bfloat16 tensor. The trainers
+flip it in place (`VAE.dtype = ...`) for the float32 polish tail.
+
+`upsample='subpixel'` is the JAX package's other lowering of the same
+function with the same parameters (gppvae_tpu/models/vae.py:193-254): it
+exists there to feed the TPU's matrix unit. The port accepts the name, so
+configs and checkpoints interchange, and runs the resize forward for it:
+on an H100 the tap-merged transposed conv was no faster per epoch in
+either dtype and slower in float32 (PERF.md, Findings).
 """
 
 from __future__ import annotations
@@ -22,6 +36,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+UPSAMPLES = ("resize", "subpixel")
 
 
 def _same_pad(size: int, k: int = 3, s: int = 2) -> tuple[int, int]:
@@ -41,12 +57,23 @@ def _flax_init_(module: nn.Module, generator: torch.Generator | None) -> None:
         nn.init.zeros_(module.bias)
 
 
+def _dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+def _conv(layer: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return F.conv2d(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype),
+                    layer.stride, layer.padding)
+
+
 class ConvEncoder(nn.Module):
     """Stride-2 3×3 conv stack → flatten (H, W, C) → dense → (μ, log σ²)."""
 
     def __init__(self, zdim: int, image_shape: Sequence[int],
-                 features: Sequence[int] = (32, 64, 128)):
+                 features: Sequence[int] = (32, 64, 128),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         H, W, C = image_shape
         self.convs = nn.ModuleList()
         cin = C
@@ -59,27 +86,29 @@ class ConvEncoder(nn.Module):
         self.head_logvar = nn.Linear(2 * zdim * 4, zdim)
 
     def forward(self, y: torch.Tensor):
+        dt = self.dtype
         h = y.permute(0, 3, 1, 2)  # NHWC → NCHW
         for conv in self.convs:
             ph, pw = _same_pad(h.shape[2]), _same_pad(h.shape[3])
-            h = F.elu(conv(F.pad(h, (pw[0], pw[1], ph[0], ph[1]))))
+            h = F.elu(_conv(conv, F.pad(h, (pw[0], pw[1], ph[0], ph[1])), dt))
         h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)  # flatten H, W, C
-        h = F.elu(self.dense(h))
-        return self.head_mu(h), self.head_logvar(h)
+        h = F.elu(_dense(self.dense, h, dt))
+        return (_dense(self.head_mu, h, dt).float(),
+                _dense(self.head_logvar, h, dt).float())
 
 
 class ConvDecoder(nn.Module):
     """Dense → reshape (h, w, c) → (nearest-resize ×2 + 3×3 conv) stack →
-    3×3 conv to C logit channels, returned NHWC."""
+    3×3 conv to C logit channels, returned NHWC float32. `upsample` is kept
+    for the JAX package's configs; both names run the same forward."""
 
     def __init__(self, zdim: int, image_shape: Sequence[int],
-                 features: Sequence[int] = (128, 64, 32), upsample: str = "resize"):
+                 features: Sequence[int] = (128, 64, 32), upsample: str = "resize",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        if upsample != "resize":
-            raise NotImplementedError(
-                f"dec_upsample {upsample!r} is not ported; only 'resize' "
-                "(ROADMAP: subpixel decoder)"
-            )
+        if upsample not in UPSAMPLES:
+            raise ValueError(f"unknown upsample {upsample!r}; want one of {UPSAMPLES}")
+        self.upsample, self.dtype = upsample, dtype
         H, W, C = image_shape
         depth = len(features)
         self.h0, self.w0 = H // 2**depth, W // 2**depth
@@ -95,11 +124,12 @@ class ConvDecoder(nn.Module):
         self.out = nn.Conv2d(cin, C, 3, padding=1)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        h = F.elu(self.dense(z))
+        dt = self.dtype
+        h = F.elu(_dense(self.dense, z, dt))
         h = h.reshape(z.shape[0], self.h0, self.w0, self.f0).permute(0, 3, 1, 2)
         for conv in self.convs:
-            h = F.elu(conv(F.interpolate(h, scale_factor=2, mode="nearest")))
-        return self.out(h).permute(0, 2, 3, 1)  # NCHW → NHWC logits
+            h = F.elu(_conv(conv, F.interpolate(h, scale_factor=2, mode="nearest"), dt))
+        return _conv(self.out, h, dt).permute(0, 2, 3, 1).float()  # NCHW → NHWC logits
 
 
 class VAE(nn.Module):
@@ -109,15 +139,25 @@ class VAE(nn.Module):
                  enc_features: Sequence[int] = (32, 64, 128),
                  dec_features: Sequence[int] = (128, 64, 32),
                  upsample: str = "resize",
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.zdim = zdim
         self.image_shape = tuple(image_shape)
-        self.encoder = ConvEncoder(zdim, image_shape, enc_features)
-        self.decoder = ConvDecoder(zdim, image_shape, dec_features, upsample)
+        self.encoder = ConvEncoder(zdim, image_shape, enc_features, dtype)
+        self.decoder = ConvDecoder(zdim, image_shape, dec_features, upsample, dtype)
         for m in self.modules():
             if isinstance(m, (nn.Conv2d, nn.Linear)):
                 _flax_init_(m, generator)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The compute dtype of both halves."""
+        return self.encoder.dtype
+
+    @dtype.setter
+    def dtype(self, dtype: torch.dtype) -> None:
+        self.encoder.dtype = self.decoder.dtype = dtype
 
     def encode(self, y: torch.Tensor):
         return self.encoder(y)

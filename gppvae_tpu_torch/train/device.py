@@ -1,4 +1,4 @@
-"""Device selection and float32 precision for the trainers."""
+"""Device selection, compute dtype and float32 precision for the trainers."""
 
 from __future__ import annotations
 
@@ -20,14 +20,22 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def set_float32_precision(compute_dtype: str) -> None:
-    """Full float32 for matmuls and convolutions: cuDNN's TF32 default
-    would otherwise change the f32 convolutions."""
-    if compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype {compute_dtype!r} is not ported; only float32 "
-            "(ROADMAP: bf16 and polish)"
-        )
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    """The VAE's compute dtype for a --dtype value."""
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"unknown compute_dtype {name!r}; want one of {sorted(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[name]
+
+
+def set_float32_precision(compute_dtype_name: str) -> None:
+    """Full float32 for matmuls and convolutions, whatever the VAE's
+    compute dtype: the GP path, the kernels and a bfloat16 run's float32
+    polish tail stay float32 (cuDNN's TF32 default would otherwise change
+    the f32 convolutions)."""
+    compute_dtype(compute_dtype_name)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 

@@ -9,16 +9,26 @@ phase-per-dispatch path (`_run_profiled`), one epoch at a time:
            (ops.factor_prep → ops.woodbury_nll_core) and their backwards
   Phase C  minibatch steps on the surrogate: encode → sample → decode with
            gradients, the GP surrogate term and the entropy term; one
-           guarded Adam for the VAE and one for the GP parameters
+           guarded Adam for the VAE and one for the GP parameters, each
+           stepping every grad_accum_steps minibatches; with
+           refresh_every_steps = k, Phase A+B re-run at the current
+           parameters after every k steps
   Eval     a fresh encode, GP-predictive latents for the held-out cells,
            decoded; pixel MSE → oos_mse
+
+With compute_dtype='bfloat16' the VAE computes in bfloat16 (params and the
+whole GP path stay float32); the last polish_epochs epochs run in float32
+on the same parameters, and both Adams restart at the switch.
 
     python -m gppvae_tpu_torch.train.train_gppvae --data synthetic \
         --mode joint --vae_weights out/vae/vae_weights.pt --device cuda
 
 Random draws come from a torch.Generator seeded by --seed; `train_gppvae`
-also takes injected initial params and a `draws(epoch)` callable, so that a
-test can feed it the JAX trainer's own draws.
+also takes injected initial params (with the RFF draws and Nyström
+landmarks) and a `draws(epoch)` callable, so that a test can feed it the
+JAX trainer's own draws. `outdir` receives config.json (the config and the
+dataset it ran on), metrics.jsonl and final_params.pt, which `load_final`
+reads back.
 """
 
 from __future__ import annotations
@@ -34,18 +44,24 @@ import torch
 
 from gppvae_tpu.data.dataset import GridDataset
 from gppvae_tpu.utils.metrics import MetricsLogger
-from gppvae_tpu_torch import gp
+from gppvae_tpu_torch import gp, ops
 from gppvae_tpu_torch.convert import gp_params_from_numpy
 from gppvae_tpu_torch.eval.oos import predict_heldout
-from gppvae_tpu_torch.models import VAE, encode_all
+from gppvae_tpu_torch.models import UPSAMPLES, VAE, encode_all
 from gppvae_tpu_torch.train.batching import epoch_batches, masked_means, num_batches
-from gppvae_tpu_torch.train.device import PhaseTimer, resolve_device, set_float32_precision
+from gppvae_tpu_torch.train.device import (
+    COMPUTE_DTYPES,
+    PhaseTimer,
+    compute_dtype,
+    resolve_device,
+    set_float32_precision,
+)
 from gppvae_tpu_torch.train.losses import (
     gaussian_recon_nll,
     logit_saturation_penalty,
     neg_entropy,
 )
-from gppvae_tpu_torch.train.optim import GuardedAdam
+from gppvae_tpu_torch.train.optim import GuardedAdam, resolve_grad_accum
 
 _METRIC_KEYS = (
     "loss", "recon_term", "gp_term", "pen_term", "mse",
@@ -56,14 +72,6 @@ FINAL_PARAMS_FILE = "final_params.pt"
 # options of the JAX trainer the port does not carry yet: each raises when
 # set away from this default (ROADMAP "Left to port")
 _UNPORTED = {
-    "learn_sigma_y": False,
-    "object_kernel": "linear",
-    "extra_effects": (),
-    "compute_dtype": "float32",
-    "dec_upsample": "resize",
-    "polish_epochs": 0,
-    "grad_accum_steps": 1,
-    "refresh_every_steps": 0,
     "resume": None,
     "profile_dir": None,
 }
@@ -83,19 +91,22 @@ class GPPVAETrainConfig:
     obj_feature_dim: int = 8  # object rank M
     view_num_freqs: int = 3  # Fourier view features → M_w = 2f + 1
     view_feature_dim: int | None = None
-    object_kernel: str = "linear"
-    extra_effects: tuple = ()
+    object_kernel: str = "linear"  # 'linear' | 'rbf' | 'rbf-nystrom'
+    rff_features: int = 32  # RFF rank of the rbf object kernels
+    rff_lengthscale: float = 1.0
+    nystrom_rank: int = 16  # landmark objects of 'rbf-nystrom'
+    extra_effects: tuple = ()  # of 'object', 'view'
     init_v_sig: float = 1.0
     init_v_noise: float = 0.5
     enc_features: Sequence[int] = (32, 64, 128)
     dec_features: Sequence[int] = (128, 64, 32)
-    compute_dtype: str = "float32"
-    dec_upsample: str = "resize"
-    polish_epochs: int = 0
+    compute_dtype: str = "float32"  # VAE compute: 'float32' | 'bfloat16'
+    dec_upsample: str = "resize"  # 'resize' | 'subpixel' (same forward and params)
+    polish_epochs: int = 0  # bfloat16 runs: the last K epochs in float32
     clip_grad_norm: float = 1e5  # global-norm clip in front of Adam (<=0 off)
     sat_penalty: float = 1.0  # saturation-death barrier weight (<=0 off)
-    grad_accum_steps: int = 1
-    refresh_every_steps: int = 0
+    grad_accum_steps: int = 1  # Adam step every k minibatches; -1 = auto
+    refresh_every_steps: int = 0  # Phase A+B every k steps (0 = per epoch)
     vae_weights: str | None = None  # train_vae's vae_weights.pt
     resume: str | None = None
     profile_dir: str | None = None
@@ -107,11 +118,13 @@ class GPPVAETrainConfig:
 @dataclasses.dataclass
 class GPPVAETrainResult:
     model: VAE
-    gp_params: dict  # {'X', 'W' (joint), 'log_vs', 'log_vn'}
+    gp_params: dict  # {'X', 'W' (joint), 'log_vs', 'log_vn', 'log_sy' (learn_sigma_y)}
     fixed_W: torch.Tensor | None  # the fixed view features in 'dis' mode
     config: GPPVAETrainConfig
     history: list[dict]
     data: dict  # the tensors trained on, on the device: images_tr, d_tr, q_tr, *_ho
+    x_map: Callable | None = None  # the object-kernel feature map (gp.make_x_map)
+    optimizers: dict | None = None  # {'vae', 'gp'}: the GuardedAdams at the end
 
 
 def _check_ported(config: GPPVAETrainConfig) -> None:
@@ -152,6 +165,22 @@ def _init_view_features(config: GPPVAETrainConfig, dataset: GridDataset,
     return gp.normalize_rows(torch.randn((dataset.num_views, Mw), generator=generator))
 
 
+def _data_tensors(dataset: GridDataset, device: torch.device) -> dict:
+    """The train and held-out rows as tensors on the device."""
+    def rows(idx):
+        return torch.from_numpy(np.asarray(idx, np.int64)).to(device)
+
+    tr, ho = dataset.train_idx, dataset.heldout_idx
+    return {
+        "images_tr": torch.from_numpy(dataset.images[tr]).to(device),
+        "d_tr": rows(dataset.object_ids[tr]),
+        "q_tr": rows(dataset.view_ids[tr]),
+        "y_ho": torch.from_numpy(dataset.images[ho]).to(device),
+        "d_ho": rows(dataset.object_ids[ho]),
+        "q_ho": rows(dataset.view_ids[ho]),
+    }
+
+
 def _setup(dataset: GridDataset, config: GPPVAETrainConfig, device: torch.device,
            generator: torch.Generator, init_params: dict | None = None):
     """(model, gp_params, fixed_W, data, num_train). init_params may give
@@ -159,7 +188,8 @@ def _setup(dataset: GridDataset, config: GPPVAETrainConfig, device: torch.device
     init (and --vae_weights)."""
     init_params = init_params or {}
     model = VAE(config.zdim, dataset.image_shape, config.enc_features,
-                config.dec_features, config.dec_upsample, generator=generator)
+                config.dec_features, config.dec_upsample, generator=generator,
+                dtype=compute_dtype(config.compute_dtype))
     if "vae" in init_params:
         model.load_state_dict({k: torch.as_tensor(v) for k, v in init_params["vae"].items()})
     elif config.vae_weights:
@@ -171,9 +201,12 @@ def _setup(dataset: GridDataset, config: GPPVAETrainConfig, device: torch.device
     M = config.obj_feature_dim
     gp_init = {
         "X": torch.randn((dataset.num_objects, M), generator=generator) / math.sqrt(M),
-        "log_vs": torch.full((1,), math.log(config.init_v_sig)),
+        # one signal variance per random effect
+        "log_vs": torch.full((1 + len(config.extra_effects),), math.log(config.init_v_sig)),
         "log_vn": torch.tensor(math.log(config.init_v_noise)),
     }
+    if config.learn_sigma_y:
+        gp_init["log_sy"] = torch.tensor(math.log(config.sigma_y))
     fixed_W = None
     if config.mode == "joint":
         gp_init["W"] = W0
@@ -185,42 +218,103 @@ def _setup(dataset: GridDataset, config: GPPVAETrainConfig, device: torch.device
         gp_init[k] = v
     gp_params = {k: torch.nn.Parameter(v.to(device=device, dtype=torch.float32))
                  for k, v in gp_init.items()}
+    return model, gp_params, fixed_W, _data_tensors(dataset, device), len(dataset.train_idx)
 
-    def rows(idx):
-        return torch.from_numpy(np.asarray(idx, np.int64)).to(device)
 
-    tr, ho = dataset.train_idx, dataset.heldout_idx
-    data = {
-        "images_tr": torch.from_numpy(dataset.images[tr]).to(device),
-        "d_tr": rows(dataset.object_ids[tr]),
-        "q_tr": rows(dataset.view_ids[tr]),
-        "y_ho": torch.from_numpy(dataset.images[ho]).to(device),
-        "d_ho": rows(dataset.object_ids[ho]),
-        "q_ho": rows(dataset.view_ids[ho]),
-    }
-    return model, gp_params, fixed_W, data, len(tr)
+def _select_nystrom_landmarks(X0: torch.Tensor, draws, config: GPPVAETrainConfig) -> np.ndarray:
+    """nystrom_rank landmark objects by greedy pivoted Cholesky on the
+    RFF-mapped initial object features, on the host, once; padded with
+    unused rows to exactly nystrom_rank (train_gppvae.py:354-369)."""
+    rff, _ = gp.make_rff_map(draws, config.rff_lengthscale)
+    with torch.no_grad():
+        F0 = rff(gp.normalize_rows(X0.float())).cpu().numpy()
+    m = min(config.nystrom_rank, len(F0))
+    idx = gp.pivoted_cholesky_landmarks(F0, m, tol=0.0)
+    if len(idx) < m:
+        rest = np.setdiff1d(np.arange(len(F0), dtype=np.int32), idx)
+        idx = np.concatenate([idx, rest[: m - len(idx)]]).astype(np.int32)
+    return idx
+
+
+def _object_kernel(config: GPPVAETrainConfig, X0: torch.Tensor, init_params: dict,
+                   device: torch.device):
+    """(x_map, draws) of config.object_kernel: the feature map and the
+    {'omega', 'phase', 'nystrom_idx'} it was built from (None for 'linear').
+    init_params may give 'rff' = (Ω, b) and 'nystrom_idx'; otherwise Ω, b
+    come from gp.rff_draws(seed) and the landmarks from X0."""
+    if config.object_kernel == "linear":
+        return None, None
+    if "rff" in init_params:
+        omega, phase = (torch.as_tensor(np.asarray(a), dtype=torch.float32)
+                        for a in init_params["rff"])
+    else:
+        omega, phase = gp.rff_draws(config.obj_feature_dim, config.rff_features, config.seed)
+    if tuple(omega.shape) != (config.obj_feature_dim, config.rff_features):
+        raise ValueError(f"RFF draws Ω of shape {tuple(omega.shape)}; want "
+                         f"(obj_feature_dim, rff_features) = "
+                         f"({config.obj_feature_dim}, {config.rff_features})")
+    draws = {"omega": omega.to(device), "phase": phase.to(device), "nystrom_idx": None}
+    if config.object_kernel == "rbf-nystrom":
+        idx = init_params.get("nystrom_idx")
+        if idx is None:
+            idx = _select_nystrom_landmarks(X0, (omega, phase), config)
+        draws["nystrom_idx"] = torch.as_tensor(np.asarray(idx), dtype=torch.int64).to(device)
+    return _x_map(config, draws), draws
+
+
+def _x_map(config: GPPVAETrainConfig, draws: dict):
+    return gp.make_x_map(config.object_kernel, (draws["omega"], draws["phase"]),
+                         config.rff_lengthscale, draws["nystrom_idx"])
+
+
+def _polish_epochs(config: GPPVAETrainConfig) -> int:
+    """The float32 tail of a bfloat16 run (0 for float32 runs)."""
+    if config.polish_epochs > 0 and config.compute_dtype == "bfloat16":
+        return min(config.polish_epochs, config.epochs)
+    return 0
 
 
 class _Loop:
     """The epoch's building blocks over one model, its GP params and data."""
 
     def __init__(self, model: VAE, gp_params: dict, fixed_W, data: dict,
-                 num_train: int, config: GPPVAETrainConfig):
+                 num_train: int, config: GPPVAETrainConfig, *, x_map=None,
+                 accum_steps: int = 1):
         self.model, self.gp, self.fixed_W = model, gp_params, fixed_W
         self.data, self.num_train, self.config = data, num_train, config
+        self.x_map, self.accum_steps = x_map, accum_steps
         if config.batch_size > num_train:
             raise ValueError(f"batch_size {config.batch_size} exceeds train set {num_train}")
         self.nb = num_batches(num_train, config.batch_size)
         self.chunk = min(config.encode_chunk, num_train)
-        self.opt_vae = GuardedAdam(model.parameters(), config.lr_vae, config.clip_grad_norm)
-        self.opt_gp = GuardedAdam([gp_params[k] for k in sorted(gp_params)],
-                                  config.lr_gp, config.clip_grad_norm)
+        d = data["d_tr"]
+        with torch.no_grad():  # also rejects an unknown extra effect
+            rank = sum(v.shape[1] for v in self.build_effects(
+                gp_params["X"], self.view_W(), d[:1], data["q_tr"][:1]))
+        if d.is_cuda and rank > ops.MAX_RANK:
+            raise ValueError(
+                f"GP rank R = {rank} exceeds the nll_core kernel's {ops.MAX_RANK} "
+                "(R > 512 on CUDA is ROADMAP 'Left to port' item 2); lower "
+                "rff_features / nystrom_rank or train with --device cpu")
+        self.restart_optimizers()
+
+    def restart_optimizers(self) -> None:
+        """Fresh guarded Adams (moments, step counts and accumulators)."""
+        config = self.config
+        self.opt_vae = GuardedAdam(self.model.parameters(), config.lr_vae,
+                                   config.clip_grad_norm, self.accum_steps)
+        self.opt_gp = GuardedAdam([self.gp[k] for k in sorted(self.gp)], config.lr_gp,
+                                  config.clip_grad_norm, self.accum_steps)
 
     def view_W(self):
         return self.gp["W"] if self.config.mode == "joint" else self.fixed_W
 
     def aux(self) -> dict:
         return {"log_vs": self.gp["log_vs"], "log_vn": self.gp["log_vn"]}
+
+    def build_effects(self, X, W, d, q) -> list[torch.Tensor]:
+        return gp.build_effect_rows(X, W, d, q, extra_effects=self.config.extra_effects,
+                                    x_map=self.x_map)
 
     def nll_fn(self, Z, Vs, aux):
         v_sig, v_noise = gp.variances_from_log(aux["log_vs"], aux["log_vn"])
@@ -237,23 +331,24 @@ class _Loop:
     def solve(self, Z0: torch.Tensor) -> gp.TaylorCoefficients:
         d = self.data
         with torch.no_grad():
-            V0 = gp.build_effect_rows(self.gp["X"], self.view_W(), d["d_tr"], d["q_tr"])
+            V0 = self.build_effects(self.gp["X"], self.view_W(), d["d_tr"], d["q_tr"])
         return gp.taylor_expand(self.nll_fn, Z0, V0,
                                 {k: v.detach() for k, v in self.aux().items()})
 
     # -- Phase C
     def minibatch_step(self, coeffs, pos, w, eps) -> torch.Tensor:
-        """One guarded-Adam step on both groups; returns the (5,) metrics
+        """One guarded-Adam call on both groups; returns the (5,) metrics
         [loss, recon, gp_term, pen, mse] (masked means; gp_term per bs)."""
         config, d, bs = self.config, self.data, self.config.batch_size
+        sy = torch.exp(self.gp["log_sy"]) if config.learn_sigma_y else config.sigma_y
         y = d["images_tr"][pos]
         mu, logvar = self.model.encode(y)
         z = mu + torch.exp(0.5 * logvar) * eps
         logits = self.model.decode(z)
-        recon, mse = gaussian_recon_nll(y, torch.sigmoid(logits), config.sigma_y)
+        recon, mse = gaussian_recon_nll(y, torch.sigmoid(logits), sy)
         if config.sat_penalty > 0:
             recon = recon + config.sat_penalty * logit_saturation_penalty(logits)
-        v = gp.build_effect_rows(self.gp["X"], self.view_W(), d["d_tr"][pos], d["q_tr"][pos])
+        v = self.build_effects(self.gp["X"], self.view_W(), d["d_tr"][pos], d["q_tr"][pos])
         gp_term = gp.surrogate_batch_term(
             coeffs, pos, z, v, self.aux(), self.num_train, weights=w) / bs
         pen_rows = neg_entropy(logvar)
@@ -268,16 +363,25 @@ class _Loop:
         return torch.stack([loss, recon_m, gp_term, pen_m, mse_m]).detach()
 
     def minibatch_epoch(self, coeffs, batches, weights, eps) -> torch.Tensor:
-        """All steps of one plan; the (5,) metrics averaged over steps."""
-        rows = [self.minibatch_step(coeffs, batches[b], weights[b], eps[b])
-                for b in range(batches.shape[0])]
+        """All steps of one plan; the (5,) metrics averaged over steps. With
+        refresh_every_steps = k < nb, Phase A+B re-run at the current params
+        before each segment of k steps but the first, which uses `coeffs`."""
+        nb, k = batches.shape[0], self.config.refresh_every_steps
+        seg = k if 0 < k < nb else nb
+        rows = []
+        for s in range(0, nb, seg):
+            if s > 0:
+                coeffs = self.solve(self.encode())
+            rows += [self.minibatch_step(coeffs, batches[b], weights[b], eps[b])
+                     for b in range(s, min(s + seg, nb))]
         return torch.stack(rows).mean(dim=0)
 
     # -- eval
     def oos(self, Z: torch.Tensor):
         d = self.data
         return predict_heldout(self.model, self.gp, self.fixed_W, Z, d["d_tr"],
-                               d["q_tr"], d["d_ho"], d["q_ho"], d["y_ho"])
+                               d["q_tr"], d["d_ho"], d["q_ho"], d["y_ho"],
+                               x_map=self.x_map, extra_effects=self.config.extra_effects)
 
     def run_epoch(self, draws: Callable, epoch: int) -> tuple[dict, dict]:
         """One epoch: Phase A, B, C, then eval, each timed to a device sync.
@@ -295,7 +399,7 @@ class _Loop:
         with timer.phase("eval_oos"):
             _, oos_mse = self.oos(self.encode())
         row = [*cm.tolist(), float(coeffs.value) / self.num_train,
-               math.exp(float(self.gp["log_vs"][0].detach())),
+               math.exp(float(self.gp["log_vs"][0].detach())),  # the product effect
                math.exp(float(self.gp["log_vn"].detach())), float(oos_mse)]
         return dict(zip(_METRIC_KEYS, row)), timer.seconds
 
@@ -312,6 +416,23 @@ def make_draws(generator: torch.Generator, num_train: int, bs: int, zdim: int) -
     return draws
 
 
+def _write_sidecar(config: GPPVAETrainConfig, dataset: GridDataset, device) -> None:
+    """config.json: the config, the dataset it ran on (so that an
+    evaluation rebuilds the same grid) and the device."""
+    os.makedirs(config.outdir, exist_ok=True)
+    with open(os.path.join(config.outdir, "config.json"), "w") as f:
+        json.dump({
+            **dataclasses.asdict(config),
+            "dataset": {
+                "name": dataset.name,
+                "num_objects": dataset.num_objects,
+                "num_views": dataset.num_views,
+                "image_size": int(dataset.image_shape[0]),
+            },
+            "device": str(device),
+        }, f, indent=1, default=list)
+
+
 def train_gppvae(
     dataset: GridDataset,
     config: GPPVAETrainConfig,
@@ -321,24 +442,38 @@ def train_gppvae(
     draws: Callable | None = None,
     log: MetricsLogger | None = None,
 ) -> GPPVAETrainResult:
+    """Train; init_params may give 'vae', 'gp', 'rff' = (Ω, b) and
+    'nystrom_idx' in place of the fresh ones (see _setup, _object_kernel)."""
     _check_ported(config)
+    init_params = init_params or {}
     device = resolve_device(str(device))
     set_float32_precision(config.compute_dtype)
     own_log = log is None
     log = log or MetricsLogger(config.outdir)
     if config.outdir:
-        os.makedirs(config.outdir, exist_ok=True)
-        with open(os.path.join(config.outdir, "config.json"), "w") as f:
-            json.dump({**dataclasses.asdict(config), "device": str(device)}, f,
-                      indent=1, default=list)
+        _write_sidecar(config, dataset, device)
     gen = torch.Generator().manual_seed(config.seed)
     model, gp_params, fixed_W, data, num_train = _setup(
         dataset, config, device, gen, init_params)
-    loop = _Loop(model, gp_params, fixed_W, data, num_train, config)
+    x_map, x_draws = _object_kernel(config, gp_params["X"], init_params, device)
+    accum = resolve_grad_accum(config.grad_accum_steps, num_train, config.batch_size)
+    loop = _Loop(model, gp_params, fixed_W, data, num_train, config,
+                 x_map=x_map, accum_steps=accum)
     draws = draws or make_draws(gen, num_train, config.batch_size, config.zdim)
 
+    # the float32 polish tail (train_gppvae.py:799-847). Both Adams restart
+    # at the switch only when a bulk phase ran and this run crosses it;
+    # start_epoch is where a resumed run would start (resume is not ported)
+    polish = _polish_epochs(config)
+    bulk_end = config.epochs - polish
+    start_epoch = 0
+    crosses_switch = start_epoch <= bulk_end
     history: list[dict] = []
-    for epoch in range(config.epochs):
+    for epoch in range(start_epoch, config.epochs):
+        if polish and epoch == bulk_end:
+            model.dtype = torch.float32
+            if bulk_end > 0 and crosses_switch:
+                loop.restart_optimizers()
         metrics, seconds = loop.run_epoch(draws, epoch)
         rec = {
             "driver": f"train_gppvae[{config.mode}]",
@@ -354,13 +489,48 @@ def train_gppvae(
         torch.save(
             {"vae": {k: v.cpu() for k, v in model.state_dict().items()},
              "gp": {k: v.detach().cpu() for k, v in gp_params.items()},
-             "fixed_W": None if fixed_W is None else fixed_W.cpu()},
+             "fixed_W": None if fixed_W is None else fixed_W.cpu(),
+             "object_kernel": None if x_draws is None else
+             {k: None if v is None else v.cpu() for k, v in x_draws.items()}},
             os.path.join(config.outdir, FINAL_PARAMS_FILE),
         )
     if own_log:
         log.close()
     return GPPVAETrainResult(model=model, gp_params=gp_params, fixed_W=fixed_W,
-                             config=config, history=history, data=data)
+                             config=config, history=history, data=data, x_map=x_map,
+                             optimizers={"vae": loop.opt_vae, "gp": loop.opt_gp})
+
+
+def load_final(outdir: str, *, device: torch.device | str = "cpu",
+               dataset: GridDataset | None = None) -> GPPVAETrainResult:
+    """A finished run rebuilt from its outdir (config.json, final_params.pt):
+    the model in the dtype it ended in, the GP params, the object-kernel
+    map, and the data it trained on. The dataset is rebuilt from the
+    sidecar's --data flag and grid unless given. history is empty and
+    optimizers None."""
+    device = resolve_device(str(device))
+    with open(os.path.join(outdir, "config.json")) as f:
+        saved = json.load(f)
+    names = {f.name for f in dataclasses.fields(GPPVAETrainConfig)}
+    config = GPPVAETrainConfig(**{k: tuple(v) if isinstance(v, list) else v
+                                  for k, v in saved.items() if k in names})
+    if dataset is None:
+        from gppvae_tpu.config.datasets import build_dataset_from_flag
+
+        grid = saved["dataset"]
+        dataset = build_dataset_from_flag(config.data, grid["num_objects"], grid["num_views"],
+                                          config.seed, image_size=grid["image_size"])
+    final = torch.load(os.path.join(outdir, FINAL_PARAMS_FILE), map_location=device,
+                       weights_only=True)
+    model = VAE(config.zdim, dataset.image_shape, config.enc_features, config.dec_features,
+                config.dec_upsample,
+                dtype=torch.float32 if _polish_epochs(config) else compute_dtype(config.compute_dtype))
+    model.load_state_dict(final["vae"])
+    x_draws = final["object_kernel"]
+    return GPPVAETrainResult(
+        model=model.to(device), gp_params=final["gp"], fixed_W=final["fixed_W"],
+        config=config, history=[], data=_data_tensors(dataset, device),
+        x_map=None if x_draws is None else _x_map(config, x_draws))
 
 
 def main(argv=None) -> GPPVAETrainResult:
@@ -381,12 +551,32 @@ def main(argv=None) -> GPPVAETrainResult:
     p.add_argument("--epochs", type=int, default=100)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--sigma_y", type=float, default=0.1)
+    p.add_argument("--learn_sigma_y", action="store_true",
+                   help="learn the decoder noise std (log-param in the GP group)")
     p.add_argument("--xdim", type=int, default=8, help="object feature rank M")
     p.add_argument("--view_freqs", type=int, default=3)
     p.add_argument("--view_feature_dim", type=int, default=None)
+    p.add_argument("--object_kernel", default="linear", choices=list(gp.OBJECT_KERNELS))
+    p.add_argument("--rff_features", type=int, default=32,
+                   help="RFF rank for the rbf object kernels")
+    p.add_argument("--rff_lengthscale", type=float, default=1.0)
+    p.add_argument("--nystrom_rank", type=int, default=16,
+                   help="landmark objects for --object_kernel rbf-nystrom")
+    p.add_argument("--extra_effects", default="",
+                   help="comma-separated random effects beyond object×view: object,view")
     p.add_argument("--num_objects", type=int, default=400)
     p.add_argument("--num_views", type=int, default=16)
+    p.add_argument("--dtype", default="float32", choices=list(COMPUTE_DTYPES),
+                   help="VAE compute dtype (params and the GP path stay float32)")
+    p.add_argument("--dec_upsample", default="resize", choices=list(UPSAMPLES))
+    p.add_argument("--polish_epochs", type=int, default=0,
+                   help="with --dtype bfloat16: run the final K epochs in float32")
     p.add_argument("--clip_grad_norm", type=float, default=1e5)
+    p.add_argument("--grad_accum_steps", type=int, default=1,
+                   help="one optimizer step per k minibatches; -1 = auto (N/bs)/45")
+    p.add_argument("--refresh_every_steps", type=int, default=0,
+                   help="re-expand the Taylor surrogate every k minibatch steps "
+                        "(0 = once per epoch)")
     p.add_argument("--init_v_sig", type=float, default=1.0)
     p.add_argument("--init_v_noise", type=float, default=0.5)
     p.add_argument("--enc_features", default="32,64,128")
@@ -403,8 +593,16 @@ def main(argv=None) -> GPPVAETrainResult:
     config = GPPVAETrainConfig(
         mode=args.mode, zdim=args.zdim, epochs=args.epochs, batch_size=args.bs,
         lr_vae=args.lr, lr_gp=args.gp_lr, seed=args.seed, sigma_y=args.sigma_y,
+        learn_sigma_y=args.learn_sigma_y,
         obj_feature_dim=args.xdim, view_num_freqs=args.view_freqs,
-        view_feature_dim=args.view_feature_dim, clip_grad_norm=args.clip_grad_norm,
+        view_feature_dim=args.view_feature_dim, object_kernel=args.object_kernel,
+        rff_features=args.rff_features, rff_lengthscale=args.rff_lengthscale,
+        nystrom_rank=args.nystrom_rank,
+        extra_effects=tuple(e.strip() for e in args.extra_effects.split(",") if e.strip()),
+        compute_dtype=args.dtype, dec_upsample=args.dec_upsample,
+        polish_epochs=args.polish_epochs, clip_grad_norm=args.clip_grad_norm,
+        grad_accum_steps=args.grad_accum_steps,
+        refresh_every_steps=args.refresh_every_steps,
         init_v_sig=args.init_v_sig, init_v_noise=args.init_v_noise,
         enc_features=tuple(int(f) for f in args.enc_features.split(",")),
         dec_features=tuple(int(f) for f in args.dec_features.split(",")),

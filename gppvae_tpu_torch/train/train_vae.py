@@ -19,9 +19,14 @@ import torch
 
 from gppvae_tpu.data.dataset import GridDataset
 from gppvae_tpu.utils.metrics import MetricsLogger
-from gppvae_tpu_torch.models import VAE
+from gppvae_tpu_torch.models import UPSAMPLES, VAE
 from gppvae_tpu_torch.train.batching import epoch_batches, masked_means, num_batches
-from gppvae_tpu_torch.train.device import resolve_device, set_float32_precision
+from gppvae_tpu_torch.train.device import (
+    COMPUTE_DTYPES,
+    compute_dtype,
+    resolve_device,
+    set_float32_precision,
+)
 from gppvae_tpu_torch.train.losses import (
     gaussian_recon_nll,
     kl_standard_normal,
@@ -42,9 +47,9 @@ class VAETrainConfig:
     beta_kl: float = 1.0
     enc_features: Sequence[int] = (32, 64, 128)
     dec_features: Sequence[int] = (128, 64, 32)
-    compute_dtype: str = "float32"  # only float32 is ported
+    compute_dtype: str = "float32"  # 'float32' | 'bfloat16' (VAE compute; params f32)
     sat_penalty: float = 1.0  # saturation-death barrier weight (<=0 off)
-    dec_upsample: str = "resize"  # only 'resize' is ported
+    dec_upsample: str = "resize"  # 'resize' | 'subpixel' (same forward and params)
     outdir: str | None = None
 
 
@@ -81,7 +86,8 @@ def train_vae(
     log = log or MetricsLogger(config.outdir)
     gen = torch.Generator().manual_seed(config.seed)
     model = VAE(config.zdim, dataset.image_shape, config.enc_features,
-                config.dec_features, config.dec_upsample, generator=gen).to(device)
+                config.dec_features, config.dec_upsample, generator=gen,
+                dtype=compute_dtype(config.compute_dtype)).to(device)
     opt = torch.optim.Adam(model.parameters(), lr=config.lr, betas=(0.9, 0.999), eps=1e-8)
 
     images = torch.from_numpy(dataset.images).to(device)
@@ -147,6 +153,9 @@ def main(argv=None) -> VAETrainResult:
     p.add_argument("--beta_kl", type=float, default=1.0)
     p.add_argument("--num_objects", type=int, default=400)
     p.add_argument("--num_views", type=int, default=16)
+    p.add_argument("--dtype", default="float32", choices=list(COMPUTE_DTYPES),
+                   help="VAE compute dtype (params stay float32)")
+    p.add_argument("--dec_upsample", default="resize", choices=list(UPSAMPLES))
     p.add_argument("--enc_features", default="32,64,128")
     p.add_argument("--dec_features", default="128,64,32")
     p.add_argument("--image_size", type=int, default=None)
@@ -160,6 +169,7 @@ def main(argv=None) -> VAETrainResult:
     config = VAETrainConfig(
         zdim=args.zdim, epochs=args.epochs, batch_size=args.bs, lr=args.lr,
         seed=args.seed, sigma_y=args.sigma_y, beta_kl=args.beta_kl,
+        compute_dtype=args.dtype, dec_upsample=args.dec_upsample,
         enc_features=tuple(int(f) for f in args.enc_features.split(",")),
         dec_features=tuple(int(f) for f in args.dec_features.split(",")),
         outdir=args.outdir,

@@ -8,7 +8,8 @@ a GPU and no jax it runs without the repo's conftest:
 
 Tolerances (float32 on the card): factor_prep max abs err ≤ 1e-5 of the
 largest |entry| (fp32 sums in another order); nll_core value rtol 1e-5 and
-gradients ≤ 1e-4 of the largest |entry|.
+gradients ≤ 1e-4 of the largest |entry|; the subpixel decoder against the
+resize decoder with the same weights ≤ 1e-5 of max |·| (cuDNN, TF32 off).
 """
 
 import math
@@ -16,7 +17,10 @@ import math
 import pytest
 import torch
 
+from gppvae_tpu.data import build_rotated_digits
 from gppvae_tpu_torch import ops
+from gppvae_tpu_torch.models import VAE
+from gppvae_tpu_torch.train import train_gppvae
 
 pytestmark = pytest.mark.cuda
 
@@ -75,9 +79,62 @@ def test_nll_core_kernel_refuses_what_it_does_not_take(gen):
                               one.double(), 10, 2)
 
 
+def test_cuda_refuses_rank_above_512(gen):
+    """On CUDA a GP rank above the nll_core kernel's 512 raises before
+    training, naming the ROADMAP item (the JAX package sends it to XLA; the
+    port has no fallback): 112 RFF features × 5 view features = 560. This
+    case of tests/test_torch_train.py's option checks lives here, in the
+    file that runs on the card without jax."""
+    ds = build_rotated_digits("synthetic", num_objects=10, num_views=8, seed=7)
+    cfg = train_gppvae.GPPVAETrainConfig(
+        zdim=6, epochs=1, batch_size=16, obj_feature_dim=4, view_num_freqs=2,
+        enc_features=(8, 16), dec_features=(16, 8), object_kernel="rbf", rff_features=112)
+    with pytest.raises(ValueError, match="Left to port' item 2"):
+        train_gppvae.train_gppvae(ds, cfg, device="cuda")
+
+
 def test_non_positive_pivot_gives_nan(gen):
     G = -4.0 * torch.eye(8, device="cuda")  # B = I + G/vn has negative pivots
     nll, X, W = ops.launch_nll_core(G, torch.ones(8, 2, device="cuda"),
                                     torch.tensor(1.0, device="cuda"),
                                     torch.tensor(1.0, device="cuda"), 10, 2)
     assert torch.isnan(nll)
+
+
+@pytest.mark.parametrize("shape,enc,dec,zdim", [
+    ((32, 32, 1), (32, 64, 128), (128, 64, 32), 16),  # the digits configs
+    ((128, 128, 3), (32, 64, 128), (128, 64, 32), 32),  # face-view 128²
+])
+def test_subpixel_decoder_matches_resize_on_card(gen, shape, enc, dec, zdim):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    resize = VAE(zdim, shape, enc, dec, "resize").cuda()
+    sub = VAE(zdim, shape, enc, dec, "subpixel").cuda()
+    sub.load_state_dict(resize.state_dict())
+    z = torch.randn(64, zdim, device="cuda", generator=gen)
+    a, b = resize.decode(z), sub.decode(z)
+    assert a.shape == b.shape == (64, *shape)
+    assert _rel_err(b, a) <= 1e-5
+    torch.sum(a * a).backward()
+    torch.sum(b * b).backward()
+    for (name, p), q in zip(resize.named_parameters(), sub.parameters()):
+        if name.startswith("decoder."):
+            assert _rel_err(q.grad, p.grad) <= 1e-5, name
+
+
+@pytest.mark.parametrize("upsample", ["resize", "subpixel"])
+def test_bf16_vae_outputs_are_f32_and_finite(gen, upsample):
+    model = VAE(16, (32, 32, 1), upsample=upsample, dtype=torch.bfloat16).cuda()
+    y = torch.rand(128, 32, 32, 1, device="cuda", generator=gen)
+    mu, logvar = model.encode(y)
+    logits = model.decode(mu)
+    for t in (mu, logvar, logits):
+        assert t.dtype == torch.float32 and bool(torch.isfinite(t).all())
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+
+
+def test_factor_prep_refuses_bf16(gen):
+    U = torch.randn(64, 8, device="cuda", generator=gen).bfloat16()
+    Z = torch.randn(64, 4, device="cuda", generator=gen).bfloat16()
+    with pytest.raises(TypeError, match="float32"):
+        ops.factor_prep(U, Z)

@@ -3,6 +3,9 @@
 The same numpy arrays (from a seed) go through both packages; float64 on the
 CPU, so the tolerances are tight: rtol 1e-10 unless a line says otherwise.
 The exact epoch-gradient identity of tests/test_gp_math.py is ported as is.
+The RBF (random Fourier feature) and Nyström object kernels and the extra
+effects run in float32, as the trainers run them, with the JAX package's own
+RFF draws carried over (convert.rff_draws_from_map): 1e-6.
 """
 
 import jax
@@ -13,6 +16,7 @@ import torch
 
 from gppvae_tpu import gp as jgp
 from gppvae_tpu_torch import gp
+from gppvae_tpu_torch.convert import rff_draws_from_map
 
 RTOL = 1e-10
 
@@ -58,11 +62,82 @@ def test_features_match():
 
 
 def test_unported_feature_options_raise():
+    """Every feature option of the JAX package is ported; an unknown extra
+    effect or object kernel raises ValueError, as there (features.py:190-200,
+    :240-243)."""
     t = _t(_problem(2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gp.build_effect_rows(t["X"], t["W"], t["d"], t["q"], extra_effects=("object",))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gp.build_V(t["X"], t["W"], t["d"], t["q"], x_map=lambda F: F)
+    with pytest.raises(ValueError, match="unknown extra effect 'pose'"):
+        gp.build_effect_rows(t["X"], t["W"], t["d"], t["q"], extra_effects=("object", "pose"))
+    with pytest.raises(ValueError, match="unknown object_kernel 'matern'"):
+        gp.make_x_map("matern", gp.rff_draws(3, 8))
+    with pytest.raises(ValueError, match="landmark"):
+        gp.make_x_map("rbf-nystrom", gp.rff_draws(3, 8))
+    with pytest.raises(ValueError, match="RFF draws"):
+        gp.make_x_map("rbf")
+    assert gp.make_x_map("linear") is None
+
+
+def _f32(p):
+    j = {k: jnp.asarray(v, jnp.float32 if k not in "dq" else jnp.int32) for k, v in p.items()}
+    t = {k: torch.as_tensor(v, dtype=torch.int64 if k in "dq" else torch.float32)
+         for k, v in p.items()}
+    return j, t
+
+
+def _close32(a, b):
+    _close(a, b, rtol=1e-6, atol=1e-6)
+
+
+def test_rff_and_nystrom_features_match():
+    """RFF map, landmark indices and Nyström features against the JAX
+    functions, in float32 with the JAX draws injected."""
+    p = _problem(3, N=120, P=30, M=4, Mw=5)
+    j, t = _f32(p)
+    jfn, m = jgp.make_rff_map(4, 24, lengthscale=0.7, seed=5)
+    draws = rff_draws_from_map(jfn)
+    fn, m2 = gp.make_rff_map(draws, lengthscale=0.7)
+    assert m == m2 == 24 and draws[0].shape == (4, 24) and draws[1].shape == (24,)
+    jF = jfn(jgp.normalize_rows(j["X"]))
+    F = fn(gp.normalize_rows(t["X"]))
+    _close32(F, jF)
+    own = gp.rff_draws(4, 24, seed=5)  # the port's own draws: fixed by the seed
+    assert all(torch.equal(a, b) for a, b in zip(own, gp.rff_draws(4, 24, seed=5)))
+    assert 0 <= float(own[1].min()) and float(own[1].max()) < 2 * np.pi
+
+    jidx = jgp.pivoted_cholesky_landmarks(np.asarray(jF), 12)
+    idx = gp.pivoted_cholesky_landmarks(F.numpy(), 12)
+    np.testing.assert_array_equal(idx, jidx)
+    assert idx.dtype == np.int32 and len(idx) == 12
+    _close32(gp.nystrom_features(F, idx), jgp.nystrom.nystrom_features(jF, jidx))
+    # rank found early: fewer landmarks than asked, as in the JAX function
+    low = np.repeat(np.asarray(jF)[:3], 4, axis=0)
+    np.testing.assert_array_equal(gp.pivoted_cholesky_landmarks(low, 8),
+                                  jgp.pivoted_cholesky_landmarks(low, 8))
+
+    for kind, nidx in (("rbf", None), ("rbf-nystrom", idx)):
+        jmap = jgp.make_x_map(kind, 4, 24, 0.7, 5, None if nidx is None else jnp.asarray(nidx))
+        tmap = gp.make_x_map(kind, draws, 0.7, nidx)
+        _close32(gp.build_V(t["X"], t["W"], t["d"], t["q"], x_map=tmap),
+                 jgp.build_V(j["X"], j["W"], j["d"], j["q"], x_map=jmap))
+
+
+def test_extra_effect_rows_match():
+    """build_effect_rows with the 'object' and 'view' effects (and an RBF
+    object map on the product effect), float32."""
+    p = _problem(4, N=90)
+    j, t = _f32(p)
+    jfn, _ = jgp.make_rff_map(3, 16, seed=1)
+    tfn, _ = gp.make_rff_map(rff_draws_from_map(jfn))
+    for x_maps in ((None, None), (jfn, tfn)):
+        for extra in (("object",), ("view",), ("object", "view")):
+            got = gp.build_effect_rows(t["X"], t["W"], t["d"], t["q"], extra_effects=extra,
+                                       x_map=x_maps[1])
+            want = jgp.build_effect_rows(j["X"], j["W"], j["d"], j["q"], extra_effects=extra,
+                                         x_map=x_maps[0])
+            assert len(got) == len(want) == 1 + len(extra)
+            for a, b in zip(got, want):
+                assert a.shape == b.shape
+                _close32(a, b)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -7,13 +7,17 @@ then ε from split(fold_in(epoch_key, 1), nb)). Tolerances (float32):
   * one Phase-C step: metrics rtol 1e-5; every updated param atol 2e-6 /
     rtol 1e-4 (Adam's first step moves each param by ~lr = 5e-4, so the
     atol is 0.4 % of one step);
-  * the 2-epoch GPPVAE trajectory ('joint' and 'dis'): every history key
-    rtol 1e-4.
-The optimizer test runs in float64 and holds the port to optax at 1e-12.
+  * the 2-epoch GPPVAE trajectory ('joint', 'dis', and joint with each
+    trainer option: the rbf and rbf-nystrom object kernels with the JAX RFF
+    draws and landmarks injected, extra effects, learn_sigma_y, gradient
+    accumulation, sub-epoch refresh, the subpixel decoder): every history
+    key rtol 1e-4.
+The optimizer tests run in float64 and hold the port to optax at 1e-12.
 """
 
 import functools
 import importlib
+import json
 import os
 import subprocess
 import sys
@@ -26,13 +30,16 @@ import optax
 import pytest
 import torch
 
+from gppvae_tpu import gp as jgp
 from gppvae_tpu.data import build_rotated_digits
 from gppvae_tpu.train.batching import epoch_batches as jax_epoch_batches
 from gppvae_tpu.train.batching import epoch_keys
 from gppvae_tpu_torch import ops
-from gppvae_tpu_torch.convert import flax_to_state_dict
+from gppvae_tpu_torch.convert import flax_to_state_dict, rff_draws_from_map
+from gppvae_tpu_torch.eval import predict_heldout
+from gppvae_tpu_torch.models import encode_all
 from gppvae_tpu_torch.train import train_gppvae, train_vae
-from gppvae_tpu_torch.train.optim import GuardedAdam
+from gppvae_tpu_torch.train.optim import GuardedAdam, resolve_grad_accum
 
 # the module (gppvae_tpu.train re-exports a function of the same name)
 jtrain = importlib.import_module("gppvae_tpu.train.train_gppvae")
@@ -43,17 +50,36 @@ GOLDEN = dict(mode="joint", zdim=6, epochs=2, batch_size=16, lr_vae=5e-4,
 GOLDEN_CLI = ["--data", "synthetic", "--num_objects", "10", "--num_views", "8",
               "--zdim", "6", "--bs", "16", "--enc_features", "8,16",
               "--dec_features", "16,8", "--seed", "7", "--device", "cpu"]
+# the trajectory cases: config overrides of GOLDEN (66 train rows, 5 steps
+# per epoch, so k = 2 accumulation carries a step across the epoch boundary)
+CASES = {
+    "joint": dict(mode="joint"),
+    "dis": dict(mode="dis"),
+    "rbf": dict(object_kernel="rbf", rff_features=16, rff_lengthscale=0.8),
+    "rbf-nystrom": dict(object_kernel="rbf-nystrom", rff_features=16, nystrom_rank=6),
+    "extra_effects": dict(extra_effects=("object", "view")),
+    "learn_sigma_y": dict(learn_sigma_y=True),
+    "grad_accum_steps": dict(grad_accum_steps=2),
+    "refresh_every_steps": dict(refresh_every_steps=2),
+    "subpixel": dict(dec_upsample="subpixel"),
+}
 
 
 @functools.cache
-def _golden(mode):
+def _golden(case):
     ds = build_rotated_digits("synthetic", num_objects=10, num_views=8, seed=7)
-    jcfg = jtrain.GPPVAETrainConfig(**{**GOLDEN, "mode": mode})
+    jcfg = jtrain.GPPVAETrainConfig(**{**GOLDEN, **CASES[case]})
     model, params, fixed_W, arrays, rng, num_train = jtrain._setup(ds, jcfg, None, None)
     init = {
         "vae": flax_to_state_dict(jax.tree.map(np.asarray, params["vae"])),
         "gp": {k: np.asarray(v) for k, v in params["gp"].items()},
     }
+    if jcfg.object_kernel != "linear":
+        jfn, _ = jgp.make_rff_map(jcfg.obj_feature_dim, jcfg.rff_features,
+                                  jcfg.rff_lengthscale, seed=jcfg.seed)
+        init["rff"] = rff_draws_from_map(jfn)
+    if jcfg.object_kernel == "rbf-nystrom":
+        init["nystrom_idx"] = np.asarray(jtrain._select_nystrom_landmarks(params["gp"]["X"], jcfg))
     return dict(ds=ds, jcfg=jcfg, model=model, params=params, fixed_W=fixed_W,
                 arrays=arrays, rng=rng, num_train=num_train, init=init)
 
@@ -121,7 +147,7 @@ def test_one_phase_c_step_matches_jax(golden, monkeypatch):
                                    rtol=1e-4, atol=2e-6, err_msg=k)
 
 
-@pytest.mark.parametrize("mode", ["joint", "dis"])
+@pytest.mark.parametrize("mode", list(CASES))
 def test_two_epoch_trajectory_matches_jax(mode):
     g = _golden(mode)
     jres = jtrain.train_gppvae(g["ds"], g["jcfg"], log=_Quiet())
@@ -133,7 +159,12 @@ def test_two_epoch_trajectory_matches_jax(mode):
         b, w, e = _to_torch(batches, weights, eps)
         return b.long(), w, e
 
-    cfg = train_gppvae.GPPVAETrainConfig(**{**GOLDEN, "mode": mode})
+    cfg = train_gppvae.GPPVAETrainConfig(**{**GOLDEN, **CASES[mode]})
+    if cfg.object_kernel == "rbf-nystrom":  # the port picks the JAX landmarks itself
+        own = train_gppvae._select_nystrom_landmarks(
+            torch.tensor(g["init"]["gp"]["X"]), g["init"]["rff"], cfg)
+        np.testing.assert_array_equal(own, g["init"]["nystrom_idx"])
+        assert len(own) == cfg.nystrom_rank
     res = train_gppvae.train_gppvae(g["ds"], cfg, device="cpu", init_params=g["init"],
                                     draws=draws, log=_Quiet())
     assert len(res.history) == len(jres.history) == 2
@@ -165,15 +196,23 @@ def test_cli_entry_points_on_cpu(tmp_path):
 
 
 def test_device_and_unported_options_raise(golden):
+    """--device cuda without CUDA raises; resume and profile_dir are not
+    ported and raise; unknown option values raise ValueError as the JAX
+    trainer does."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             train_gppvae.main(["--device", "cuda", "--epochs", "1"])
-    for bad in (dict(compute_dtype="bfloat16"), dict(dec_upsample="subpixel"),
-                dict(learn_sigma_y=True), dict(grad_accum_steps=2),
-                dict(refresh_every_steps=3), dict(extra_effects=("object",)),
-                dict(object_kernel="rbf"), dict(resume="x"), dict(profile_dir="x")):
+    assert set(train_gppvae._UNPORTED) == {"resume", "profile_dir"}
+    for bad in (dict(resume="x"), dict(profile_dir="x")):
         cfg = train_gppvae.GPPVAETrainConfig(**{**GOLDEN, **bad})
         with pytest.raises(NotImplementedError, match="not ported"):
+            train_gppvae.train_gppvae(golden["ds"], cfg, device="cpu", log=_Quiet())
+    for bad, what in ((dict(extra_effects=("pose",)), "extra effect"),
+                      (dict(object_kernel="matern"), "object_kernel"),
+                      (dict(compute_dtype="float16"), "compute_dtype"),
+                      (dict(grad_accum_steps=0), "grad_accum_steps")):
+        cfg = train_gppvae.GPPVAETrainConfig(**{**GOLDEN, **bad})
+        with pytest.raises(ValueError, match=what):
             train_gppvae.train_gppvae(golden["ds"], cfg, device="cpu", log=_Quiet())
 
 
@@ -185,6 +224,8 @@ def test_package_imports_no_jax(tmp_path):
         "from gppvae_tpu_torch.train import train_gppvae\n"
         f"train_gppvae.main({[*GOLDEN_CLI, '--epochs', '1', '--xdim', '4', '--view_freqs', '2']!r}"
         " + ['--outdir', sys.argv[1]])\n"
+        f"train_gppvae.main({[*GOLDEN_CLI, '--epochs', '1', '--xdim', '4', '--view_freqs', '2', '--object_kernel', 'rbf-nystrom', '--extra_effects', 'object', '--dtype', 'bfloat16', '--dec_upsample', 'subpixel']!r}"
+        " + ['--outdir', sys.argv[1] + '/options'])\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax', 'optax')))\n"
         "assert not bad, bad\n"
         "print('NO_JAX_OK')\n"
@@ -224,3 +265,113 @@ def test_guarded_adam_matches_optax_spike_guard():
                                        rtol=1e-12, atol=1e-14)
     assert topt.notfinite_count == int(state["notfinite_count"]) == 1
     assert int(topt.adam.state[tp["a"]]["step"]) == 5
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_guarded_adam_accumulation_matches_optax_multisteps(k):
+    """GuardedAdam(accum_steps=k) equals the JAX trainer's
+    optax.MultiSteps(spike_guard(adam), k) in float64, call by call: the
+    guard sees the mean of k gradients (a spike above the clip inside it),
+    parameters stay put on the other k − 1 calls, and a NaN mini-step makes
+    its k-th step skip (and, as optax keeps the NaN in its mean, every later
+    one)."""
+    rng = np.random.default_rng(k)
+    p0 = {"a": rng.standard_normal((4, 3)), "b": rng.standard_normal(5)}
+    scale = [1.0] * (2 * k) + [1e6] + [1.0] * (2 * k) + [np.nan] + [1.0] * (2 * k)
+    grads = [{kk: rng.standard_normal(v.shape) * s for kk, v in p0.items()} for s in scale]
+
+    opt = jtrain.make_optimizer(1e-2, 1e3, k)
+    jp = jax.tree.map(jnp.asarray, p0)
+    state = opt.init(jp)
+    tp = {kk: torch.nn.Parameter(torch.tensor(v)) for kk, v in p0.items()}
+    topt = GuardedAdam([tp[kk] for kk in sorted(tp)], lr=1e-2, clip_grad_norm=1e3,
+                       accum_steps=k)
+    moved = []
+    for g in grads:
+        before = {kk: v.detach().clone() for kk, v in tp.items()}
+        upd, state = opt.update(jax.tree.map(jnp.asarray, g), state, jp)
+        jp = optax.apply_updates(jp, upd)
+        for kk, p in tp.items():
+            p.grad = torch.tensor(g[kk])
+        moved.append(topt.step())
+        for kk in p0:
+            np.testing.assert_allclose(tp[kk].detach().numpy(), np.asarray(jp[kk]),
+                                       rtol=1e-12, atol=1e-14)
+            assert moved[-1] or torch.equal(tp[kk].detach(), before[kk])
+    nan_call = scale.index(np.nan)
+    first_emit_after_nan = (nan_call // k + 1) * k - 1
+    assert moved[:first_emit_after_nan] == [(i + 1) % k == 0 for i in range(first_emit_after_nan)]
+    assert not any(moved[first_emit_after_nan:])
+    skipped = len(scale) // k - first_emit_after_nan // k
+    assert topt.notfinite_count == int(state.inner_opt_state["notfinite_count"]) == skipped
+    assert topt.mini_step == int(state.mini_step) == len(scale) % k
+    assert topt.steps == first_emit_after_nan // k
+
+
+@pytest.mark.parametrize("requested", [-1, 1, 3])
+@pytest.mark.parametrize("num_train,bs", [(5700, 128), (22800, 128), (66, 16), (100000, 64)])
+def test_resolve_grad_accum_matches_jax(requested, num_train, bs):
+    assert (resolve_grad_accum(requested, num_train, bs)
+            == jtrain.resolve_grad_accum(requested, num_train, bs))
+    with pytest.raises(ValueError):
+        resolve_grad_accum(0, num_train, bs)
+
+
+def _train(golden, **overrides):
+    cfg = train_gppvae.GPPVAETrainConfig(**{**GOLDEN, **overrides})
+    return train_gppvae.train_gppvae(golden["ds"], cfg, device="cpu",
+                                     init_params=golden["init"], log=_Quiet())
+
+
+def test_polish_switch_and_adam_restart(golden):
+    """polish ≥ epochs: the whole run is float32 and equals a plain float32
+    run bit for bit (no restart). polish 1 of 2: the first epoch runs
+    bfloat16 (other numbers), the model ends float32, and both Adams
+    restarted at the switch (their step counts hold one epoch)."""
+    plain = _train(golden)
+    whole = _train(golden, compute_dtype="bfloat16", polish_epochs=5)
+    assert whole.model.dtype == torch.float32
+    for a, b in zip(plain.history, whole.history):
+        assert all(a[k] == b[k] for k in train_gppvae._METRIC_KEYS)
+    for k, v in plain.model.state_dict().items():
+        assert torch.equal(v, whole.model.state_dict()[k]), k
+    for k, v in plain.gp_params.items():
+        assert torch.equal(v, whole.gp_params[k]), k
+    nb = -(-golden["num_train"] // GOLDEN["batch_size"])
+    assert plain.optimizers["vae"].steps == plain.optimizers["gp"].steps == 2 * nb
+
+    cross = _train(golden, compute_dtype="bfloat16", polish_epochs=1)
+    assert cross.model.dtype == torch.float32
+    assert cross.history[0]["loss"] != plain.history[0]["loss"]  # the bf16 bulk epoch
+    assert all(np.isfinite(h[k]) for h in cross.history for k in train_gppvae._METRIC_KEYS)
+    assert cross.optimizers["vae"].steps == cross.optimizers["gp"].steps == nb
+    bulk = _train(golden, compute_dtype="bfloat16")
+    assert bulk.model.dtype == torch.bfloat16
+    assert bulk.optimizers["vae"].steps == 2 * nb
+
+
+def test_sidecar_reload_reproduces_oos_mse(tmp_path):
+    """config.json carries the dataset block of the JAX trainer's sidecar
+    (train_gppvae.py:744-757); final_params.pt carries the GP params, the
+    RFF draws and the Nyström landmarks, so that load_final rebuilds an
+    rbf-nystrom run and reproduces its last oos_mse."""
+    out = tmp_path / "run"
+    res = train_gppvae.main([*GOLDEN_CLI, "--epochs", "1", "--xdim", "4", "--view_freqs", "2",
+                             "--object_kernel", "rbf-nystrom", "--rff_features", "12",
+                             "--nystrom_rank", "5", "--extra_effects", "view",
+                             "--learn_sigma_y", "--outdir", str(out)])
+    side = json.loads((out / "config.json").read_text())
+    assert side["dataset"] == {"name": "rotated-digits-synthetic", "num_objects": 10,
+                               "num_views": 8, "image_size": 32}
+    assert side["object_kernel"] == "rbf-nystrom" and side["device"] == "cpu"
+    back = train_gppvae.load_final(str(out), device="cpu")
+    assert back.config == res.config
+    d = back.data
+    Z = encode_all(back.model, d["images_tr"], back.config.encode_chunk)
+    _, oos = predict_heldout(back.model, back.gp_params, back.fixed_W, Z, d["d_tr"], d["q_tr"],
+                             d["d_ho"], d["q_ho"], d["y_ho"], x_map=back.x_map,
+                             extra_effects=back.config.extra_effects)
+    assert float(oos) == pytest.approx(res.history[-1]["oos_mse"], rel=1e-6)
+    saved = torch.load(out / train_gppvae.FINAL_PARAMS_FILE, weights_only=True)
+    assert saved["object_kernel"]["nystrom_idx"].shape == (5,)
+    assert set(saved["gp"]) == {"X", "W", "log_vs", "log_vn", "log_sy"}
