@@ -7,11 +7,18 @@ Phases, one per printed line group; any failure ends the run non-zero:
   1. environment: torch / CUDA versions, the card's name and power limit,
      the TF32 flags. Raises without CUDA;
   2. build: both CUDA kernels from gppvae_tpu_torch/csrc with nvcc for
-     sm_90a;
-  3. kernel vs plain on the card: factor_prep at (5700,56,16), (5701,56,16),
-     (6401,256,16), (256,2048,8); nll_core at R = 56 and R = 256, value and
-     gradients through the autograd.Function against autograd of the plain
-     version; median times of kernel and plain version (CUDA events);
+     sm_90a, one nvcc per source, started together;
+  3. kernel vs plain on the card: factor_prep at (N, R, L) = (5700,56,16),
+     (5701,56,16), (6401,256,16), (256,2048,8), (332,232,32); nll_core at
+     R = 56, 232, 600, 1024, 2048 (L 16, 32, 16, 16, 8). At each shape the
+     value and the gradients through the autograd.Function against autograd
+     of the plain version, a bit-identical rerun, and five numbers: `ms`
+     (CUDA events around the Python call, median of 50), `device_ms` (the
+     kernel's own device time per call, torch.profiler over 50 calls),
+     `plain_ms`, `library_ms` (one PyTorch call: torch.mm(Uᵀ, [U | Z]) for
+     factor_prep, torch.linalg.cholesky_ex(I + G/vₙ) for nll_core) and
+     `bound_ms` (the larger of FLOP over 67 TFLOP/s and bytes over
+     3.35 TB/s);
   4. the slice at the full width of BASELINE's GPPVAE-joint: synthetic
      rotated digits (P = 400, Q = 16, 32×32×1), train_vae for 1 epoch, then
      train_gppvae --mode joint for 3 epochs from its vae_weights, both
@@ -24,15 +31,18 @@ Phases, one per printed line group; any failure ends the run non-zero:
      bf16 latents against the same weights in f32;
      (b) the GP options at face-view 128² (config 4 widths): rbf object
      kernel (32 RFF features), an extra object effect, learn_sigma_y,
-     grad_accum_steps 2, refresh_every_steps 3, subpixel, 2 epochs; R = 232
-     runs nll_core's global-scratch branch inside training; checks the
-     launch count per refresh, the final GP NLL against CPU float64, and
-     times both kernels at R = 232;
+     grad_accum_steps 2, refresh_every_steps 3, subpixel, 2 epochs (R = 232);
+     checks the launch count per refresh, the final GP NLL against CPU
+     float64, and both kernels on the trained inputs;
      (c) rbf-nystrom on the digits, 1 epoch;
-  6. the last line: {"ok": true, "device": {...}}.
+     (d) the digits at R = 560 (rbf, 80 RFF features), past the TPU
+     kernel's 512, 1 joint epoch: one launch of each kernel and the final GP
+     NLL against CPU float64;
+  6. the `kernels` line (each kernel at the main path's shape, launches
+     summed over the paths), then the last line: {"ok": true, "device": ...}.
 
-Every path (4, 5a-c) sets the kernels' counts to 0 just before it and reads
-them just after; the `kernels` line sums its launches over the paths.
+Every path (4, 5a-d) sets the kernels' counts to 0 just before it and reads
+them just after.
 """
 
 from __future__ import annotations
@@ -47,8 +57,16 @@ import time
 
 import torch
 
-SHAPES_FACTOR_PREP = [(5700, 56, 16), (5701, 56, 16), (6401, 256, 16), (256, 2048, 8)]
-SHAPES_NLL_CORE = [(5700, 56, 16), (6401, 256, 16)]  # (N, R, L)
+# (N, R, L); the first of each is the main path's (phase 4), (332, 232, 32)
+# path (b)'s, R = 600 past the TPU kernel's 512
+SHAPES_FACTOR_PREP = [(5700, 56, 16), (5701, 56, 16), (6401, 256, 16), (256, 2048, 8),
+                      (332, 232, 32)]
+SHAPES_NLL_CORE = [(5700, 56, 16), (332, 232, 32), (6400, 600, 16), (6400, 1024, 16),
+                   (6400, 2048, 8)]
+FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores (NVIDIA's data sheet)
+HBM_BYTES_PER_S = 3.35e12
+KERNEL_KEYS = ("max_abs_err", "ms", "device_ms", "device_ms_method", "plain_ms", "bound_ms",
+               "bound_by", "library_ms")
 FACTOR_PREP_REL_BOUND = 1e-5  # max abs err / max |plain|, fp32 sums of N terms
 NLL_VALUE_REL_BOUND = 1e-5
 NLL_GRAD_REL_BOUND = 1e-4  # per gradient, err / max |plain grad|
@@ -128,83 +146,149 @@ def phase_build() -> None:
             say("  " + line.strip())
 
 
-def phase_kernels() -> dict:
+def device_ms(fn, reps: int = 50) -> tuple[float, str]:
+    """The kernel's own device time per call: its CUDA kernels' time summed
+    in torch.profiler's key_averages() over `reps` calls, over reps. If the
+    profiler shows no device time, CUDA events around `reps` back-to-back
+    calls instead (which then include any launch gaps). Returns (ms, method)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.self_device_time_total for ev in prof.key_averages()
+             if ev.device_type == DeviceType.CUDA and not ev.is_user_annotation)
+    if us > 0:
+        return us / 1e3 / reps, "profiler"
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps, "events"
+
+
+def bound(flop: float, nbytes: float) -> tuple[float, str]:
+    """(least ms the card could take, what bounds it): FLOP over the fp32
+    peak outside the tensor cores, bytes (each input read once, each output
+    written once) over the memory rate."""
+    t_op, t_mem = flop / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_op, "operations") if t_op >= t_mem else (t_mem, "bytes")
+
+
+def timings(kernel, plain, library, flop: float, nbytes: float) -> dict:
+    b_ms, b_by = bound(flop, nbytes)
+    d_ms, method = device_ms(kernel)
+    return {"ms": time_ms(kernel), "device_ms": d_ms, "device_ms_method": method,
+            "plain_ms": time_ms(plain), "library_ms": time_ms(library),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def say_timings(label: str, t: dict) -> None:
+    say(f"  {label}: ms {t['ms']:.4f}, device_ms {t['device_ms']:.4f} ({t['device_ms_method']}), "
+        f"plain_ms {t['plain_ms']:.4f}, library_ms {t['library_ms']:.4f}, "
+        f"bound_ms {t['bound_ms']:.6f} ({t['bound_by']})")
+
+
+def check_factor_prep(gen, n: int, r: int, l: int) -> dict:
+    """factor_prep at (N, R, L): values, gradients and a rerun against the
+    plain version, then the five timings. The library call is one cuBLAS
+    GEMM giving [G | UᵀZ] (‖Z‖² left out)."""
     from gppvae_tpu_torch import ops
 
-    say("== 3 kernel vs plain")
+    U = torch.randn(n, r, device="cuda", generator=gen) / math.sqrt(r)
+    Z = torch.randn(n, l, device="cuda", generator=gen)
+    got = ops.launch_factor_prep(U, Z)
+    want = ops.factor_prep_torch(U, Z)
+    again = ops.launch_factor_prep(U, Z)
+    torch.cuda.synchronize()
+    err, rel = max_err(got, want)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    A = torch.randn(r, r, device="cuda", generator=gen)
+    B = torch.randn(r, l, device="cuda", generator=gen)
+
+    def loss(fn, U, Z):
+        G, UtZ, zn = fn(U, Z)
+        return torch.sum(G * A) + torch.sum(UtZ * B) + 3.0 * zn
+
+    U1, Z1 = U.clone().requires_grad_(), Z.clone().requires_grad_()
+    g_k = torch.autograd.grad(loss(ops.factor_prep, U1, Z1), (U1, Z1))
+    U2, Z2 = U.clone().requires_grad_(), Z.clone().requires_grad_()
+    g_p = torch.autograd.grad(loss(ops.factor_prep_torch, U2, Z2), (U2, Z2))
+    torch.cuda.synchronize()
+    gerr, grel = max_err(g_k, g_p)
+    say(f"factor_prep N={n} R={r} L={l}: max abs err {err:.3e}, rel {rel:.3e}; grads rel "
+        f"{grel:.3e} (bound {FACTOR_PREP_REL_BOUND:.0e}); zn shape {tuple(got[2].shape)}; "
+        f"bit-identical rerun {same}")
+    check(rel <= FACTOR_PREP_REL_BOUND, f"factor_prep {n, r, l} error")
+    check(grel <= FACTOR_PREP_REL_BOUND, f"factor_prep {n, r, l} gradients")
+    check(got[2].dim() == 0, "factor_prep zn is 0-d")
+    check(same, f"factor_prep {n, r, l} is deterministic")
+    UZ = torch.cat([U, Z], 1)
+    t = timings(lambda: ops.launch_factor_prep(U, Z), lambda: ops.factor_prep_torch(U, Z),
+                lambda: torch.mm(U.T, UZ), flop=2.0 * n * r * (r + l),
+                nbytes=4.0 * (n * (r + l) + r * (r + l) + 1))
+    say_timings(f"factor_prep N={n} R={r} L={l}", t)
+    return {"shape": [n, r, l], "max_abs_err": err, **t}
+
+
+def check_nll_core(gen, n: int, r: int, l: int) -> dict:
+    """nll_core at R (G, UᵀZ from N rows): value and gradients through the
+    autograd.Function against autograd of the plain version, a rerun, then
+    the five timings. The library call is cuSOLVER's Cholesky of
+    B = I + G/vₙ, the function's largest part (no sync on `info`)."""
+    from gppvae_tpu_torch import ops
+
+    U = torch.randn(n, r, device="cuda", generator=gen) / math.sqrt(r)
+    Z = torch.randn(n, l, device="cuda", generator=gen)
+    G, UtZ, zn = ops.factor_prep_torch(U, Z)
+    vn = torch.tensor(0.37, device="cuda")
+    leaves_k = [t.clone().requires_grad_() for t in (G, UtZ, zn, vn)]
+    nll_k = ops.woodbury_nll_core(*leaves_k, n, l)
+    g_k = torch.autograd.grad(nll_k, leaves_k)
+    leaves_p = [t.clone().requires_grad_() for t in (G, UtZ, zn, vn)]
+    nll_p = ops.woodbury_nll_core_torch(*leaves_p, n, l)
+    g_p = torch.autograd.grad(nll_p, leaves_p)
+    k_out = ops.launch_nll_core(G, UtZ, zn, vn, n, l)
+    again = ops.launch_nll_core(G, UtZ, zn, vn, n, l)
+    p_out = ops.nll_core_torch(G, UtZ, zn, vn, n, l)
+    torch.cuda.synchronize()
+    verr, vrel = max_err([nll_k], [nll_p])
+    rerr, _ = max_err(k_out[1:], p_out[1:])
+    same = all(torch.equal(a, b) for a, b in zip(k_out, again))
+    say(f"nll_core R={r} L={l}: nll {nll_k.item():.6f} vs {nll_p.item():.6f}, rel {vrel:.3e} "
+        f"(bound {NLL_VALUE_REL_BOUND:.0e}); X, W max abs err {rerr:.3e}; "
+        f"bit-identical rerun {same}")
+    check(vrel <= NLL_VALUE_REL_BOUND, f"nll_core R={r} value")
+    check(same, f"nll_core R={r} is deterministic")
+    for name, a, b in zip(("G", "UtZ", "zn", "vn"), g_k, g_p):
+        gerr, grel = max_err([a], [b])
+        say(f"  d/d{name}: max abs err {gerr:.3e}, rel {grel:.3e} "
+            f"(bound {NLL_GRAD_REL_BOUND:.0e})")
+        check(grel <= NLL_GRAD_REL_BOUND, f"nll_core R={r} gradient {name}")
+    B = torch.eye(r, device="cuda") + G / vn
+    t = timings(lambda: ops.launch_nll_core(G, UtZ, zn, vn, n, l),
+                lambda: ops.nll_core_torch(G, UtZ, zn, vn, n, l),
+                lambda: torch.linalg.cholesky_ex(B), flop=2.0 * r**3 / 3 + r * r * l,
+                nbytes=4.0 * (2 * r * r + 2 * r * l + 3))
+    say_timings(f"nll_core R={r} L={l}", t)
+    return {"shape": [n, r, l], "max_abs_err": verr, **t}
+
+
+def phase_kernels() -> dict:
+    say("== 3 kernel vs plain, and the yardsticks (ms: CUDA events around the Python "
+        "call, median of 50; device_ms: the kernel's own device time per call)")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    stats = {}
-    for n, r, l in SHAPES_FACTOR_PREP:
-        U = torch.randn(n, r, device="cuda", generator=gen) / math.sqrt(r)
-        Z = torch.randn(n, l, device="cuda", generator=gen)
-        got = ops.launch_factor_prep(U, Z)
-        want = ops.factor_prep_torch(U, Z)
-        again = ops.launch_factor_prep(U, Z)
-        torch.cuda.synchronize()
-        err, rel = max_err(got, want)
-        same = all(torch.equal(a, b) for a, b in zip(got, again))
-        say(f"factor_prep N={n} R={r} L={l}: max abs err {err:.3e}, rel {rel:.3e} "
-            f"(bound {FACTOR_PREP_REL_BOUND:.0e}); zn shape {tuple(got[2].shape)}; "
-            f"bit-identical rerun {same}")
-        check(rel <= FACTOR_PREP_REL_BOUND, f"factor_prep {n, r, l} error")
-        check(got[2].dim() == 0, "factor_prep zn is 0-d")
-        check(same, "factor_prep is deterministic")
-        if (n, r, l) == SHAPES_FACTOR_PREP[0]:
-            stats["factor_prep"] = {"max_abs_err": err}
-            # gradients through the Function vs autograd of the plain version
-            A = torch.randn(r, r, device="cuda", generator=gen)
-            B = torch.randn(r, l, device="cuda", generator=gen)
-
-            def loss(fn, U, Z):
-                G, UtZ, zn = fn(U, Z)
-                return torch.sum(G * A) + torch.sum(UtZ * B) + 3.0 * zn
-
-            U1, Z1 = U.clone().requires_grad_(), Z.clone().requires_grad_()
-            g_k = torch.autograd.grad(loss(ops.factor_prep, U1, Z1), (U1, Z1))
-            U2, Z2 = U.clone().requires_grad_(), Z.clone().requires_grad_()
-            g_p = torch.autograd.grad(loss(ops.factor_prep_torch, U2, Z2), (U2, Z2))
-            torch.cuda.synchronize()
-            gerr, grel = max_err(g_k, g_p)
-            say(f"factor_prep grads: max abs err {gerr:.3e}, rel {grel:.3e} "
-                f"(bound {FACTOR_PREP_REL_BOUND:.0e})")
-            check(grel <= FACTOR_PREP_REL_BOUND, "factor_prep gradients")
-            stats["factor_prep"]["ms"] = time_ms(lambda: ops.launch_factor_prep(U, Z))
-            stats["factor_prep"]["plain_ms"] = time_ms(lambda: ops.factor_prep_torch(U, Z))
-
-    for n, r, l in SHAPES_NLL_CORE:
-        U = torch.randn(n, r, device="cuda", generator=gen) / math.sqrt(r)
-        Z = torch.randn(n, l, device="cuda", generator=gen)
-        G, UtZ, zn = ops.factor_prep_torch(U, Z)
-        vn = torch.tensor(0.37, device="cuda")
-        leaves_k = [t.clone().requires_grad_() for t in (G, UtZ, zn, vn)]
-        nll_k = ops.woodbury_nll_core(*leaves_k, n, l)
-        g_k = torch.autograd.grad(nll_k, leaves_k)
-        leaves_p = [t.clone().requires_grad_() for t in (G, UtZ, zn, vn)]
-        nll_p = ops.woodbury_nll_core_torch(*leaves_p, n, l)
-        g_p = torch.autograd.grad(nll_p, leaves_p)
-        k_out = ops.launch_nll_core(G, UtZ, zn, vn, n, l)
-        p_out = ops.nll_core_torch(G, UtZ, zn, vn, n, l)
-        torch.cuda.synchronize()
-        verr, vrel = max_err([nll_k], [nll_p])
-        rerr, _ = max_err(k_out[1:], p_out[1:])
-        say(f"nll_core R={r} L={l}: nll {nll_k.item():.6f} vs {nll_p.item():.6f}, "
-            f"rel {vrel:.3e} (bound {NLL_VALUE_REL_BOUND:.0e}); X, W max abs err {rerr:.3e}")
-        check(vrel <= NLL_VALUE_REL_BOUND, f"nll_core R={r} value")
-        for name, a, b in zip(("G", "UtZ", "zn", "vn"), g_k, g_p):
-            gerr, grel = max_err([a], [b])
-            say(f"  d/d{name}: max abs err {gerr:.3e}, rel {grel:.3e} "
-                f"(bound {NLL_GRAD_REL_BOUND:.0e})")
-            check(grel <= NLL_GRAD_REL_BOUND, f"nll_core R={r} gradient {name}")
-        if r == 56:
-            stats["woodbury_nll_core"] = {
-                "max_abs_err": verr,
-                "ms": time_ms(lambda: ops.launch_nll_core(G, UtZ, zn, vn, n, l)),
-                "plain_ms": time_ms(lambda: ops.nll_core_torch(G, UtZ, zn, vn, n, l)),
-            }
-    for name, s in stats.items():
-        say(f"{name} at the main path's shape: kernel {s['ms']:.4f} ms, "
-            f"plain {s['plain_ms']:.4f} ms (median of 50, CUDA events)")
-    return stats
+    return {
+        "factor_prep": [check_factor_prep(gen, *s) for s in SHAPES_FACTOR_PREP],
+        "woodbury_nll_core": [check_nll_core(gen, *s) for s in SHAPES_NLL_CORE],
+    }
 
 
 def drive(label: str, fn):
@@ -351,7 +435,7 @@ def path_faces() -> dict:
     R = sum(v.shape[1] for v in Vs)
     check(R == 232, "R = 32·7 + 8 = 232")
 
-    # both kernels at this path's shapes, against their plain versions
+    # both kernels on this path's trained inputs, against their plain versions
     U = torch.cat([torch.sqrt(s) * v for s, v in zip(v_sigs, Vs)], dim=1).contiguous()
     got, want = ops.launch_factor_prep(U, Z), ops.factor_prep_torch(U, Z)
     err, rel = max_err(got, want)
@@ -362,15 +446,8 @@ def path_faces() -> dict:
     p_out = ops.nll_core_torch(G, UtZ, zn, v_noise, n, L)
     verr, vrel = max_err(k_out[:1], p_out[:1])
     check(vrel <= NLL_VALUE_REL_BOUND, "nll_core at R = 232")
-    timed = {
-        "factor_prep": (err, lambda: ops.launch_factor_prep(U, Z),
-                        lambda: ops.factor_prep_torch(U, Z)),
-        "woodbury_nll_core": (verr, lambda: ops.launch_nll_core(G, UtZ, zn, v_noise, n, L),
-                              lambda: ops.nll_core_torch(G, UtZ, zn, v_noise, n, L)),
-    }
-    for name, (e, kernel, plain) in timed.items():
-        say(f"{name} at N={n}, R={R}, L={L}: max abs err {e:.3e}; kernel {time_ms(kernel):.4f} ms, "
-            f"plain {time_ms(plain):.4f} ms (median of 50, CUDA events)")
+    say(f"trained inputs at N={n}, R={R}, L={L}: factor_prep rel {rel:.3e}, "
+        f"nll_core rel {vrel:.3e}")
     return counts
 
 
@@ -390,11 +467,28 @@ def path_nystrom() -> dict:
     return counts
 
 
+def path_large_rank() -> dict:
+    from gppvae_tpu_torch.train import train_gppvae
+
+    say("== 5d the digits at R = 560 (rbf, 80 RFF features × 7 view features), past the "
+        "TPU kernel's 512: 1 joint epoch from a fresh VAE")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        result, counts = drive("5d R=560", lambda: train_gppvae.main([
+            *SLICE_ARGS, "--mode", "joint", "--epochs", "1", "--object_kernel", "rbf",
+            "--rff_features", "80", "--outdir", f"{tmp}/g"]))
+    report(result.history)
+    check(counts["launch_factor_prep.launches"] == 1 and counts["launch_nll_core.launches"] == 1,
+          "each kernel launched once")
+    _, Vs, _, _ = final_nll_check(result, "5d R=560")
+    check(Vs[0].shape[1] == 560, "R = 80·7 = 560")
+    return counts
+
+
 def main() -> None:
     kind = phase_environment()
     phase_build()
     stats = phase_kernels()
-    paths = [phase_slice(), path_headline(), path_faces(), path_nystrom()]
+    paths = [phase_slice(), path_headline(), path_faces(), path_nystrom(), path_large_rank()]
     sources = {
         "factor_prep": ("gppvae_tpu_torch/csrc/factor_prep.cu",
                         "gppvae_tpu/ops/pallas_gemm.py:162", "launch_factor_prep.launches"),
@@ -405,8 +499,13 @@ def main() -> None:
     for name, (src, rep, key) in sources.items():
         per_path = [c[key] for c in paths]
         check(all(per_path), f"{name} launched in every path: {per_path}")
+        main_shape = stats[name][0]  # the main path's (phase 4)
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
-                        "launches": sum(per_path), **stats[name]})
+                        "launches": sum(per_path),
+                        **{k: main_shape[k] for k in KERNEL_KEYS}})
+    for name, rows in stats.items():
+        say(f"{name} at every shape: " + json.dumps(
+            [{"shape": row["shape"], **{k: row[k] for k in KERNEL_KEYS}} for row in rows]))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

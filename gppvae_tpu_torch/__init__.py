@@ -2,11 +2,10 @@
 
 The JAX package `gppvae_tpu` is the reference this port is held against;
 each module here mirrors the one of the same name there. This package
-imports `torch` and never `jax`. The framework-free parts of the JAX package
-(`gppvae_tpu.data`, `gppvae_tpu.config.datasets`, `gppvae_tpu.utils.metrics`)
-are reused as they are. They stay jax-free only while GPPVAE_COMPILE_CACHE is
-unset: with it set, `gppvae_tpu/__init__.py` imports jax to wire its
-compilation cache, so leave it unset where the port runs.
+imports `torch` and never `jax`, and nothing of `gppvae_tpu` either: what it
+needs of the JAX package's framework-free modules (the dataset builders, the
+--data flag, the metrics logger) it keeps in its own copy (data/, config/,
+utils/).
 
 Layers (bottom → top):
   ops/      the two hand-written CUDA kernels (csrc/) for the GP hot path,
@@ -16,6 +15,9 @@ Layers (bottom → top):
   models/   conv encoder/decoder (nn.Module), VAE assembly
   train/    losses, batching, the guarded Adam, train_vae / train_gppvae
   eval/     out-of-sample GP-predictive generation and pixel MSE
+  data/     rotated-digits and face-view grid builders (numpy)
+  config/   the --data flag → dataset builder
+  utils/    JSONL metrics logger
   convert   flax param tree → state_dict and GP tensors
 """
 

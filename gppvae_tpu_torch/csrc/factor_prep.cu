@@ -5,209 +5,361 @@
 // kernel _make_factor_prep_kernel), which walked the N tiles in order on one
 // TPU core and carried the sums in VMEM from one grid step to the next.
 //
-// What bounds it on the H100: bytes. At the main path's N = 5700, R = 56,
-// L = 16 the inputs are 1.6 MB and the work 2·N·R·(R+L) ≈ 46 MFLOP, far below
-// the card's FLOP/byte ridge, so the pass is a bandwidth-bound (at this size
-// launch-bound) split-N reduction, not the TPU's sequential grid.
-//
-// Design:
-//   * the output [G | UᵀZ] (R × (R+L)) is cut into 64×64 tiles and N into
-//     row chunks; block (tile, chunk) streams its chunk's rows of U and of
-//     the augmented row [U | Z] through shared memory 16 rows at a time and
-//     accumulates its tile in registers (4×4 per thread). The ragged end of
-//     N is masked in the kernel: rows past N load as zero, nothing is padded
-//     on the host;
-//   * each chunk writes its partial tile to a workspace the caller allocates;
-//     a second pass sums the partials over chunks in a fixed order, and the
-//     ‖Z‖² partials likewise. No float atomics: the same inputs give
-//     bit-identical outputs on every run;
-//   * precision: fp32 in, fp32 FMA accumulation, no tensor cores. The TPU
-//     kernel fed the MXU bf16 operands (pallas_gemm.py:34-40); this port
-//     deliberately keeps full fp32.
-//   * large R (e.g. 2048 random-Fourier features) only adds output tiles;
-//     the number of chunks shrinks so blocks × chunks stays near 4 per SM
-//     and the workspace stays bounded.
+// What bounds it on the H100: operations, then latency. The work is
+// 2·N·R·(R+L) FLOP on 4·N·(R+L) bytes of input; at the main path's N = 5700,
+// R = 56, L = 16 that is 46 MFLOP on 1.6 MB, 27.7 FLOP/B, above the card's
+// fp32 ridge (67 TFLOP/s over 3.35 TB/s = 20 FLOP/B), and the bound is
+// 0.69 µs, well under what one launch costs. So the kernel is one launch
+// that keeps every SM busy on the FMAs:
+//   * the output block [G | UᵀZ] (R × (R+L)) is cut into as few tiles as fit
+//     256 threads of 4×4 register outputs, each sized to the block (56×72 at
+//     R = 56, L = 16: one tile, no padded rows or columns computed); large R
+//     still splits into tiles of up to 64×96;
+//   * N is cut into contiguous row chunks so that tiles × chunks is at most
+//     one CTA per SM. Each CTA streams its chunk through a double-buffered
+//     ring in shared memory, 32 rows per stage, with cp.async: the next
+//     stage's loads are in flight while this stage's FMAs run. Loads are
+//     16 bytes where R and L are multiples of 4 and the pointers 16-byte
+//     aligned, else 4 bytes; the ragged end of N and of the tile is
+//     zero-filled by the copy itself, nothing is padded on the host;
+//   * with more than one chunk, each CTA writes its partial tile to a
+//     workspace, __threadfence()s and takes a ticket for its tile with an
+//     integer atomicAdd; the CTA that draws the last ticket sums the partials
+//     in chunk order, writes its tile of G and UᵀZ (and ‖Z‖² for tile 0) and
+//     resets the ticket. No float atomics: the same inputs give bit-identical
+//     outputs on every run;
+//   * precision: fp32 in, fp32 FFMA accumulation, no tensor cores. The TPU
+//     kernel fed the MXU bf16 operands (pallas_gemm.py:34-40); TF32 would
+//     keep about three decimal digits and the outputs are held to 1e-5
+//     relative, so this port keeps full fp32.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
-constexpr int TILE = 64;           // output tile edge
-constexpr int KS = 16;             // rows staged in shared memory per step
-constexpr int THREADS = 256;       // 16×16 threads, 4×4 outputs each
-constexpr int TARGET_BLOCKS = 528; // 4 blocks per SM on a 132-SM H100
-constexpr int MIN_ROWS_PER_CHUNK = 128;
-constexpr int REDUCE_THREADS = 256;
+constexpr int THREADS = 256;
+constexpr int KS = 32;              // rows per pipeline stage
+constexpr int STAGES = 2;
+constexpr int MAX_EDGE = 64;        // output tile rows bound (16 threads × 4)
+constexpr int MAX_TN = 24;          // threads along a tile's columns
+constexpr int MIN_ROWS_PER_CHUNK = 160;
+constexpr int MAX_DEVICES = 64;
 
 struct Plan {
-  int col_tiles;
+  int tm, tn;                 // threads along the tile's rows and columns
+  int row_tiles, col_tiles;   // tiles of 4·tm × 4·tn outputs
   int tiles;
-  int rows_per_chunk;
   int chunks;
+  int rows_per_chunk;
+  int vec;                    // 16-byte copies
 };
 
-int ceil_div(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-Plan make_plan(int N, int R, int L) {
+int sm_count() {
+  static int cached[MAX_DEVICES];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 1;
+  if (dev < MAX_DEVICES && cached[dev] > 0) return cached[dev];
+  int n = 1;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) n = 1;
+  if (dev < MAX_DEVICES) cached[dev] = n;
+  return n;
+}
+
+Plan make_plan(int N, int R, int L, int sms, bool vec) {
   Plan p;
-  const int row_tiles = ceil_div(R, TILE);
-  p.col_tiles = ceil_div(R + L, TILE);
-  p.tiles = row_tiles * p.col_tiles;
-  int chunks = ceil_div(TARGET_BLOCKS, p.tiles);
-  const int max_chunks = ceil_div(N, MIN_ROWS_PER_CHUNK);
-  if (chunks > max_chunks) chunks = max_chunks;
+  const int C = R + L;
+  p.row_tiles = cdiv(R, MAX_EDGE);
+  p.tm = cdiv(cdiv(R, p.row_tiles), 4);
+  // at most 96 columns: the two stages stay within 40 KB of shared memory
+  // and one pass of the 256 threads covers a staged row's copies
+  const int tn_max = std::min(THREADS / p.tm, MAX_TN);
+  p.col_tiles = cdiv(C, 4 * tn_max);
+  p.tn = cdiv(cdiv(C, p.col_tiles), 4);
+  p.tiles = p.row_tiles * p.col_tiles;
+  int chunks = sms / p.tiles;
+  if (chunks > cdiv(N, MIN_ROWS_PER_CHUNK)) chunks = cdiv(N, MIN_ROWS_PER_CHUNK);
   if (chunks < 1) chunks = 1;
-  p.rows_per_chunk = ceil_div(ceil_div(N, chunks), KS) * KS;
-  p.chunks = ceil_div(N, p.rows_per_chunk);
+  p.rows_per_chunk = cdiv(cdiv(N, chunks), KS) * KS;
+  p.chunks = cdiv(N, p.rows_per_chunk);
+  p.vec = vec;
   return p;
 }
 
-__global__ void __launch_bounds__(THREADS) factor_prep_partial(
+size_t partial_floats(const Plan& p) {
+  return (size_t)p.tiles * p.chunks * (4 * p.tm) * (4 * p.tn);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+__device__ float block_sum(float v, float* red) {
+  const int tid = threadIdx.x;
+  red[tid] = v;
+  __syncthreads();
+  for (int s = THREADS / 2; s > 0; s >>= 1) {
+    if (tid < s) red[tid] += red[tid + s];
+    __syncthreads();
+  }
+  const float out = red[0];
+  __syncthreads();
+  return out;
+}
+
+// CTA b: tile b % tiles of [G | UᵀZ] over the rows of chunk b / tiles.
+__global__ void __launch_bounds__(THREADS) factor_prep_kernel(
     const float* __restrict__ U, const float* __restrict__ Z,
-    float* __restrict__ ws_g, float* __restrict__ ws_zn, int N, int R, int L,
-    int rows_per_chunk, int col_tiles) {
-  __shared__ float sa[KS][TILE];  // U[n, r0 + i]
-  __shared__ float sb[KS][TILE];  // [U | Z][n, c0 + j]
+    float* __restrict__ G, float* __restrict__ UtZ, float* __restrict__ zn,
+    float* __restrict__ ws, unsigned* __restrict__ tickets, int N, int R,
+    int L, Plan p) {
+  extern __shared__ __align__(16) float smem[];
   __shared__ float red[THREADS];
+  __shared__ unsigned s_ticket;
 
   const int C = R + L;
-  const int tr = blockIdx.x / col_tiles;
-  const int tc = blockIdx.x % col_tiles;
-  const int r0 = tr * TILE;
-  const int c0 = tc * TILE;
-  const int chunk = blockIdx.y;
-  const int n_begin = chunk * rows_per_chunk;
-  const int n_end = min(N, n_begin + rows_per_chunk);
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  // the first tile row of every column tile also sums ‖Z‖² over the Z
-  // columns it stages, so each Z entry is counted exactly once
-  const bool count_z = tr == 0;
+  const int TM = 4 * p.tm;
+  const int TN = 4 * p.tn;
+  const int tile = blockIdx.x % p.tiles;
+  const int chunk = blockIdx.x / p.tiles;
+  const int r0 = (tile / p.col_tiles) * TM;
+  const int q0 = (tile % p.col_tiles) * TN;
+  const int n_begin = chunk * p.rows_per_chunk;
+  const int n_end = min(N, n_begin + p.rows_per_chunk);
+  const int t = threadIdx.x;
+  const int tx = t % p.tn;
+  const int ty = t / p.tn;
+  const bool computes = ty < p.tm;
+
+  // The copy each thread issues per staged row: one 16-byte vector (or one
+  // float) of U's tile columns [r0, r0+TM) or of [U | Z]'s [q0, q0+TN),
+  // fixed for the whole chunk; rows k0, k0 + kstep, … of each stage.
+  const int width = p.vec ? 4 : 1;
+  const int va = TM / width;
+  const int nv = va + TN / width;
+  const int kstep = THREADS / nv;
+  const int k0 = t / nv;
+  const int v = t % nv;
+  const float* src;          // row 0's address of this thread's columns
+  size_t src_ld;
+  int dst;                   // offset in the stage: sa[k][·] or sb[k][·]
+  bool col_ok;
+  if (v < va) {
+    const int r = r0 + width * v;
+    col_ok = r < R;
+    src = U + r;
+    src_ld = R;
+    dst = width * v;
+  } else {
+    const int q = q0 + width * (v - va);
+    col_ok = q < C;
+    src = q < R ? U + q : Z + (q - R);
+    src_ld = q < R ? R : L;
+    dst = STAGES * KS * TM + width * (v - va);
+  }
+  const int dst_ld = v < va ? TM : TN;
+  const int stage_floats = v < va ? KS * TM : KS * TN;
+
+  auto load_stage = [&](int buf, int n0) {
+    if (k0 >= kstep) return;
+    for (int k = k0; k < KS; k += kstep) {
+      const int n = n0 + k;
+      const bool ok = col_ok && n < n_end;
+      float* d = smem + dst + buf * stage_floats + k * dst_ld;
+      const float* s = ok ? src + (size_t)n * src_ld : U;
+      if (p.vec) {
+        cp_async16(d, s, ok);
+      } else {
+        cp_async4(d, s, ok);
+      }
+    }
+  };
 
   float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  float zacc = 0.f;
 
-  for (int n0 = n_begin; n0 < n_end; n0 += KS) {
-    for (int e = threadIdx.x; e < KS * TILE; e += THREADS) {
-      const int k = e / TILE;
-      const int j = e % TILE;
-      const int n = n0 + k;
-      float a = 0.f;
-      float b = 0.f;
-      if (n < n_end) {
-        const int r = r0 + j;
-        if (r < R) a = U[(size_t)n * R + r];
-        const int c = c0 + j;
-        if (c < R) {
-          b = U[(size_t)n * R + c];
-        } else if (c < C) {
-          b = Z[(size_t)n * L + (c - R)];
-          if (count_z) zacc = fmaf(b, b, zacc);
+  const int steps = cdiv(n_end - n_begin, KS);
+  load_stage(0, n_begin);
+  cp_async_commit();
+
+  // ‖Z‖² of this chunk's rows, once per chunk (by tile 0's CTA), read while
+  // the first stage's copies are in flight
+  float zsum = 0.f;
+  if (tile == 0) {
+    const size_t end = (size_t)n_end * L;
+#pragma unroll 4
+    for (size_t e = (size_t)n_begin * L + t; e < end; e += THREADS) {
+      zsum = fmaf(Z[e], Z[e], zsum);
+    }
+    zsum = block_sum(zsum, red);
+  }
+
+  for (int it = 0; it < steps; ++it) {
+    if (it + 1 < steps) load_stage((it + 1) & 1, n_begin + (it + 1) * KS);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    const float* sa = smem + (it & 1) * KS * TM;
+    const float* sb = smem + STAGES * KS * TM + (it & 1) * KS * TN;
+    if (computes) {
+#pragma unroll 8
+      for (int k = 0; k < KS; ++k) {
+        float a[4], b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          a[i] = sa[k * TM + ty + p.tm * i];
+          b[i] = sb[k * TN + tx + p.tn * i];
         }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
       }
-      sa[k][j] = a;
-      sb[k][j] = b;
     }
     __syncthreads();
-#pragma unroll
-    for (int k = 0; k < KS; ++k) {
-      float a[4];
-      float b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sa[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = sb[k][tx + 16 * j];
+  }
+
+  auto store = [&](int i, int j, float value) {
+    const int r = r0 + ty + p.tm * i;
+    const int c = q0 + tx + p.tn * j;
+    if (r >= R || c >= C) return;
+    if (c < R) {
+      G[(size_t)r * R + c] = value;
+    } else {
+      UtZ[(size_t)r * L + (c - R)] = value;
+    }
+  };
+
+  if (p.chunks == 1) {
+    if (computes) {
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < 4; ++j) store(i, j, acc[i][j]);
     }
-    __syncthreads();
+    if (tile == 0 && t == 0) *zn = zsum;
+    return;
   }
 
-  float* out = ws_g + (size_t)chunk * R * C;
+  const size_t tile_floats = (size_t)TM * TN;
+  float* zpart = ws + (size_t)p.tiles * p.chunks * tile_floats;
+  float* part = ws + ((size_t)tile * p.chunks + chunk) * tile_floats;
+  if (computes) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty + 16 * i;
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + tx + 16 * j;
-      if (r < R && c < C) out[(size_t)r * C + c] = acc[i][j];
-    }
+      for (int j = 0; j < 4; ++j) {
+        part[(ty + p.tm * i) * TN + tx + p.tn * j] = acc[i][j];
+      }
   }
+  if (tile == 0 && t == 0) zpart[chunk] = zsum;
+  __threadfence();
+  __syncthreads();
+  if (t == 0) s_ticket = atomicAdd(&tickets[tile], 1u);
+  __syncthreads();
+  if (s_ticket != (unsigned)p.chunks - 1) return;
 
-  if (count_z) {  // uniform across the block
-    red[threadIdx.x] = zacc;
-    __syncthreads();
-    for (int s = THREADS / 2; s > 0; s >>= 1) {
-      if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
-      __syncthreads();
-    }
-    if (threadIdx.x == 0) ws_zn[(size_t)chunk * col_tiles + tc] = red[0];
-  }
-}
-
-__global__ void __launch_bounds__(REDUCE_THREADS) factor_prep_reduce(
-    const float* __restrict__ ws_g, const float* __restrict__ ws_zn,
-    float* __restrict__ G, float* __restrict__ UtZ, float* __restrict__ zn,
-    int R, int L, int chunks, int zn_parts) {
-  const int C = R + L;
-  const size_t total = (size_t)R * C;
-  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
-       e += (size_t)gridDim.x * blockDim.x) {
-    float s = 0.f;
+  // the last CTA of this tile: sum the partials in chunk order. The tile is
+  // summed as a flat run of float4s (TM·TN is a multiple of 16), every
+  // thread taking a few, with several chunks' loads in flight at once
+  __threadfence();
+  const float4* first =
+      reinterpret_cast<const float4*>(ws + (size_t)tile * p.chunks * tile_floats);
+  const int n4 = (int)(tile_floats / 4);
+  for (int e4 = t; e4 < n4; e4 += THREADS) {
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 8
-    for (int k = 0; k < chunks; ++k) s += ws_g[(size_t)k * total + e];
-    const int r = (int)(e / C);
-    const int c = (int)(e % C);
-    if (c < R) {
-      G[(size_t)r * R + c] = s;
-    } else {
-      UtZ[(size_t)r * L + (c - R)] = s;
+    for (int ch = 0; ch < p.chunks; ++ch) {
+      const float4 v = __ldcg(first + (size_t)ch * n4 + e4);
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+    const float vals[4] = {sum.x, sum.y, sum.z, sum.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int e = 4 * e4 + q;
+      const int r = r0 + e / TN;
+      const int c = q0 + e % TN;
+      if (r >= R || c >= C) continue;
+      if (c < R) {
+        G[(size_t)r * R + c] = vals[q];
+      } else {
+        UtZ[(size_t)r * L + (c - R)] = vals[q];
+      }
     }
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    float s = 0.f;
-    for (int k = 0; k < zn_parts; ++k) s += ws_zn[k];
-    *zn = s;
+  if (t == 0) {
+    if (tile == 0) {
+      float s = 0.f;
+      for (int ch = 0; ch < p.chunks; ++ch) s += __ldcg(zpart + ch);
+      *zn = s;
+    }
+    tickets[tile] = 0;
   }
 }
+
+bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of workspace gppvae_factor_prep needs for these shapes.
+// Floats of workspace and ticket counters gppvae_factor_prep needs for
+// these shapes on the current device (both 0 when N is not split). The
+// tickets start at 0 and the kernel leaves them at 0.
 size_t gppvae_factor_prep_workspace(int N, int R, int L) {
-  const Plan p = make_plan(N, R, L);
-  return (size_t)p.chunks * R * (R + L) + (size_t)p.chunks * p.col_tiles;
+  if (N < 1 || R < 1 || L < 1) return 0;
+  const Plan p = make_plan(N, R, L, sm_count(), false);
+  return p.chunks == 1 ? 0 : partial_floats(p) + p.chunks;
 }
 
-// G (R×R), UtZ (R×L) and zn (one float) from U (N×R) and Z (N×L); ws holds
-// gppvae_factor_prep_workspace(N, R, L) floats. Launches on `stream`,
-// allocates nothing, does not synchronise; returns cudaGetLastError().
+size_t gppvae_factor_prep_tickets(int N, int R, int L) {
+  if (N < 1 || R < 1 || L < 1) return 0;
+  const Plan p = make_plan(N, R, L, sm_count(), false);
+  return p.chunks == 1 ? 0 : p.tiles;
+}
+
+// G (R×R), UtZ (R×L) and zn (one float) from U (N×R) and Z (N×L); ws and
+// tickets as sized above. One launch on `stream`; allocates nothing, does
+// not synchronise; returns cudaGetLastError().
 int gppvae_factor_prep(const float* U, const float* Z, float* G, float* UtZ,
-                       float* zn, float* ws, int N, int R, int L,
-                       cudaStream_t stream) {
+                       float* zn, float* ws, unsigned* tickets, int N, int R,
+                       int L, cudaStream_t stream) {
   if (N < 1 || R < 1 || L < 1) return (int)cudaErrorInvalidValue;
-  const Plan p = make_plan(N, R, L);
-  float* ws_g = ws;
-  float* ws_zn = ws + (size_t)p.chunks * R * (R + L);
-  factor_prep_partial<<<dim3(p.tiles, p.chunks), THREADS, 0, stream>>>(
-      U, Z, ws_g, ws_zn, N, R, L, p.rows_per_chunk, p.col_tiles);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const size_t total = (size_t)R * (R + L);
-  size_t blocks = (total + REDUCE_THREADS - 1) / REDUCE_THREADS;
-  if (blocks > 1024) blocks = 1024;
-  factor_prep_reduce<<<(unsigned)blocks, REDUCE_THREADS, 0, stream>>>(
-      ws_g, ws_zn, G, UtZ, zn, R, L, p.chunks, p.chunks * p.col_tiles);
+  const bool vec = R % 4 == 0 && L % 4 == 0 && aligned16(U) && aligned16(Z);
+  const Plan p = make_plan(N, R, L, sm_count(), vec);
+  if (p.chunks > 1 && (ws == nullptr || tickets == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = (size_t)STAGES * KS * (4 * p.tm + 4 * p.tn) * sizeof(float);
+  factor_prep_kernel<<<p.tiles * p.chunks, THREADS, smem, stream>>>(
+      U, Z, G, UtZ, zn, ws, tickets, N, R, L, p);
   return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,4 @@
-// nll_core: the Woodbury NLL tail from the R-sized core, in one CTA.
+// nll_core: the Woodbury NLL tail from the R-sized core, at any R.
 //
 // From G (R×R), UtZ (R×L), ‖Z‖² and v_n, with B = I + G/v_n = L_B L_Bᵀ:
 //   log|B| = 2·Σ log diag(L_B)
@@ -8,146 +8,635 @@
 //
 // Replaces gppvae_tpu/ops/pallas_chol.py::_nll_core_pallas (the Pallas kernel
 // _nll_core_kernel), which padded R and L to multiples of 128 for the TPU's
-// lanes; nothing is padded here.
+// lanes and took R ≤ 512; nothing is padded here and R has no upper limit
+// but device memory.
 //
-// What bounds it on the H100: latency, not bytes or FLOPs. At R = 56 the
-// factorization is ~30 kFLOP and the inputs 16 KB; the time is the serial
-// chain of R columns, each a barrier. So the kernel is one CTA:
-//   * left-looking Cholesky, column j at a time, rows i ≥ j in parallel, a
-//     __syncthreads between the update, the pivot and the scaling;
-//   * L_B lives in shared memory while it fits (R = 56 → 12.8 KB; up to
-//     R = 225 with the opt-in above 48 KB), otherwise in a global scratch
-//     buffer the caller allocates. Either way R ≤ 512, the TPU kernel's own
-//     range; blocking the factorization across CTAs is later work;
-//   * the two forward substitutions run with one thread per right-hand-side
-//     column: W's L columns and X's R columns side by side;
-//   * Σ log diag, ‖W‖² (a fixed-order tree over the block) and the scalar
-//     assembly are fp32, as in the TPU kernel.
-// A non-positive pivot gives NaN (sqrtf of a negative number) and is never
-// clamped: the trainer's spike guard handles non-finite values.
+// What bounds it on the H100: latency. The work is 2R³/3 + R²L FLOP on
+// 4R(R+L) bytes (R = 232, L = 32: 10 MFLOP, 0.15 µs at the fp32 peak), far
+// less than one launch costs, so the design shortens the chain of dependent
+// steps and keeps every operand it can on chip.
+//
+// The algorithm: a right-looking blocked Cholesky in panels of 32 columns
+// that carries the right-hand side [W | X] = [UtZ | I] along, so that X and W
+// come out of the factorization. L_B's columns are dead once their panel is
+// done, and X is lower triangular, so one lower triangle M holds both: X in
+// the columns of finished panels, B's trailing block in the rest. For each
+// panel k (columns c0 … s−1, s = c0 + nb, nb ≤ 32):
+//   1. one warp factors the diagonal block in registers with shuffles and
+//      rsqrt (no __syncthreads), inverts it (D = L_kk⁻¹, one lane per column,
+//      right-looking) and writes X_kk = D over it;
+//   2. in parallel, one thread per row or column: every row below the panel
+//      is solved, L_ik = A_ik Dᵀ, and every column of block row k of [W | X]
+//      (W's L columns, X's c0) is scaled, Y_k = D·Y_k; both results are also
+//      copied, with 16-byte rows, into compact buffers for step 3;
+//   3. in 64×64 tiles of 256 threads, 4×4 outputs each in registers, from
+//      those copies with float4 loads: the rank-32 update A_ij −= L_ik L_jkᵀ
+//      of the trailing lower triangle and Y_i −= L_ik Y_k of the rows below,
+//      over W and X's first c0 columns;
+//   4. one thread per row below the panel: X_ik = −L_ik D, in place.
+// That is three barriers per panel (8 panels at R = 232) where the first
+// version had three per column; D is read as 16-byte broadcasts. The
+// triangular products of steps 2 and 4 are one compact loop: this code runs
+// once per panel, and fully unrolled it waited on instruction fetch (step 1's
+// factorization, by contrast, ran faster unrolled than as a loop: one warp's
+// issue rate and shuffle latency bound it).
+//
+// Two drivers of the same device code:
+//   * while M (packed), W and step 3's copies fit the 227 KB shared-memory
+//     opt-in (R = 232, L = 32: 224 KB): one CTA of 512 threads, the steps
+//     separated by __syncthreads, step 4 of panel k run by the other warps
+//     while warp 0 factors panel k+1; global memory is read once at the start
+//     and written once at the end;
+//   * larger R: M is the X output buffer itself (row stride R, 16.8 MB at
+//     R = 2048, resident in the 50 MB L2), step 3's copies live in the
+//     scratch buffer, and each step is a launch on the stream: a panel kernel
+//     whose every CTA factors the diagonal block itself (no launch waits on a
+//     one-CTA factorization) and takes its share of step 2, a tile kernel of
+//     one CTA per tile, a row kernel for step 4.
+// Precision: fp32 FFMA throughout, no tensor cores. TF32 keeps about three
+// decimal digits and the value is held to 1e-5 relative; the FLOPs take
+// microseconds at any R the paths use. The pivots use rsqrtf (2 ulp); the
+// value still matches the plain version well inside 1e-5 at R = 2048
+// (chip_smoke.py, phase 3). Sums run in a fixed order
+// (no float atomics), so the same inputs give bit-identical outputs on every
+// run. A non-positive pivot gives NaN (rsqrtf of a negative number, or 0·∞)
+// and is never clamped: the trainer's spike guard handles non-finite values.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstddef>
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int MAX_R = 512;
-constexpr size_t DEFAULT_SMEM = 48 * 1024;
-constexpr size_t SMEM_LIMIT = 200 * 1024;
+constexpr int NB = 32;               // panel width: one warp's lanes
+constexpr int DT_LD = 36;            // Dᵀ's row stride: 16-byte rows, fewer bank conflicts
+constexpr int ST_LD = 36;            // the step-3 copies' row stride, likewise
+constexpr int TILE = 64;             // step-3 tile edge
+constexpr int TILE_THREADS = 256;    // 16×16 threads, 4×4 outputs each
+constexpr int CTA_THREADS = 512;     // the one-CTA driver: two tile workers
+constexpr int STEP_THREADS = 256;    // panel and row kernels
+constexpr int FINISH_THREADS = 512;
+constexpr int DEFAULT_SMEM = 48 * 1024;
+constexpr int MAX_DEVICES = 64;
+constexpr unsigned FULL = 0xffffffffu;
 constexpr float LOG2PI = 1.8378770664093453f;
 
-size_t l_bytes(int R) { return (size_t)R * (R + 1) * sizeof(float); }
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-__global__ void __launch_bounds__(THREADS) nll_core_kernel(
-    const float* __restrict__ G, const float* __restrict__ UtZ,
-    const float* __restrict__ zn_p, const float* __restrict__ vn_p,
-    float* __restrict__ nll, float* __restrict__ X, float* __restrict__ W,
-    float* __restrict__ scratch, int R, int L, float n_rows, float l_dims,
-    int use_smem) {
-  extern __shared__ float smem[];
-  __shared__ float red[THREADS];
-  __shared__ float s_pivot;
+// Lower-triangular storage of M: element (r, c ≤ r) at row(r)[c].
+struct Packed {  // row r after the r(r+1)/2 elements of the rows above
+  float* base;
+  __device__ __forceinline__ float* row(int r) const {
+    return base + (size_t)r * (r + 1) / 2;
+  }
+};
+struct Strided {  // a full R×R row-major matrix
+  float* base;
+  int ld;
+  __device__ __forceinline__ float* row(int r) const {
+    return base + (size_t)r * ld;
+  }
+};
 
-  const int ld = R + 1;  // odd row stride: rows land on different banks
-  float* Lm = use_smem ? smem : scratch;
+// Column c of the right-hand side [W | X] at row r: W's L columns (row
+// stride L), then X's, which live in M.
+template <class Mat>
+struct Rhs {
+  Mat M;
+  float* W;
+  int L;
+  __device__ __forceinline__ float* at(int r, int c) const {
+    return c < L ? W + (size_t)r * L + c : M.row(r) + (c - L);
+  }
+};
+
+// Step-3 tiles of a panel ending at s = c0 + nb: the lower triangle of the
+// (R−s)² trailing block, then (R−s) × (L+c0) of [W | X] below the panel.
+__host__ __device__ inline int count_tiles(int R, int L, int c0, int s) {
+  const int nt = cdiv(R - s, TILE);
+  return nt * (nt + 1) / 2 + nt * cdiv(L + c0, TILE);
+}
+
+// Shared-memory floats of the one-CTA driver, in layout order: D (two
+// panels), Dᵀ and step 3's copies of the panel (R rows) and of the block row
+// (transposed, L + R rows), all with 16-byte aligned rows; the diagonal
+// block (32×33), its inverse diagonal, the reduction buffer, the log
+// diagonal, W, packed M.
+size_t cta_smem_floats(int R, int L) {
+  return 2 * NB * NB + NB * DT_LD + (size_t)(R + L + R) * ST_LD +
+         NB * (NB + 1) + NB + CTA_THREADS + R + (size_t)R * L +
+         (size_t)R * (R + 1) / 2;
+}
+
+// Step 1, warp 0: L_kk, the Cholesky factor of M's nb×nb diagonal block at
+// c0, padded to 32×32 with the identity. Lane i holds row i; column j's
+// pivot and multipliers reach the other lanes by shuffles. Writes L_kk to Ls
+// (32×33), 1/diag to inv_diag and, where logd is given, log diag to
+// logd[c0 + i].
+template <class Mat>
+__device__ __forceinline__ void factor_diag(const Mat& M, int c0, int nb,
+                                            float* Ls, float* inv_diag,
+                                            float* logd) {
+  const int i = threadIdx.x & 31;
+  const float* src = i < nb ? M.row(c0 + i) + c0 : nullptr;
+  float a[NB];
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    a[j] = (i < nb && j <= i) ? src[j] : (i == j ? 1.f : 0.f);
+  }
+  float diag = 1.f;
+  float inv = 1.f;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    const float piv = __shfl_sync(FULL, a[j], j);
+    const float rs = rsqrtf(piv);
+    if (i == j) {
+      diag = piv * rs;
+      inv = rs;
+      a[j] = diag;
+    } else if (i > j) {
+      a[j] *= rs;
+    }
+#pragma unroll
+    for (int c = j + 1; c < NB; ++c) {
+      const float lcj = __shfl_sync(FULL, a[j], c);
+      if (i >= c) a[c] = fmaf(-a[j], lcj, a[c]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NB; ++j) Ls[i * (NB + 1) + j] = j <= i ? a[j] : 0.f;
+  inv_diag[i] = inv;
+  if (logd != nullptr && i < nb) logd[c0 + i] = logf(diag);
+}
+
+// Step 1, warp 0: D = L_kk⁻¹, lane c computing column c by right-looking
+// substitution (each step one multiply, then independent FMAs). Writes D
+// (row stride NB) to Ds and Dᵀ (row stride DT_LD) to DsT, both with
+// 16-byte aligned rows for step 2's and step 4's float4 reads.
+__device__ __forceinline__ void invert_diag(const float* Ls,
+                                            const float* inv_diag, float* Ds,
+                                            float* DsT) {
+  const int c = threadIdx.x & 31;
+  float x[NB];
+#pragma unroll
+  for (int r = 0; r < NB; ++r) x[r] = r == c ? 1.f : 0.f;
+#pragma unroll
+  for (int m = 0; m < NB; ++m) {
+    x[m] *= inv_diag[m];
+#pragma unroll
+    for (int r = m + 1; r < NB; ++r) x[r] = fmaf(-Ls[r * (NB + 1) + m], x[m], x[r]);
+  }
+#pragma unroll
+  for (int r = 0; r < NB; ++r) {
+    Ds[r * NB + c] = x[r];
+    DsT[c * DT_LD + r] = x[r];
+  }
+}
+
+// The 32×32 products of steps 2 and 4, one thread per vector:
+//   out[j] = sign · Σ_{m < nb} x_m T[m][j],  x_m = *src(m),
+// then *dst(j) = out[j] (and stage[j · stride], where given) for j < nb.
+// With T = Dᵀ, sign 1 it is v ← D·v (step 2); with T = D, sign −1 it is
+// v ← −v·D (step 4). A compact loop over m with the 32 sums in registers
+// (unrolled by 8, so that eight loads of x are in flight where it lives in
+// global memory): D's zeros are summed too (exactly), so every m has the same
+// body. All reads come before any write, so src and dst may be the same
+// vector.
+template <class Src, class Dst>
+__device__ __forceinline__ void times_d(Src src, Dst dst, int nb,
+                                        const float* T, int ldt, float sign,
+                                        float* stage, int stride) {
+  float out[NB];
+#pragma unroll
+  for (int j = 0; j < NB; ++j) out[j] = 0.f;
+#pragma unroll 8
+  for (int m = 0; m < nb; ++m) {
+    const float x = *src(m);
+    const float4* t = reinterpret_cast<const float4*>(T + m * ldt);
+#pragma unroll
+    for (int q = 0; q < NB / 4; ++q) {
+      const float4 w = t[q];
+      out[4 * q] = fmaf(w.x, x, out[4 * q]);
+      out[4 * q + 1] = fmaf(w.y, x, out[4 * q + 1]);
+      out[4 * q + 2] = fmaf(w.z, x, out[4 * q + 2]);
+      out[4 * q + 3] = fmaf(w.w, x, out[4 * q + 3]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    if (j < nb) {
+      *dst(j) = sign * out[j];
+      if (stage != nullptr) stage[j * stride] = sign * out[j];
+    }
+  }
+}
+
+// Step 2, item `it` of panel (c0, nb): items [0, R−s) are the rows below the
+// panel, the rest the columns [0, L + c0) of block row k of [W | X]. Where
+// the staging buffers are given (the one-CTA driver), each result also goes
+// to row `it` of Pb or row c of YbT (row stride ST_LD), for step 3.
+template <class Mat>
+__device__ __forceinline__ void panel_item(const Rhs<Mat>& y, int R, int c0,
+                                           int nb, int it, const float* DsT,
+                                           float* Pb, float* YbT) {
+  const int rows = R - (c0 + nb);
+  if (it < rows) {
+    float* v = y.M.row(c0 + nb + it) + c0;
+    const auto at = [v](int m) { return v + m; };
+    times_d(at, at, nb, DsT, DT_LD, 1.f, Pb ? Pb + it * ST_LD : nullptr, 1);
+  } else {
+    const int c = it - rows;
+    const auto at = [&y, c0, c](int m) { return y.at(c0 + m, c); };
+    times_d(at, at, nb, DsT, DT_LD, 1.f, YbT ? YbT + c * ST_LD : nullptr, 1);
+  }
+}
+
+// Step 4 for one row below panel (c0, nb): X_ik = −L_ik D, from src to dst.
+__device__ __forceinline__ void neg_times_d(const float* src, float* dst,
+                                            int nb, const float* Ds) {
+  times_d([src](int m) { return src + m; }, [dst](int j) { return dst + j; },
+          nb, Ds, NB, -1.f, nullptr, 0);
+}
+
+// Step 3: tile `tile` (of count_tiles) of a full panel (nb = 32; only the
+// last panel is narrower, and it has no rows below it), by threads
+// t = 0 … 255. Thread (ty, tx) owns rows r0 + ty + 16i and columns
+// q0 + tx + 16j, i, j < 4. L_ik comes from Pb (rows s … R−1) and block row k
+// of [W | X] from YbT (its transpose), the copies step 2 made: both operands
+// run along m in 16-byte rows, so one float4 load feeds four steps. Writes
+// only columns ≥ s of M's rows ≥ s and [W | X]'s first L + c0 columns of rows
+// ≥ s, so concurrent tiles never race. Reads past the last row or column are
+// clamped to it and their outputs dropped.
+template <class Mat>
+__device__ __forceinline__ void update_tile(const Rhs<Mat>& y, int R, int c0,
+                                            const float* Pb, const float* YbT,
+                                            int tile, int t) {
+  const int s = c0 + NB;
+  const int nt = cdiv(R - s, TILE);
+  const int n_lower = nt * (nt + 1) / 2;
+  const int tx = t & 15;
+  const int ty = t >> 4;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  const bool lower = tile < n_lower;
+  int r0, q0, ncols;
+  if (lower) {
+    int ti = 0;
+    while ((ti + 1) * (ti + 2) / 2 <= tile) ++ti;
+    r0 = s + ti * TILE;
+    q0 = s + (tile - ti * (ti + 1) / 2) * TILE;
+    ncols = R;
+  } else {
+    ncols = y.L + c0;
+    const int ct = cdiv(ncols, TILE);
+    r0 = s + ((tile - n_lower) / ct) * TILE;
+    q0 = ((tile - n_lower) % ct) * TILE;
+  }
+  const float4* pa[4];
+  const float4* pb[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    pa[i] = reinterpret_cast<const float4*>(
+        Pb + (min(r0 + ty + 16 * i, R - 1) - s) * ST_LD);
+    const int c = min(q0 + tx + 16 * i, ncols - 1);
+    pb[i] = reinterpret_cast<const float4*>(lower ? Pb + (c - s) * ST_LD
+                                                  : YbT + c * ST_LD);
+  }
+#pragma unroll 2
+  for (int q = 0; q < NB / 4; ++q) {
+    float4 a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      a[i] = pa[i][q];
+      b[i] = pb[i][q];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float v = acc[i][j];
+        v = fmaf(a[i].x, b[j].x, v);
+        v = fmaf(a[i].y, b[j].y, v);
+        v = fmaf(a[i].z, b[j].z, v);
+        acc[i][j] = fmaf(a[i].w, b[j].w, v);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + ty + 16 * i;
+    if (r >= R) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = q0 + tx + 16 * j;
+      if (lower ? c <= r : c < ncols) *y.at(r, lower ? c + y.L : c) -= acc[i][j];
+    }
+  }
+}
+
+// Fixed-order tree over the block (blockDim.x a power of two); every thread
+// gets the sum.
+__device__ float block_sum(float v, float* red) {
   const int tid = threadIdx.x;
-  const float vn = *vn_p;
-  float logdet = 0.f;  // accumulated by thread 0
-
-  // ---- left-looking Cholesky of B = I + G/vn
-  for (int j = 0; j < R; ++j) {
-    const float* lj = Lm + (size_t)j * ld;
-    for (int i = j + tid; i < R; i += THREADS) {
-      float s = G[(size_t)i * R + j] / vn + (i == j ? 1.f : 0.f);
-      const float* li = Lm + (size_t)i * ld;
-      for (int k = 0; k < j; ++k) s = fmaf(-li[k], lj[k], s);
-      Lm[(size_t)i * ld + j] = s;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      const float d = sqrtf(Lm[(size_t)j * ld + j]);
-      s_pivot = d;
-      logdet += 2.f * logf(d);
-    }
-    __syncthreads();
-    const float d = s_pivot;
-    for (int i = j + tid; i < R; i += THREADS) {
-      Lm[(size_t)i * ld + j] = i == j ? d : Lm[(size_t)i * ld + j] / d;
-    }
-    __syncthreads();
-  }
-
-  // ---- forward substitutions: W = L⁻¹ UtZ and X = L⁻¹, one column each
-  float wsq = 0.f;
-  for (int col = tid; col < L + R; col += THREADS) {
-    if (col < L) {
-      for (int j = 0; j < R; ++j) {
-        const float* lj = Lm + (size_t)j * ld;
-        float s = UtZ[(size_t)j * L + col];
-        for (int k = 0; k < j; ++k) s = fmaf(-lj[k], W[(size_t)k * L + col], s);
-        const float w = s / lj[j];
-        W[(size_t)j * L + col] = w;
-        wsq = fmaf(w, w, wsq);
-      }
-    } else {
-      const int c = col - L;
-      for (int j = 0; j < c; ++j) X[(size_t)j * R + c] = 0.f;
-      for (int j = c; j < R; ++j) {
-        const float* lj = Lm + (size_t)j * ld;
-        float s = j == c ? 1.f : 0.f;
-        for (int k = c; k < j; ++k) s = fmaf(-lj[k], X[(size_t)k * R + c], s);
-        X[(size_t)j * R + c] = s / lj[j];
-      }
-    }
-  }
-
-  // ---- ‖W‖² (fixed-order tree) and the scalar assembly
-  red[tid] = wsq;
+  red[tid] = v;
   __syncthreads();
-  for (int s = THREADS / 2; s > 0; s >>= 1) {
+  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
     if (tid < s) red[tid] += red[tid + s];
     __syncthreads();
   }
-  if (tid == 0) {
-    const float wn2 = red[0];
-    const float quad = (*zn_p - wn2 / vn) / vn;
-    *nll = 0.5f * (l_dims * (n_rows * logf(vn) + logdet) + quad +
+  const float out = red[0];
+  __syncthreads();
+  return out;
+}
+
+// log|B|, ‖W‖² and the scalar assembly, by one block.
+__device__ void finish(const float* logd, const float* W, int R, int L,
+                       float zn, float vn, float n_rows, float l_dims,
+                       float* nll, float* red) {
+  float lsum = 0.f;
+  float wsq = 0.f;
+  for (int e = threadIdx.x; e < R; e += blockDim.x) lsum += logd[e];
+#pragma unroll 4
+  for (int e = threadIdx.x; e < R * L; e += blockDim.x) {
+    wsq = fmaf(W[e], W[e], wsq);
+  }
+  lsum = block_sum(lsum, red);
+  wsq = block_sum(wsq, red);
+  if (threadIdx.x == 0) {
+    const float quad = (zn - wsq / vn) / vn;
+    *nll = 0.5f * (l_dims * (n_rows * logf(vn) + 2.f * lsum) + quad +
                    n_rows * l_dims * LOG2PI);
   }
+}
+
+// ---- the one-CTA driver: everything in shared memory
+
+__global__ void __launch_bounds__(CTA_THREADS) nll_core_cta(
+    const float* __restrict__ G, const float* __restrict__ UtZ,
+    const float* __restrict__ zn_p, const float* __restrict__ vn_p,
+    float* __restrict__ nll, float* __restrict__ X, float* __restrict__ Wout,
+    int R, int L, float n_rows, float l_dims) {
+  extern __shared__ __align__(16) float smem[];
+  float* Ds2 = smem;  // two panels' D, alternating
+  float* DsT = Ds2 + 2 * NB * NB;
+  float* Pb = DsT + NB * DT_LD;
+  float* YbT = Pb + (size_t)R * ST_LD;
+  float* Ls = YbT + (size_t)(L + R) * ST_LD;
+  float* inv_diag = Ls + NB * (NB + 1);
+  float* red = inv_diag + NB;
+  float* logd = red + CTA_THREADS;
+  float* W = logd + R;
+  const Rhs<Packed> y{Packed{W + (size_t)R * L}, W, L};
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int warps = CTA_THREADS / 32;
+  const float vn = *vn_p;
+
+  // B's lower triangle into packed M: thread tid takes packed elements
+  // p = tid + k·512, eight at a time (their (r, c) stepped first, then the
+  // eight loads issued together)
+  {
+    const int P = R * (R + 1) / 2;
+    int r = (int)((sqrtf(8.f * tid + 1.f) - 1.f) * 0.5f);
+    while (r * (r + 1) / 2 > tid) --r;
+    while ((r + 1) * (r + 2) / 2 <= tid) ++r;
+    int c = tid - r * (r + 1) / 2;
+    for (int p0 = tid; p0 < P; p0 += 8 * CTA_THREADS) {
+      int rr[8], cc[8];
+      float g[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        rr[k] = r;
+        cc[k] = c;
+        for (c += CTA_THREADS; c > r; c -= r) ++r;
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        g[k] = p0 + k * CTA_THREADS < P ? G[(size_t)rr[k] * R + cc[k]] : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int p = p0 + k * CTA_THREADS;
+        if (p < P) y.M.base[p] = g[k] / vn + (rr[k] == cc[k] ? 1.f : 0.f);
+      }
+    }
+  }
+#pragma unroll 8
+  for (int e = tid; e < R * L; e += CTA_THREADS) W[e] = UtZ[e];
+  __syncthreads();
+
+  for (int c0 = 0, k = 0; c0 < R; c0 += NB, ++k) {
+    const int nb = min(NB, R - c0);
+    const int s = c0 + nb;
+    float* Ds = Ds2 + (k & 1) * NB * NB;
+    if (warp == 0) {  // step 1 of panel k
+      factor_diag(y.M, c0, nb, Ls, inv_diag, logd);
+      __syncwarp();
+      invert_diag(Ls, inv_diag, Ds, DsT);
+      __syncwarp();
+#pragma unroll
+      for (int r = 0; r < NB; ++r) {
+        if (r < nb && lane <= r) y.M.row(c0 + r)[c0 + lane] = Ds[r * NB + lane];
+      }
+    } else if (k > 0) {  // meanwhile step 4 of panel k − 1
+      const float* Dp = Ds2 + ((k - 1) & 1) * NB * NB;
+      for (int r = c0 + tid - 32; r < R; r += CTA_THREADS - 32) {
+        float* v = y.M.row(r) + c0 - NB;
+        neg_times_d(v, v, NB, Dp);
+      }
+    }
+    __syncthreads();
+    const int items = (R - s) + (L + c0);
+    for (int it = tid; it < items; it += CTA_THREADS) {
+      panel_item(y, R, c0, nb, it, DsT, Pb, YbT);
+    }
+    __syncthreads();
+    const int tiles = count_tiles(R, L, c0, s);
+    for (int tile = tid / TILE_THREADS; tile < tiles;
+         tile += CTA_THREADS / TILE_THREADS) {
+      update_tile(y, R, c0, Pb, YbT, tile, tid % TILE_THREADS);
+    }
+    __syncthreads();
+  }
+  // the last panel leaves no rows below it, so no step 4
+
+  for (int r = warp; r < R; r += warps) {
+    const float* in = y.M.row(r);
+#pragma unroll 4
+    for (int c = lane; c < R; c += 32) X[(size_t)r * R + c] = c <= r ? in[c] : 0.f;
+  }
+#pragma unroll 4
+  for (int e = tid; e < R * L; e += CTA_THREADS) Wout[e] = W[e];
+  finish(logd, W, R, L, *zn_p, vn, n_rows, l_dims, nll, red);
+}
+
+// ---- the many-CTA driver: M is the X output buffer, one launch per step
+
+__global__ void __launch_bounds__(STEP_THREADS) init_kernel(
+    const float* __restrict__ G, const float* __restrict__ UtZ,
+    const float* __restrict__ vn_p, float* __restrict__ X,
+    float* __restrict__ W, int R, int L) {
+  const float vn = *vn_p;
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  const size_t first = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  for (size_t e = first; e < (size_t)R * R; e += stride) {
+    const size_t r = e / R;
+    const size_t c = e - r * R;
+    X[e] = c <= r ? G[e] / vn + (r == c ? 1.f : 0.f) : 0.f;
+  }
+  for (size_t e = first; e < (size_t)R * L; e += stride) W[e] = UtZ[e];
+}
+
+// Steps 1 and 2. Every CTA factors and inverts the diagonal block (nothing
+// in this launch writes it); CTA 0 keeps the log diagonal and D for step 4.
+__global__ void __launch_bounds__(STEP_THREADS) panel_kernel(
+    float* X, float* W, float* logd, float* Dg, float* Pb, float* YbT, int R,
+    int L, int c0) {
+  __shared__ __align__(16) float Ds[NB * NB];
+  __shared__ __align__(16) float DsT[NB * DT_LD];
+  __shared__ float Ls[NB * (NB + 1)];
+  __shared__ float inv_diag[NB];
+  const Rhs<Strided> y{Strided{X, R}, W, L};
+  const int nb = min(NB, R - c0);
+  if (threadIdx.x < 32) {
+    factor_diag(y.M, c0, nb, Ls, inv_diag, blockIdx.x == 0 ? logd : nullptr);
+    __syncwarp();
+    invert_diag(Ls, inv_diag, Ds, DsT);
+  }
+  __syncthreads();
+  if (blockIdx.x == 0) {
+    for (int e = threadIdx.x; e < NB * NB; e += STEP_THREADS) Dg[e] = Ds[e];
+  }
+  const int it = blockIdx.x * STEP_THREADS + threadIdx.x;
+  if (it < (R - c0 - nb) + (L + c0)) {
+    panel_item(y, R, c0, nb, it, DsT, Pb, YbT);
+  }
+}
+
+__global__ void __launch_bounds__(TILE_THREADS) tile_kernel(
+    float* X, float* W, const float* Pb, const float* YbT, int R, int L,
+    int c0) {
+  update_tile(Rhs<Strided>{Strided{X, R}, W, L}, R, c0, Pb, YbT, blockIdx.x,
+              threadIdx.x);
+}
+
+// Step 4, and X_kk = D over the diagonal block.
+__global__ void __launch_bounds__(STEP_THREADS) row_kernel(
+    float* X, const float* __restrict__ Dg, int R, int c0) {
+  __shared__ __align__(16) float Ds[NB * NB];
+  for (int e = threadIdx.x; e < NB * NB; e += STEP_THREADS) Ds[e] = Dg[e];
+  __syncthreads();
+  const Strided M{X, R};
+  const int nb = min(NB, R - c0);
+  if (blockIdx.x == 0) {
+    for (int e = threadIdx.x; e < nb * NB; e += STEP_THREADS) {
+      const int r = e / NB;
+      const int c = e % NB;
+      if (c <= r) M.row(c0 + r)[c0 + c] = Ds[e];
+    }
+  }
+  const int r = c0 + nb + blockIdx.x * STEP_THREADS + threadIdx.x;
+  if (r < R) neg_times_d(M.row(r) + c0, M.row(r) + c0, nb, Ds);
+}
+
+__global__ void __launch_bounds__(FINISH_THREADS) finish_kernel(
+    const float* __restrict__ logd, const float* __restrict__ W,
+    const float* __restrict__ zn_p, const float* __restrict__ vn_p,
+    float* __restrict__ nll, int R, int L, float n_rows, float l_dims) {
+  __shared__ float red[FINISH_THREADS];
+  finish(logd, W, R, L, *zn_p, *vn_p, n_rows, l_dims, nll, red);
+}
+
+// Whether the one-CTA driver's shared memory fits the current device's
+// opt-in (232,448 bytes on an H100).
+bool fits_one_cta(int R, int L, size_t* bytes) {
+  int dev = 0;
+  int optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess) {
+    return false;
+  }
+  *bytes = cta_smem_floats(R, L) * sizeof(float);
+  return *bytes <= (size_t)optin;
+}
+
+cudaError_t allow_smem(size_t bytes) {
+  static size_t allowed[MAX_DEVICES];  // per device: the opt-in set so far
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (bytes <= DEFAULT_SMEM || (dev < MAX_DEVICES && bytes <= allowed[dev])) {
+    return cudaSuccess;
+  }
+  err = cudaFuncSetAttribute(nll_core_cta,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err == cudaSuccess && dev < MAX_DEVICES) allowed[dev] = bytes;
+  return err;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of global scratch gppvae_nll_core needs at rank R: 0 while L_B fits
-// in shared memory.
-size_t gppvae_nll_core_scratch(int R) {
-  return l_bytes(R) <= SMEM_LIMIT ? 0 : (size_t)R * (R + 1);
+// Floats of global scratch gppvae_nll_core needs at (R, L) on the current
+// device: 0 for the one-CTA driver, else D, step 3's copies of the panel
+// and the block row, and the log diagonal.
+size_t gppvae_nll_core_scratch(int R, int L) {
+  size_t bytes = 0;
+  if (R < 1 || L < 1 || fits_one_cta(R, L, &bytes)) return 0;
+  return NB * NB + (size_t)(R + L + R) * ST_LD + R;
 }
 
 // nll (one float), X (R×R) and W (R×L) from G (R×R), UtZ (R×L) and the
-// device scalars zn and vn; scratch holds gppvae_nll_core_scratch(R) floats.
-// Launches on `stream`, allocates nothing, does not synchronise; returns
-// cudaGetLastError().
+// device scalars zn and vn; scratch holds gppvae_nll_core_scratch(R, L)
+// floats. Launches on `stream` (one kernel, or 2 + 3·⌈R/32⌉ − 1 beyond the
+// shared-memory bound), allocates nothing, does not synchronise; returns the
+// first launch error, else cudaGetLastError().
 int gppvae_nll_core(const float* G, const float* UtZ, const float* zn,
                     const float* vn, float* nll, float* X, float* W,
                     float* scratch, int R, int L, int n_rows, int l_dims,
                     cudaStream_t stream) {
-  if (R < 1 || R > MAX_R || L < 1) return (int)cudaErrorInvalidValue;
-  const size_t bytes = l_bytes(R);
-  const int use_smem = bytes <= SMEM_LIMIT;
-  const size_t dyn = use_smem ? bytes : 0;
-  if (dyn > DEFAULT_SMEM) {
-    cudaError_t err = cudaFuncSetAttribute(
-        nll_core_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+  if (R < 1 || L < 1) return (int)cudaErrorInvalidValue;
+  size_t bytes = 0;
+  if (fits_one_cta(R, L, &bytes)) {
+    cudaError_t err = allow_smem(bytes);
+    if (err != cudaSuccess) return (int)err;
+    nll_core_cta<<<1, CTA_THREADS, bytes, stream>>>(
+        G, UtZ, zn, vn, nll, X, W, R, L, (float)n_rows, (float)l_dims);
+    return (int)cudaGetLastError();
+  }
+  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+  float* Dg = scratch;  // 16-byte aligned, as are the copies after it
+  float* Pb = Dg + NB * NB;
+  float* YbT = Pb + (size_t)R * ST_LD;
+  float* logd = YbT + (size_t)(L + R) * ST_LD;
+  const size_t cells = (size_t)R * std::max(R, L);
+  const int init_blocks =
+      (int)std::min<size_t>((cells + STEP_THREADS - 1) / STEP_THREADS, 1024);
+  init_kernel<<<init_blocks, STEP_THREADS, 0, stream>>>(G, UtZ, vn, X, W, R, L);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  for (int c0 = 0; c0 < R; c0 += NB) {
+    const int s = c0 + std::min(NB, R - c0);
+    panel_kernel<<<cdiv((R - s) + (L + c0), STEP_THREADS), STEP_THREADS, 0,
+                   stream>>>(X, W, logd, Dg, Pb, YbT, R, L, c0);
+    const int tiles = count_tiles(R, L, c0, s);
+    if (tiles > 0) {
+      tile_kernel<<<tiles, TILE_THREADS, 0, stream>>>(X, W, Pb, YbT, R, L, c0);
+    }
+    row_kernel<<<std::max(1, cdiv(R - s, STEP_THREADS)), STEP_THREADS, 0,
+                 stream>>>(X, Dg, R, c0);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  nll_core_kernel<<<1, THREADS, dyn, stream>>>(
-      G, UtZ, zn, vn, nll, X, W, scratch, R, L, (float)n_rows, (float)l_dims,
-      use_smem);
+  finish_kernel<<<1, FINISH_THREADS, 0, stream>>>(
+      logd, W, zn, vn, nll, R, L, (float)n_rows, (float)l_dims);
   return (int)cudaGetLastError();
 }
 

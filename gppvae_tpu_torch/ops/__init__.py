@@ -21,7 +21,6 @@ from gppvae_tpu_torch.ops.factor_prep import (
     launch_factor_prep,
 )
 from gppvae_tpu_torch.ops.nll_core import (
-    MAX_RANK,
     launch_nll_core,
     nll_core_torch,
     woodbury_nll_core,
@@ -47,7 +46,7 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
-    "MAX_RANK", "factor_prep", "factor_prep_torch", "launch_counts",
+    "factor_prep", "factor_prep_torch", "launch_counts",
     "launch_factor_prep", "launch_nll_core", "nll_core_torch",
     "reset_launch_counts", "woodbury_nll_core", "woodbury_nll_core_torch",
 ]

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-`nvcc` compiles every `csrc/*.cu` of this package for `sm_90a` into one
-shared library with a plain C interface. The library lands in
+`nvcc` compiles every `csrc/*.cu` of this package for `sm_90a`, one process
+per source, all started together, and links the objects into one shared
+library with a plain C interface. The library lands in
 `gppvae_tpu_torch/_build/<hash of the sources and flags>/` (listed in
 .gitignore), so an edit to a kernel rebuilds it and an unchanged tree reuses
 it. nvcc's output (including `-Xptxas -v`'s registers and shared memory per
@@ -25,10 +26,9 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("factor_prep.cu", "nll_core.cu")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 LIB_NAME = "libgppvae_kernels.so"
 
 _P = ctypes.c_void_p
@@ -36,8 +36,9 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # name: (restype, argtypes)
     "gppvae_factor_prep_workspace": (ctypes.c_size_t, [_I, _I, _I]),
-    "gppvae_factor_prep": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
-    "gppvae_nll_core_scratch": (ctypes.c_size_t, [_I]),
+    "gppvae_factor_prep_tickets": (ctypes.c_size_t, [_I, _I, _I]),
+    "gppvae_factor_prep": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "gppvae_nll_core_scratch": (ctypes.c_size_t, [_I, _I]),
     "gppvae_nll_core": (
         _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     ),
@@ -65,7 +66,7 @@ def find_nvcc() -> str:
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join((*COMPILE_FLAGS, *LINK_FLAGS)).encode())
     for name in SOURCES:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
@@ -80,24 +81,37 @@ def build() -> Path:
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
-    # compile to a temporary name, then rename: a concurrent or interrupted
-    # build never leaves a half-written library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
+    # build in a temporary directory, then rename the library: a concurrent
+    # or interrupted build never leaves a half-written one under the final name
+    tmp = Path(tempfile.mkdtemp(dir=out_dir))
+    procs = []
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-        (out_dir / "nvcc.log").write_text(
-            " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-        )
-        if proc.returncode != 0:
+        objs = [tmp / (Path(name).stem + ".o") for name in SOURCES]
+        for name, obj in zip(SOURCES, objs):
+            cmd = [nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(CSRC / name)]
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True)))
+        log = []
+        for cmd, proc in procs:
+            out, err = proc.communicate(timeout=600)
+            log.append(" ".join(cmd) + "\n" + out + err)
+        link = [nvcc, *LINK_FLAGS, "-o", str(tmp / LIB_NAME), *map(str, objs)]
+        failed = [p for _, p in procs if p.returncode != 0]
+        if not failed:
+            proc = subprocess.run(link, capture_output=True, text=True, timeout=600)
+            log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+            failed = [proc] if proc.returncode != 0 else []
+        (out_dir / "nvcc.log").write_text("".join(log))
+        if failed:
             raise KernelBuildError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr}"
-            )
-        os.replace(tmp, lib)
+                f"nvcc failed ({failed[0].returncode}):\n" + "".join(log))
+        os.replace(tmp / LIB_NAME, lib)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
     return lib
 
 

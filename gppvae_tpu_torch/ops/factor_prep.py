@@ -2,9 +2,12 @@
 
 Counterpart of gppvae_tpu/ops/pallas_gemm.py (`factor_prep_pallas`, whose
 Pallas kernel `_factor_prep_pallas` this module's CUDA kernel replaces). The
-kernel is `csrc/factor_prep.cu`: a split-N reduction in fp32 FMA with a
-fixed-order second pass (see the note at the top of that file for what bounds
-it on the H100 and why it is built that way).
+kernel is `csrc/factor_prep.cu`: one launch, row chunks streamed through a
+cp.async ring in fp32 FMA, the chunks' partials summed in a fixed order by
+the last CTA of each tile (see the note at the top of that file for what
+bounds it on the H100 and why it is built that way). The library is loaded
+and its ctypes signatures set once per process (`_build.load`); the
+workspace and the ticket counters are cached per device and stream.
 
 Which version runs is decided by the tensor's device alone: a CPU tensor
 takes the plain PyTorch version, a CUDA float32 tensor launches the kernel,
@@ -13,8 +16,6 @@ is the closed form of `_fp_bwd` (pallas_gemm.py:197-204) in torch.matmul.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -47,16 +48,16 @@ def launch_factor_prep(U: torch.Tensor, Z: torch.Tensor):
     U = U.contiguous()
     Z = Z.contiguous()
     lib = _build.load()
-    with torch.cuda.device(U.device):
-        ws = torch.empty(lib.gppvae_factor_prep_workspace(N, R, L),
-                         device=U.device, dtype=torch.float32)
-        G = torch.empty((R, R), device=U.device, dtype=torch.float32)
-        UtZ = torch.empty((R, L), device=U.device, dtype=torch.float32)
-        zn = torch.empty((), device=U.device, dtype=torch.float32)
-        stream = torch.cuda.current_stream(U.device).cuda_stream
+    dev = U.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ws, tickets = _scratch(lib, dev, stream, N, R, L)
+        G = torch.empty((R, R), device=dev, dtype=torch.float32)
+        UtZ = torch.empty((R, L), device=dev, dtype=torch.float32)
+        zn = torch.empty((), device=dev, dtype=torch.float32)
         err = lib.gppvae_factor_prep(
-            _ptr(U), _ptr(Z), _ptr(G), _ptr(UtZ), _ptr(zn), _ptr(ws),
-            N, R, L, ctypes.c_void_p(stream),
+            U.data_ptr(), Z.data_ptr(), G.data_ptr(), UtZ.data_ptr(), zn.data_ptr(),
+            ws.data_ptr(), tickets.data_ptr(), N, R, L, stream,
         )
     _build.check(err, "factor_prep kernel")
     launch_factor_prep.launches += 1
@@ -64,6 +65,24 @@ def launch_factor_prep(U: torch.Tensor, Z: torch.Tensor):
 
 
 launch_factor_prep.launches = 0
+
+# (device, stream) → (workspace, tickets), kept between calls and grown when
+# a shape needs more: calls on one stream run in order, so they can share
+# it, and the kernel leaves every ticket at 0 for the next call.
+_SCRATCH: dict = {}
+
+
+def _scratch(lib, dev, stream: int, N: int, R: int, L: int):
+    n_ws = lib.gppvae_factor_prep_workspace(N, R, L)
+    n_tk = lib.gppvae_factor_prep_tickets(N, R, L)
+    ws, tickets = _SCRATCH.get((dev, stream), (None, None))
+    if ws is None or ws.numel() < n_ws or tickets.numel() < n_tk:
+        if ws is not None:  # never shrink: shapes may alternate
+            n_ws, n_tk = max(n_ws, ws.numel()), max(n_tk, tickets.numel())
+        ws = torch.empty(max(n_ws, 1), device=dev, dtype=torch.float32)
+        tickets = torch.zeros(max(n_tk, 1), device=dev, dtype=torch.int32)
+        _SCRATCH[(dev, stream)] = (ws, tickets)
+    return ws, tickets
 
 
 class FactorPrep(torch.autograd.Function):
@@ -109,7 +128,3 @@ def _check_cuda_f32(*ts: torch.Tensor) -> None:
             raise ValueError(f"the CUDA kernel needs CUDA tensors, got {t.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"the CUDA kernels take float32, got {t.dtype}")
-
-
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())

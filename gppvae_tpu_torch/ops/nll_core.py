@@ -2,13 +2,16 @@
 
 Counterpart of gppvae_tpu/ops/pallas_chol.py (`nll_core_pallas`, whose
 Pallas kernel `_nll_core_pallas` this module's CUDA kernel replaces). The
-kernel is `csrc/nll_core.cu`: one CTA runs the left-looking Cholesky, the
-two forward substitutions and the scalar assembly in fp32 (see the note at
-the top of that file for what bounds it on the H100). It takes R ≤ 512.
+kernel is `csrc/nll_core.cu`: a blocked Cholesky in panels of 32 columns
+that carries [UtZ | I] along, so that W = L_B⁻¹UtZ and X = L_B⁻¹ come out of
+the factorization; one CTA with everything in shared memory while it fits
+(R = 232, L = 32 takes 224 KB), one launch per panel step on the output
+buffer above that, in fp32 (see the note at the top of that file for what
+bounds it on the H100). It takes any R.
 
 Which version runs is decided by the tensor's device alone: a CPU tensor
 takes the plain PyTorch version, a CUDA float32 tensor launches the kernel,
-anything else raises (float64 or R > 512 on CUDA included). Both sit inside
+anything else raises (float64 on CUDA included). Both sit inside
 one autograd.Function that saves X = L_B⁻¹ and W = L_B⁻¹UtZ and computes the
 closed-form backward of `_core_bwd` (pallas_chol.py:202-222) with
 torch.matmul, so the hand-derived backward runs, and is tested, on the CPU
@@ -17,16 +20,14 @@ too.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
 
 from gppvae_tpu_torch.ops import _build
-from gppvae_tpu_torch.ops.factor_prep import _check_cuda_f32, _check_device, _ptr
+from gppvae_tpu_torch.ops.factor_prep import _check_cuda_f32, _check_device
 
 _LOG2PI = math.log(2.0 * math.pi)
-MAX_RANK = 512  # csrc/nll_core.cu MAX_R; the TPU kernel's own range
 
 
 def nll_core_torch(G, UtZ, zn, vn, n_rows: int, l_dims: int):
@@ -65,26 +66,25 @@ def launch_nll_core(G, UtZ, zn, vn, n_rows: int, l_dims: int):
                          f"{tuple(G.shape)}, {tuple(UtZ.shape)}")
     if zn.numel() != 1 or vn.numel() != 1:
         raise ValueError("nll_core wants scalar zn and vn")
-    if not 1 <= R <= MAX_RANK:
-        raise ValueError(
-            f"the nll_core kernel takes 1 <= R <= {MAX_RANK}, got R = {R} "
-            "(blocking the factorization across CTAs is on the ROADMAP)"
-        )
     L = UtZ.shape[1]
+    if R < 1 or L < 1:
+        raise ValueError(f"nll_core needs R, L >= 1; got {R}, {L}")
     G, UtZ = G.contiguous(), UtZ.contiguous()
     zn, vn = zn.reshape(()).contiguous(), vn.reshape(()).contiguous()
     lib = _build.load()
-    with torch.cuda.device(G.device):
-        scratch = torch.empty(max(1, lib.gppvae_nll_core_scratch(R)),
-                              device=G.device, dtype=torch.float32)
-        nll = torch.empty((), device=G.device, dtype=torch.float32)
-        X = torch.empty((R, R), device=G.device, dtype=torch.float32)
-        W = torch.empty((R, L), device=G.device, dtype=torch.float32)
-        stream = torch.cuda.current_stream(G.device).cuda_stream
+    dev = G.device
+    with torch.cuda.device(dev):
+        # scratch only where the work does not fit one CTA's shared memory
+        n_scratch = lib.gppvae_nll_core_scratch(R, L)
+        scratch = (torch.empty(n_scratch, device=dev, dtype=torch.float32)
+                   if n_scratch else None)
+        nll = torch.empty((), device=dev, dtype=torch.float32)
+        X = torch.empty((R, R), device=dev, dtype=torch.float32)
+        W = torch.empty((R, L), device=dev, dtype=torch.float32)
         err = lib.gppvae_nll_core(
-            _ptr(G), _ptr(UtZ), _ptr(zn), _ptr(vn), _ptr(nll), _ptr(X),
-            _ptr(W), _ptr(scratch), R, L, int(n_rows), int(l_dims),
-            ctypes.c_void_p(stream),
+            G.data_ptr(), UtZ.data_ptr(), zn.data_ptr(), vn.data_ptr(), nll.data_ptr(),
+            X.data_ptr(), W.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            R, L, int(n_rows), int(l_dims), torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, "nll_core kernel")
     launch_nll_core.launches += 1
@@ -133,6 +133,6 @@ class NLLCore(torch.autograd.Function):
 def woodbury_nll_core(G, UtZ, zn, vn, n_rows: int, l_dims: int):
     """The NLL from the R-sized core (n_rows, l_dims: the true N and L):
     the plain version for CPU tensors, the CUDA kernel for float32 CUDA
-    tensors with R <= 512; raises otherwise."""
+    tensors; raises otherwise."""
     _check_device(G, UtZ, zn, vn)
     return NLLCore.apply(G, UtZ, zn, vn, n_rows, l_dims)

@@ -42,10 +42,10 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from gppvae_tpu.data.dataset import GridDataset
-from gppvae_tpu.utils.metrics import MetricsLogger
-from gppvae_tpu_torch import gp, ops
+from gppvae_tpu_torch import gp
+from gppvae_tpu_torch.config import build_dataset_from_flag
 from gppvae_tpu_torch.convert import gp_params_from_numpy
+from gppvae_tpu_torch.data import GridDataset
 from gppvae_tpu_torch.eval.oos import predict_heldout
 from gppvae_tpu_torch.models import UPSAMPLES, VAE, encode_all
 from gppvae_tpu_torch.train.batching import epoch_batches, masked_means, num_batches
@@ -62,6 +62,7 @@ from gppvae_tpu_torch.train.losses import (
     neg_entropy,
 )
 from gppvae_tpu_torch.train.optim import GuardedAdam, resolve_grad_accum
+from gppvae_tpu_torch.utils import MetricsLogger
 
 _METRIC_KEYS = (
     "loss", "recon_term", "gp_term", "pen_term", "mse",
@@ -287,15 +288,6 @@ class _Loop:
             raise ValueError(f"batch_size {config.batch_size} exceeds train set {num_train}")
         self.nb = num_batches(num_train, config.batch_size)
         self.chunk = min(config.encode_chunk, num_train)
-        d = data["d_tr"]
-        with torch.no_grad():  # also rejects an unknown extra effect
-            rank = sum(v.shape[1] for v in self.build_effects(
-                gp_params["X"], self.view_W(), d[:1], data["q_tr"][:1]))
-        if d.is_cuda and rank > ops.MAX_RANK:
-            raise ValueError(
-                f"GP rank R = {rank} exceeds the nll_core kernel's {ops.MAX_RANK} "
-                "(R > 512 on CUDA is ROADMAP 'Left to port' item 2); lower "
-                "rff_features / nystrom_rank or train with --device cpu")
         self.restart_optimizers()
 
     def restart_optimizers(self) -> None:
@@ -515,8 +507,6 @@ def load_final(outdir: str, *, device: torch.device | str = "cpu",
     config = GPPVAETrainConfig(**{k: tuple(v) if isinstance(v, list) else v
                                   for k, v in saved.items() if k in names})
     if dataset is None:
-        from gppvae_tpu.config.datasets import build_dataset_from_flag
-
         grid = saved["dataset"]
         dataset = build_dataset_from_flag(config.data, grid["num_objects"], grid["num_views"],
                                           config.seed, image_size=grid["image_size"])
@@ -584,9 +574,6 @@ def main(argv=None) -> GPPVAETrainResult:
     p.add_argument("--encode_chunk", type=int, default=1024)
     p.add_argument("--image_size", type=int, default=None)
     args = p.parse_args(argv)
-
-    from gppvae_tpu.config.datasets import build_dataset_from_flag
-
     device = resolve_device(args.device)
     ds = build_dataset_from_flag(args.data, args.num_objects, args.num_views,
                                  args.seed, image_size=args.image_size)

@@ -17,8 +17,8 @@ from typing import Sequence
 
 import torch
 
-from gppvae_tpu.data.dataset import GridDataset
-from gppvae_tpu.utils.metrics import MetricsLogger
+from gppvae_tpu_torch.config import build_dataset_from_flag
+from gppvae_tpu_torch.data import GridDataset
 from gppvae_tpu_torch.models import UPSAMPLES, VAE
 from gppvae_tpu_torch.train.batching import epoch_batches, masked_means, num_batches
 from gppvae_tpu_torch.train.device import (
@@ -32,6 +32,7 @@ from gppvae_tpu_torch.train.losses import (
     kl_standard_normal,
     logit_saturation_penalty,
 )
+from gppvae_tpu_torch.utils import MetricsLogger
 
 WEIGHTS_FILE = "vae_weights.pt"
 
@@ -160,9 +161,6 @@ def main(argv=None) -> VAETrainResult:
     p.add_argument("--dec_features", default="128,64,32")
     p.add_argument("--image_size", type=int, default=None)
     args = p.parse_args(argv)
-
-    from gppvae_tpu.config.datasets import build_dataset_from_flag
-
     device = resolve_device(args.device)
     ds = build_dataset_from_flag(args.data, args.num_objects, args.num_views,
                                  args.seed, image_size=args.image_size)

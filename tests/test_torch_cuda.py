@@ -9,7 +9,9 @@ a GPU and no jax it runs without the repo's conftest:
 Tolerances (float32 on the card): factor_prep max abs err ≤ 1e-5 of the
 largest |entry| (fp32 sums in another order); nll_core value rtol 1e-5 and
 gradients ≤ 1e-4 of the largest |entry|; the subpixel decoder against the
-resize decoder with the same weights ≤ 1e-5 of max |·| (cuDNN, TF32 off).
+resize decoder with the same weights ≤ 1e-5 of max |·| (cuDNN, TF32 off); a
+GP NLL trained on the card against CPU float64 rtol 1e-4. Both kernels sum
+in a fixed order, so reruns are bit-identical.
 """
 
 import math
@@ -17,8 +19,8 @@ import math
 import pytest
 import torch
 
-from gppvae_tpu.data import build_rotated_digits
 from gppvae_tpu_torch import ops
+from gppvae_tpu_torch.data import build_rotated_digits
 from gppvae_tpu_torch.models import VAE
 from gppvae_tpu_torch.train import train_gppvae
 
@@ -36,13 +38,16 @@ def _rel_err(got, want):
     return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
 
 
-@pytest.mark.parametrize("n,r,l", [
-    (5700, 56, 16), (5701, 56, 16), (1, 3, 1), (127, 64, 64), (6401, 256, 16),
-    (256, 2048, 8),
+@pytest.mark.parametrize("n,r,l,offset", [
+    (5700, 56, 16, 0), (5701, 56, 16, 0), (1, 3, 1, 0), (127, 64, 64, 0),
+    (6401, 256, 16, 0), (256, 2048, 8, 0), (332, 232, 32, 0),
+    (5700, 56, 16, 1),  # 4-byte aligned only: the scalar copies
 ])
-def test_factor_prep_kernel_matches_plain(gen, n, r, l):
-    U = torch.randn(n, r, device="cuda", generator=gen) / math.sqrt(r)
-    Z = torch.randn(n, l, device="cuda", generator=gen)
+def test_factor_prep_kernel_matches_plain(gen, n, r, l, offset):
+    U = torch.randn(n * r + offset, device="cuda", generator=gen)[offset:].view(n, r)
+    U.mul_(1 / math.sqrt(r))  # in place: keeps the offset
+    Z = torch.randn(n * l + offset, device="cuda", generator=gen)[offset:].view(n, l)
+    assert U.is_contiguous() and (U.data_ptr() % 16 != 0) == bool(offset)
     got = ops.launch_factor_prep(U, Z)
     again = ops.launch_factor_prep(U, Z)
     want = ops.factor_prep_torch(U, Z)
@@ -52,8 +57,13 @@ def test_factor_prep_kernel_matches_plain(gen, n, r, l):
         assert _rel_err(g, w) <= 1e-5
 
 
-@pytest.mark.parametrize("r,l", [(56, 16), (3, 1), (225, 16), (256, 16), (512, 8)])
+@pytest.mark.parametrize("r,l", [
+    (56, 16), (3, 1), (225, 16), (232, 32), (234, 16), (235, 16), (256, 16),
+    (512, 8), (600, 16), (1024, 16), (2048, 8),
+])
 def test_nll_core_kernel_matches_plain(gen, r, l):
+    """Both drivers of the kernel: one CTA up to R = 234, one launch per
+    panel step above."""
     n = 6400
     U = torch.randn(n, r, device="cuda", generator=gen) / math.sqrt(r)
     Z = torch.randn(n, l, device="cuda", generator=gen)
@@ -66,31 +76,53 @@ def test_nll_core_kernel_matches_plain(gen, r, l):
     assert abs(k.item() - p.item()) <= 1e-5 * abs(p.item())
     for a, b in zip(torch.autograd.grad(k, ka), torch.autograd.grad(p, pa)):
         assert _rel_err(a, b) <= 1e-4
+    first = ops.launch_nll_core(G, UtZ, zn, vn, n, l)
+    again = ops.launch_nll_core(G, UtZ, zn, vn, n, l)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert torch.equal(first[1], torch.tril(first[1]))  # X = L_B⁻¹ is lower triangular
 
 
-def test_nll_core_kernel_refuses_what_it_does_not_take(gen):
-    G = torch.eye(513, device="cuda")
-    UtZ = torch.zeros(513, 2, device="cuda")
-    one = torch.tensor(1.0, device="cuda")
-    with pytest.raises(ValueError, match="R <= 512"):
-        ops.woodbury_nll_core(G, UtZ, one, one, 10, 2)
+def test_nll_core_kernel_refuses_float64(gen):
+    one = torch.tensor(1.0, device="cuda", dtype=torch.float64)
     with pytest.raises(TypeError, match="float32"):
-        ops.woodbury_nll_core(G[:4, :4].double(), UtZ[:4].double(), one.double(),
-                              one.double(), 10, 2)
+        ops.woodbury_nll_core(torch.eye(4, device="cuda", dtype=torch.float64),
+                              torch.zeros(4, 2, device="cuda", dtype=torch.float64),
+                              one, one, 10, 2)
 
 
-def test_cuda_refuses_rank_above_512(gen):
-    """On CUDA a GP rank above the nll_core kernel's 512 raises before
-    training, naming the ROADMAP item (the JAX package sends it to XLA; the
-    port has no fallback): 112 RFF features × 5 view features = 560. This
-    case of tests/test_torch_train.py's option checks lives here, in the
-    file that runs on the card without jax."""
+def test_cuda_trains_at_rank_above_512(gen):
+    """112 RFF features × 5 view features = R 560, past the TPU kernel's
+    512: one joint epoch on the card launches each kernel once, and the
+    trained model's GP NLL from the kernels matches CPU float64."""
+    from gppvae_tpu_torch import gp
+    from gppvae_tpu_torch.models import encode_all
+
     ds = build_rotated_digits("synthetic", num_objects=10, num_views=8, seed=7)
     cfg = train_gppvae.GPPVAETrainConfig(
         zdim=6, epochs=1, batch_size=16, obj_feature_dim=4, view_num_freqs=2,
         enc_features=(8, 16), dec_features=(16, 8), object_kernel="rbf", rff_features=112)
-    with pytest.raises(ValueError, match="Left to port' item 2"):
-        train_gppvae.train_gppvae(ds, cfg, device="cuda")
+    ops.reset_launch_counts()
+    res = train_gppvae.train_gppvae(ds, cfg, device="cuda", log=_Quiet())
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["launch_factor_prep.launches"] == counts["launch_nll_core.launches"] == 1
+    assert counts["factor_prep_torch.cuda_calls"] == counts["nll_core_torch.cuda_calls"] == 0
+    assert all(math.isfinite(v) for v in res.history[0].values() if isinstance(v, float))
+    d, p = res.data, res.gp_params
+    with torch.no_grad():
+        Z = encode_all(res.model, d["images_tr"], 1024)
+        Vs = gp.build_effect_rows(p["X"], p["W"], d["d_tr"], d["q_tr"], x_map=res.x_map)
+        v_sig, v_noise = gp.variances_from_log(p["log_vs"], p["log_vn"])
+        assert sum(v.shape[1] for v in Vs) == 560
+        card = float(gp.gp_nll_from_features(Z, Vs, [v_sig[0]], v_noise))
+        cpu = float(gp.gp_nll_from_features(Z.cpu().double(), [Vs[0].cpu().double()],
+                                            [v_sig[0].cpu().double()], v_noise.cpu().double()))
+    assert abs(card - cpu) <= 1e-4 * abs(cpu)
+
+
+class _Quiet:
+    def log(self, rec):
+        pass
 
 
 def test_non_positive_pivot_gives_nan(gen):

@@ -111,6 +111,21 @@ def test_nll_core_value_and_gradients_match_jax(impl, dtype, r, l):
                                    atol=1e-6 if f32 else 1e-12)
 
 
+def test_nll_core_above_the_tpu_kernel_range_matches_xla():
+    """R = 600, past the Pallas kernel's 512: the JAX package runs it through
+    XLA, and the port's CUDA kernel takes it too. Here the port's dispatch
+    (the plain version inside the autograd.Function) against that XLA path,
+    float64."""
+    args, n = _core_problem(600, 16, np.float64, n=900, seed=2)
+    val, grads = jax.value_and_grad(_jax_core("xla", n, 16), argnums=(0, 1, 2, 3))(
+        *(jnp.asarray(a) for a in args))
+    leaves = [torch.tensor(np.asarray(a)).requires_grad_() for a in args]
+    out = ops.woodbury_nll_core(*leaves, n, 16)
+    np.testing.assert_allclose(out.item(), float(val), rtol=1e-10)
+    for g, w in zip(torch.autograd.grad(out, leaves), grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-10, atol=1e-12)
+
+
 def test_closed_form_backward_matches_autograd_of_plain_version():
     args, n = _core_problem(24, 9, np.float64, seed=3)
     a = [torch.tensor(np.asarray(x)).requires_grad_() for x in args]

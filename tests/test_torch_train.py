@@ -15,6 +15,7 @@ then ε from split(fold_in(epoch_key, 1), nb)). Tolerances (float32):
 The optimizer tests run in float64 and hold the port to optax at 1e-12.
 """
 
+import ast
 import functools
 import importlib
 import json
@@ -228,15 +229,26 @@ def test_package_imports_no_jax(tmp_path):
         " + ['--outdir', sys.argv[1] + '/options'])\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax', 'optax')))\n"
         "assert not bad, bad\n"
+        "ref = sorted(m for m in sys.modules if m == 'gppvae_tpu' or m.startswith('gppvae_tpu.'))\n"
+        "assert not ref, ref\n"
         "print('NO_JAX_OK')\n"
     )
-    # with GPPVAE_COMPILE_CACHE set, gppvae_tpu/__init__.py imports jax
-    env = {k: v for k, v in os.environ.items() if k != "GPPVAE_COMPILE_CACHE"}
-    env["PYTHONPATH"] = str(REPO)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
                          cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "NO_JAX_OK" in out.stdout
+
+    # and no source of the port, nor chip_smoke.py, names the JAX package
+    sources = [*sorted((REPO / "gppvae_tpu_torch").rglob("*.py")), REPO / "chip_smoke.py"]
+    found = []
+    for path in sources:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            found += [f"{path.name}:{node.lineno} {n}" for n in names
+                      if n == "gppvae_tpu" or n.startswith("gppvae_tpu.")]
+    assert len(sources) > 30 and not found, found
 
 
 def test_guarded_adam_matches_optax_spike_guard():

@@ -34,7 +34,7 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from gppvae_tpu.config.datasets import build_dataset_from_flag  # noqa: E402
+from gppvae_tpu_torch.config import build_dataset_from_flag  # noqa: E402
 from gppvae_tpu_torch.train import train_gppvae as tg  # noqa: E402
 from gppvae_tpu_torch.models import UPSAMPLES  # noqa: E402
 from gppvae_tpu_torch.train.device import COMPUTE_DTYPES, set_float32_precision  # noqa: E402
