@@ -9,8 +9,9 @@ Phases, one per printed line group; any failure ends the run non-zero:
   2. build: both CUDA kernels from gppvae_tpu_torch/csrc with nvcc for
      sm_90a, one nvcc per source, started together;
   3. kernel vs plain on the card: factor_prep at (N, R, L) = (5700,56,16),
-     (5701,56,16), (6401,256,16), (256,2048,8), (332,232,32); nll_core at
-     R = 56, 232, 600, 1024, 2048 (L 16, 32, 16, 16, 8). At each shape the
+     (5701,56,16), (6401,256,16), (256,2048,8), (332,232,32), (5700,560,16);
+     nll_core at R = 56, 232, 560, 600, 1024, 2048 (L 16, 32, 16, 16, 16, 8).
+     At each shape the
      value and the gradients through the autograd.Function against autograd
      of the plain version, a bit-identical rerun, and five numbers: `ms`
      (CUDA events around the Python call, median of 50), `device_ms` (the
@@ -18,7 +19,8 @@ Phases, one per printed line group; any failure ends the run non-zero:
      `plain_ms`, `library_ms` (one PyTorch call: torch.mm(Uᵀ, [U | Z]) for
      factor_prep, torch.linalg.cholesky_ex(I + G/vₙ) for nll_core) and
      `bound_ms` (the larger of FLOP over 67 TFLOP/s and bytes over
-     3.35 TB/s);
+     3.35 TB/s, counting what the function needs: G's lower triangle, as G
+     is symmetric);
   4. the slice at the full width of BASELINE's GPPVAE-joint: synthetic
      rotated digits (P = 400, Q = 16, 32×32×1), train_vae for 1 epoch, then
      train_gppvae --mode joint for 3 epochs from its vae_weights, both
@@ -58,11 +60,11 @@ import time
 import torch
 
 # (N, R, L); the first of each is the main path's (phase 4), (332, 232, 32)
-# path (b)'s, R = 600 past the TPU kernel's 512
+# path (b)'s, (5700, 560, 16) path (d)'s; from R = 560 past the TPU kernel's 512
 SHAPES_FACTOR_PREP = [(5700, 56, 16), (5701, 56, 16), (6401, 256, 16), (256, 2048, 8),
-                      (332, 232, 32)]
-SHAPES_NLL_CORE = [(5700, 56, 16), (332, 232, 32), (6400, 600, 16), (6400, 1024, 16),
-                   (6400, 2048, 8)]
+                      (332, 232, 32), (5700, 560, 16)]
+SHAPES_NLL_CORE = [(5700, 56, 16), (332, 232, 32), (5700, 560, 16), (6400, 600, 16),
+                   (6400, 1024, 16), (6400, 2048, 8)]
 FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 KERNEL_KEYS = ("max_abs_err", "ms", "device_ms", "device_ms_method", "plain_ms", "bound_ms",
@@ -183,11 +185,13 @@ def bound(flop: float, nbytes: float) -> tuple[float, str]:
 
 
 def timings(kernel, plain, library, flop: float, nbytes: float) -> dict:
+    """The five numbers of one kernel at one shape; the event timings come
+    first, so that no profiler session of this shape precedes them."""
     b_ms, b_by = bound(flop, nbytes)
+    t = {"ms": time_ms(kernel), "plain_ms": time_ms(plain), "library_ms": time_ms(library)}
     d_ms, method = device_ms(kernel)
-    return {"ms": time_ms(kernel), "device_ms": d_ms, "device_ms_method": method,
-            "plain_ms": time_ms(plain), "library_ms": time_ms(library),
-            "bound_ms": b_ms, "bound_by": b_by}
+    return {**t, "device_ms": d_ms, "device_ms_method": method, "bound_ms": b_ms,
+            "bound_by": b_by}
 
 
 def say_timings(label: str, t: dict) -> None:
@@ -232,7 +236,7 @@ def check_factor_prep(gen, n: int, r: int, l: int) -> dict:
     check(same, f"factor_prep {n, r, l} is deterministic")
     UZ = torch.cat([U, Z], 1)
     t = timings(lambda: ops.launch_factor_prep(U, Z), lambda: ops.factor_prep_torch(U, Z),
-                lambda: torch.mm(U.T, UZ), flop=2.0 * n * r * (r + l),
+                lambda: torch.mm(U.T, UZ), flop=n * r * (r + 1) + 2.0 * n * r * l,
                 nbytes=4.0 * (n * (r + l) + r * (r + l) + 1))
     say_timings(f"factor_prep N={n} R={r} L={l}", t)
     return {"shape": [n, r, l], "max_abs_err": err, **t}
@@ -276,7 +280,7 @@ def check_nll_core(gen, n: int, r: int, l: int) -> dict:
     t = timings(lambda: ops.launch_nll_core(G, UtZ, zn, vn, n, l),
                 lambda: ops.nll_core_torch(G, UtZ, zn, vn, n, l),
                 lambda: torch.linalg.cholesky_ex(B), flop=2.0 * r**3 / 3 + r * r * l,
-                nbytes=4.0 * (2 * r * r + 2 * r * l + 3))
+                nbytes=4.0 * (r * (r + 1) / 2 + r * r + 2 * r * l + 3))
     say_timings(f"nll_core R={r} L={l}", t)
     return {"shape": [n, r, l], "max_abs_err": verr, **t}
 

@@ -5,18 +5,25 @@
 // kernel _make_factor_prep_kernel), which walked the N tiles in order on one
 // TPU core and carried the sums in VMEM from one grid step to the next.
 //
-// What bounds it on the H100: operations, then latency. The work is
-// 2·N·R·(R+L) FLOP on 4·N·(R+L) bytes of input; at the main path's N = 5700,
-// R = 56, L = 16 that is 46 MFLOP on 1.6 MB, 27.7 FLOP/B, above the card's
-// fp32 ridge (67 TFLOP/s over 3.35 TB/s = 20 FLOP/B), and the bound is
-// 0.69 µs, well under what one launch costs. So the kernel is one launch
-// that keeps every SM busy on the FMAs:
+// What bounds it on the H100: bytes, then latency. G is symmetric, so the
+// function needs N·R·(R+1) + 2·N·R·L FLOP (G's lower triangle and UᵀZ) on
+// 4·N·(R+L) bytes of input; at the main path's N = 5700, R = 56, L = 16 that
+// is 28.4 MFLOP on 1.66 MB, 17.1 FLOP/B, just under the card's fp32 ridge
+// (67 TFLOP/s over 3.35 TB/s = 20 FLOP/B), and the bound is 0.49 µs of
+// memory traffic, well under what one launch costs. So the kernel is one
+// launch that keeps every SM busy:
 //   * the output block [G | UᵀZ] (R × (R+L)) is cut into as few tiles as fit
-//     256 threads of 4×4 register outputs, each sized to the block (56×72 at
+//     256 threads of 4×4 register outputs (four adjacent rows by four
+//     adjacent columns, each read from the ring as one 16-byte load per
+//     staged row), each sized to the block (56×72 at
 //     R = 56, L = 16: one tile, no padded rows or columns computed); large R
-//     still splits into tiles of up to 64×96;
+//     still splits into tiles of up to 64×96. Tiles wholly above G's diagonal
+//     are not computed: the tiles that are write G's lower triangle and its
+//     mirror. A tile that straddles the diagonal computes its upper part too
+//     (at R = 56 the one tile does: 46 MFLOP, the whole of G), and the mirror
+//     overwrites it, so G comes out exactly symmetric;
 //   * N is cut into contiguous row chunks so that tiles × chunks is at most
-//     one CTA per SM. Each CTA streams its chunk through a double-buffered
+//     two CTAs per SM. Each CTA streams its chunk through a double-buffered
 //     ring in shared memory, 32 rows per stage, with cp.async: the next
 //     stage's loads are in flight while this stage's FMAs run. Loads are
 //     16 bytes where R and L are multiples of 4 and the pointers 16-byte
@@ -28,6 +35,8 @@
 //     in chunk order, writes its tile of G and UᵀZ (and ‖Z‖² for tile 0) and
 //     resets the ticket. No float atomics: the same inputs give bit-identical
 //     outputs on every run;
+//   * the finished tile goes through shared memory, so that its rows and its
+//     mirror (G's columns) are both written with coalesced stores;
 //   * precision: fp32 in, fp32 FFMA accumulation, no tensor cores. The TPU
 //     kernel fed the MXU bf16 operands (pallas_gemm.py:34-40); TF32 would
 //     keep about three decimal digits and the outputs are held to 1e-5
@@ -47,18 +56,31 @@ constexpr int STAGES = 2;
 constexpr int MAX_EDGE = 64;        // output tile rows bound (16 threads × 4)
 constexpr int MAX_TN = 24;          // threads along a tile's columns
 constexpr int MIN_ROWS_PER_CHUNK = 160;
+constexpr int CTAS_PER_SM = 2;      // resident together: one's loads hide behind the other's FMAs
 constexpr int MAX_DEVICES = 64;
 
 struct Plan {
   int tm, tn;                 // threads along the tile's rows and columns
-  int row_tiles, col_tiles;   // tiles of 4·tm × 4·tn outputs
-  int tiles;
+  int row_tiles, col_tiles;   // the grid of 4·tm × 4·tn tiles over [G | UᵀZ]
+  int tiles;                  // those computed (row_tile_span)
   int chunks;
   int rows_per_chunk;
   int vec;                    // 16-byte copies
 };
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// The column tiles row tile rt computes: [0, below), which reach G's lower
+// triangle (q0 < r0 + TM), and [from, col_tiles), which hold UᵀZ's columns.
+// The tiles between lie wholly above G's diagonal: the mirror of tiles below
+// it gives their values.
+__host__ __device__ inline void row_tile_span(const Plan& p, int R, int rt,
+                                              int* below, int* from) {
+  const int b = cdiv((rt + 1) * 4 * p.tm, 4 * p.tn);
+  *below = b < p.col_tiles ? b : p.col_tiles;
+  const int f = R / (4 * p.tn);
+  *from = f > *below ? f : *below;
+}
 
 int sm_count() {
   static int cached[MAX_DEVICES];
@@ -81,8 +103,13 @@ Plan make_plan(int N, int R, int L, int sms, bool vec) {
   const int tn_max = std::min(THREADS / p.tm, MAX_TN);
   p.col_tiles = cdiv(C, 4 * tn_max);
   p.tn = cdiv(cdiv(C, p.col_tiles), 4);
-  p.tiles = p.row_tiles * p.col_tiles;
-  int chunks = sms / p.tiles;
+  p.tiles = 0;
+  for (int rt = 0; rt < p.row_tiles; ++rt) {
+    int below, from;
+    row_tile_span(p, R, rt, &below, &from);
+    p.tiles += below + p.col_tiles - from;
+  }
+  int chunks = CTAS_PER_SM * sms / p.tiles;
   if (chunks > cdiv(N, MIN_ROWS_PER_CHUNK)) chunks = cdiv(N, MIN_ROWS_PER_CHUNK);
   if (chunks < 1) chunks = 1;
   p.rows_per_chunk = cdiv(cdiv(N, chunks), KS) * KS;
@@ -128,7 +155,8 @@ __device__ float block_sum(float v, float* red) {
   return out;
 }
 
-// CTA b: tile b % tiles of [G | UᵀZ] over the rows of chunk b / tiles.
+// CTA b: computed tile b % tiles of [G | UᵀZ] (row tile by row tile, in
+// row_tile_span's order) over the rows of chunk b / tiles.
 __global__ void __launch_bounds__(THREADS) factor_prep_kernel(
     const float* __restrict__ U, const float* __restrict__ Z,
     float* __restrict__ G, float* __restrict__ UtZ, float* __restrict__ zn,
@@ -143,8 +171,18 @@ __global__ void __launch_bounds__(THREADS) factor_prep_kernel(
   const int TN = 4 * p.tn;
   const int tile = blockIdx.x % p.tiles;
   const int chunk = blockIdx.x / p.tiles;
-  const int r0 = (tile / p.col_tiles) * TM;
-  const int q0 = (tile % p.col_tiles) * TN;
+  int rt = 0;
+  int k_tile = tile;  // this tile's place in its row tile
+  int below, from;
+  for (;;) {
+    row_tile_span(p, R, rt, &below, &from);
+    const int n = below + p.col_tiles - from;
+    if (k_tile < n) break;
+    k_tile -= n;
+    ++rt;
+  }
+  const int r0 = rt * TM;
+  const int q0 = (k_tile < below ? k_tile : from + (k_tile - below)) * TN;
   const int n_begin = chunk * p.rows_per_chunk;
   const int n_end = min(N, n_begin + p.rows_per_chunk);
   const int t = threadIdx.x;
@@ -228,12 +266,10 @@ __global__ void __launch_bounds__(THREADS) factor_prep_kernel(
     if (computes) {
 #pragma unroll 8
       for (int k = 0; k < KS; ++k) {
-        float a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          a[i] = sa[k * TM + ty + p.tm * i];
-          b[i] = sb[k * TN + tx + p.tn * i];
-        }
+        const float4 a4 = *reinterpret_cast<const float4*>(sa + k * TM + 4 * ty);
+        const float4 b4 = *reinterpret_cast<const float4*>(sb + k * TN + 4 * tx);
+        const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+        const float b[4] = {b4.x, b4.y, b4.z, b4.w};
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -243,14 +279,27 @@ __global__ void __launch_bounds__(THREADS) factor_prep_kernel(
     __syncthreads();
   }
 
-  auto store = [&](int i, int j, float value) {
-    const int r = r0 + ty + p.tm * i;
-    const int c = q0 + tx + p.tn * j;
-    if (r >= R || c >= C) return;
-    if (c < R) {
-      G[(size_t)r * R + c] = value;
-    } else {
-      UtZ[(size_t)r * L + (c - R)] = value;
+  // The finished tile in shared memory (the ring is free once the loop's
+  // last barrier has passed), row stride TN + 1; then its rows of G's lower
+  // triangle and of UᵀZ, and the mirror of G's strictly lower part, each
+  // written with consecutive threads on consecutive addresses.
+  float* tile_s = smem;
+  const int tld = TN + 1;
+  auto store_tile = [&]() {
+    for (int e = t; e < TM * TN; e += THREADS) {
+      const int r = r0 + e / TN;
+      const int c = q0 + e % TN;
+      if (r >= R || c >= C) continue;
+      if (c >= R) {
+        UtZ[(size_t)r * L + (c - R)] = tile_s[(e / TN) * tld + e % TN];
+      } else if (c <= r) {
+        G[(size_t)r * R + c] = tile_s[(e / TN) * tld + e % TN];
+      }
+    }
+    for (int e = t; e < TM * TN; e += THREADS) {
+      const int r = r0 + e % TM;
+      const int c = q0 + e / TM;
+      if (r < R && c < r) G[(size_t)c * R + r] = tile_s[(e % TM) * tld + e / TM];
     }
   };
 
@@ -259,9 +308,11 @@ __global__ void __launch_bounds__(THREADS) factor_prep_kernel(
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) store(i, j, acc[i][j]);
+        for (int j = 0; j < 4; ++j) tile_s[(4 * ty + i) * tld + 4 * tx + j] = acc[i][j];
     }
     if (tile == 0 && t == 0) *zn = zsum;
+    __syncthreads();
+    store_tile();
     return;
   }
 
@@ -270,11 +321,10 @@ __global__ void __launch_bounds__(THREADS) factor_prep_kernel(
   float* part = ws + ((size_t)tile * p.chunks + chunk) * tile_floats;
   if (computes) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        part[(ty + p.tm * i) * TN + tx + p.tn * j] = acc[i][j];
-      }
+    for (int i = 0; i < 4; ++i) {
+      *reinterpret_cast<float4*>(part + (4 * ty + i) * TN + 4 * tx) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    }
   }
   if (tile == 0 && t == 0) zpart[chunk] = zsum;
   __threadfence();
@@ -304,14 +354,7 @@ __global__ void __launch_bounds__(THREADS) factor_prep_kernel(
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int e = 4 * e4 + q;
-      const int r = r0 + e / TN;
-      const int c = q0 + e % TN;
-      if (r >= R || c >= C) continue;
-      if (c < R) {
-        G[(size_t)r * R + c] = vals[q];
-      } else {
-        UtZ[(size_t)r * L + (c - R)] = vals[q];
-      }
+      tile_s[(e / TN) * tld + e % TN] = vals[q];
     }
   }
   if (t == 0) {
@@ -322,6 +365,8 @@ __global__ void __launch_bounds__(THREADS) factor_prep_kernel(
     }
     tickets[tile] = 0;
   }
+  __syncthreads();
+  store_tile();
 }
 
 bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }

@@ -11,10 +11,11 @@
 // lanes and took R ≤ 512; nothing is padded here and R has no upper limit
 // but device memory.
 //
-// What bounds it on the H100: latency. The work is 2R³/3 + R²L FLOP on
-// 4R(R+L) bytes (R = 232, L = 32: 10 MFLOP, 0.15 µs at the fp32 peak), far
-// less than one launch costs, so the design shortens the chain of dependent
-// steps and keeps every operand it can on chip.
+// What bounds it on the H100: latency. The work is 2R³/3 + R²L FLOP; it
+// reads G's lower triangle and UtZ and writes X and W (R = 232, L = 32:
+// 10 MFLOP, 0.38 MB, 0.15 µs at the fp32 peak), far less than one launch
+// costs, so the design shortens the chain of dependent steps and keeps every
+// operand it can on chip.
 //
 // The algorithm: a right-looking blocked Cholesky in panels of 32 columns
 // that carries the right-hand side [W | X] = [UtZ | I] along, so that X and W
@@ -25,21 +26,23 @@
 //   1. one warp factors the diagonal block in registers with shuffles and
 //      rsqrt (no __syncthreads), inverts it (D = L_kk⁻¹, one lane per column,
 //      right-looking) and writes X_kk = D over it;
-//   2. in parallel, one thread per row or column: every row below the panel
-//      is solved, L_ik = A_ik Dᵀ, and every column of block row k of [W | X]
-//      (W's L columns, X's c0) is scaled, Y_k = D·Y_k; both results are also
+//   2. in parallel, one thread (one-CTA driver) or one warp of 32 (grid
+//      driver) per row or column: every row below the panel is solved,
+//      L_ik = A_ik Dᵀ, and every column of block row k of [W | X] (W's L
+//      columns, X's c0) is scaled, Y_k = D·Y_k; both results are also
 //      copied, with 16-byte rows, into compact buffers for step 3;
 //   3. in 64×64 tiles of 256 threads, 4×4 outputs each in registers, from
 //      those copies with float4 loads: the rank-32 update A_ij −= L_ik L_jkᵀ
 //      of the trailing lower triangle and Y_i −= L_ik Y_k of the rows below,
 //      over W and X's first c0 columns;
-//   4. one thread per row below the panel: X_ik = −L_ik D, in place.
+//   4. likewise per row below the panel: X_ik = −L_ik D, in place.
 // That is three barriers per panel (8 panels at R = 232) where the first
 // version had three per column; D is read as 16-byte broadcasts. The
 // triangular products of steps 2 and 4 are one compact loop: this code runs
 // once per panel, and fully unrolled it waited on instruction fetch (step 1's
 // factorization, by contrast, ran faster unrolled than as a loop: one warp's
-// issue rate and shuffle latency bound it).
+// issue rate and shuffle latency bound it; spread over eight warps with a
+// barrier per column it was slower still).
 //
 // Two drivers of the same device code:
 //   * while M (packed), W and step 3's copies fit the 227 KB shared-memory
@@ -49,10 +52,14 @@
 //     and written once at the end;
 //   * larger R: M is the X output buffer itself (row stride R, 16.8 MB at
 //     R = 2048, resident in the 50 MB L2), step 3's copies live in the
-//     scratch buffer, and each step is a launch on the stream: a panel kernel
-//     whose every CTA factors the diagonal block itself (no launch waits on a
-//     one-CTA factorization) and takes its share of step 2, a tile kernel of
-//     one CTA per tile, a row kernel for step 4.
+//     scratch buffer, and one cooperative launch runs every panel, its steps
+//     separated by grid-wide barriers (two per panel): every CTA factors the
+//     diagonal block itself (so no CTA waits on another's factorization), then
+//     warps take groups of 32 rows or columns for step 2, CTAs take tiles for
+//     step 3 while warps of the last CTAs take step 4's row groups. A warp
+//     stages its group through a 32×33 shared tile, so that global memory is
+//     read and written a 128-byte row at a time: with one thread per row, the
+//     rows' scattered loads and stores took most of the time.
 // Precision: fp32 FFMA throughout, no tensor cores. TF32 keeps about three
 // decimal digits and the value is held to 1e-5 relative; the FLOPs take
 // microseconds at any R the paths use. The pivots use rsqrtf (2 ulp); the
@@ -62,6 +69,7 @@
 // run. A non-positive pivot gives NaN (rsqrtf of a negative number, or 0·∞)
 // and is never clamped: the trainer's spike guard handles non-finite values.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -69,14 +77,15 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int NB = 32;               // panel width: one warp's lanes
 constexpr int DT_LD = 36;            // Dᵀ's row stride: 16-byte rows, fewer bank conflicts
 constexpr int ST_LD = 36;            // the step-3 copies' row stride, likewise
 constexpr int TILE = 64;             // step-3 tile edge
 constexpr int TILE_THREADS = 256;    // 16×16 threads, 4×4 outputs each
 constexpr int CTA_THREADS = 512;     // the one-CTA driver: two tile workers
-constexpr int STEP_THREADS = 256;    // panel and row kernels
-constexpr int FINISH_THREADS = 512;
+constexpr int GRID_WARPS = TILE_THREADS / 32;  // the grid driver's warps per CTA
 constexpr int DEFAULT_SMEM = 48 * 1024;
 constexpr int MAX_DEVICES = 64;
 constexpr unsigned FULL = 0xffffffffu;
@@ -474,81 +483,179 @@ __global__ void __launch_bounds__(CTA_THREADS) nll_core_cta(
   finish(logd, W, R, L, *zn_p, vn, n_rows, l_dims, nll, red);
 }
 
-// ---- the many-CTA driver: M is the X output buffer, one launch per step
+// Steps 2 and 4 of the grid driver, by one warp for a group of up to 32
+// vectors, staged through the warp's 32×33 tile T (row stride NB + 1, so
+// that both a lane's row and a lane's column are read without bank
+// conflicts) so that global memory is read and written 128 bytes at a time.
+//
+// Rows r0 … r0+n−1 (n ≤ 32) of M, their columns c0 … c0+nb−1: lane k takes
+// row k, v ← D·v (T = Dᵀ, sign 1, step 2; also copied to the group's rows
+// of Pb) or v ← −v·D (T = D, sign −1, step 4).
+__device__ __forceinline__ void rows_times_d(const Strided& M, int c0, int nb,
+                                             int r0, int n, float* T,
+                                             const float* Tm, int ldt,
+                                             float sign, float* Pb) {
+  const int lane = threadIdx.x & 31;
+  constexpr int TLD = NB + 1;
+#pragma unroll 8
+  for (int k = 0; k < n; ++k) T[k * TLD + lane] = lane < nb ? M.row(r0 + k)[c0 + lane] : 0.f;
+  __syncwarp();
+  const auto at = [T, lane](int m) { return T + lane * TLD + m; };
+  times_d(at, at, nb, Tm, ldt, sign, nullptr, 0);
+  __syncwarp();
+  if (lane < nb) {
+#pragma unroll 8
+    for (int k = 0; k < n; ++k) {
+      const float v = T[k * TLD + lane];
+      M.row(r0 + k)[c0 + lane] = v;
+      if (Pb != nullptr) Pb[k * ST_LD + lane] = v;
+    }
+  }
+  __syncwarp();
+}
 
-__global__ void __launch_bounds__(STEP_THREADS) init_kernel(
+// Columns q0 … q0+n−1 (n ≤ 32) of block row k of [W | X] (rows c0 …
+// c0+nb−1): lane k takes column q0+k, v ← D·v, and the results also go to
+// YbT's rows q0 … q0+n−1 for step 3.
+__device__ __forceinline__ void cols_times_d(const Rhs<Strided>& y, int c0,
+                                             int nb, int q0, int n, float* T,
+                                             const float* DsT, float* YbT) {
+  const int lane = threadIdx.x & 31;
+  constexpr int TLD = NB + 1;
+  const bool ok = lane < n;
+#pragma unroll 8
+  for (int m = 0; m < nb; ++m) T[m * TLD + lane] = ok ? *y.at(c0 + m, q0 + lane) : 0.f;
+  __syncwarp();
+  const auto at = [T, lane](int m) { return T + m * TLD + lane; };
+  times_d(at, at, nb, DsT, DT_LD, 1.f, nullptr, 0);
+  __syncwarp();
+  if (ok) {
+#pragma unroll 8
+    for (int m = 0; m < nb; ++m) *y.at(c0 + m, q0 + lane) = T[m * TLD + lane];
+  }
+  if (lane < nb) {
+#pragma unroll 8
+    for (int k = 0; k < n; ++k) YbT[(size_t)(q0 + k) * ST_LD + lane] = T[lane * TLD + k];
+  }
+  __syncwarp();
+}
+
+// ---- the grid driver: M is the X output buffer, one cooperative launch;
+// the steps of a panel are separated by grid-wide barriers
+
+__global__ void __launch_bounds__(TILE_THREADS) nll_core_grid(
     const float* __restrict__ G, const float* __restrict__ UtZ,
-    const float* __restrict__ vn_p, float* __restrict__ X,
-    float* __restrict__ W, int R, int L) {
+    const float* __restrict__ zn_p, const float* __restrict__ vn_p,
+    float* __restrict__ nll, float* X, float* W, float* Pb, float* YbT,
+    float* logd, int R, int L, float n_rows, float l_dims) {
+  __shared__ __align__(16) float Ds[NB * NB];
+  __shared__ __align__(16) float DsT[NB * DT_LD];
+  __shared__ float Ls[NB * (NB + 1)];
+  __shared__ float inv_diag[NB];
+  __shared__ float red[TILE_THREADS];
+  __shared__ float tiles_T[GRID_WARPS * NB * (NB + 1)];  // a 32×33 tile per warp
+  cg::grid_group grid = cg::this_grid();
+  const Rhs<Strided> y{Strided{X, R}, W, L};
+  const int tid = threadIdx.x;
+  const int first = blockIdx.x * TILE_THREADS + tid;
+  const int stride = gridDim.x * TILE_THREADS;
+  const int warp = tid >> 5;
+  float* T = tiles_T + warp * NB * (NB + 1);
+  // the warp groups of steps 2 and 4: warp 0 of every CTA first, so that
+  // they spread over the SMs; step 4's from the last CTA down, away from
+  // the tiles, which step 3 hands out from CTA 0 up
+  const int g_first = blockIdx.x + gridDim.x * warp;
+  const int g_last = (gridDim.x - 1 - blockIdx.x) + gridDim.x * warp;
+  const int g_stride = gridDim.x * GRID_WARPS;
   const float vn = *vn_p;
-  const size_t stride = (size_t)gridDim.x * blockDim.x;
-  const size_t first = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+
+  // B's lower triangle (zeros above) into X, UtZ into W
   for (size_t e = first; e < (size_t)R * R; e += stride) {
     const size_t r = e / R;
     const size_t c = e - r * R;
     X[e] = c <= r ? G[e] / vn + (r == c ? 1.f : 0.f) : 0.f;
   }
   for (size_t e = first; e < (size_t)R * L; e += stride) W[e] = UtZ[e];
-}
+  grid.sync();
 
-// Steps 1 and 2. Every CTA factors and inverts the diagonal block (nothing
-// in this launch writes it); CTA 0 keeps the log diagonal and D for step 4.
-__global__ void __launch_bounds__(STEP_THREADS) panel_kernel(
-    float* X, float* W, float* logd, float* Dg, float* Pb, float* YbT, int R,
-    int L, int c0) {
-  __shared__ __align__(16) float Ds[NB * NB];
-  __shared__ __align__(16) float DsT[NB * DT_LD];
-  __shared__ float Ls[NB * (NB + 1)];
-  __shared__ float inv_diag[NB];
-  const Rhs<Strided> y{Strided{X, R}, W, L};
-  const int nb = min(NB, R - c0);
-  if (threadIdx.x < 32) {
-    factor_diag(y.M, c0, nb, Ls, inv_diag, blockIdx.x == 0 ? logd : nullptr);
-    __syncwarp();
-    invert_diag(Ls, inv_diag, Ds, DsT);
-  }
-  __syncthreads();
-  if (blockIdx.x == 0) {
-    for (int e = threadIdx.x; e < NB * NB; e += STEP_THREADS) Dg[e] = Ds[e];
-  }
-  const int it = blockIdx.x * STEP_THREADS + threadIdx.x;
-  if (it < (R - c0 - nb) + (L + c0)) {
-    panel_item(y, R, c0, nb, it, DsT, Pb, YbT);
-  }
-}
-
-__global__ void __launch_bounds__(TILE_THREADS) tile_kernel(
-    float* X, float* W, const float* Pb, const float* YbT, int R, int L,
-    int c0) {
-  update_tile(Rhs<Strided>{Strided{X, R}, W, L}, R, c0, Pb, YbT, blockIdx.x,
-              threadIdx.x);
-}
-
-// Step 4, and X_kk = D over the diagonal block.
-__global__ void __launch_bounds__(STEP_THREADS) row_kernel(
-    float* X, const float* __restrict__ Dg, int R, int c0) {
-  __shared__ __align__(16) float Ds[NB * NB];
-  for (int e = threadIdx.x; e < NB * NB; e += STEP_THREADS) Ds[e] = Dg[e];
-  __syncthreads();
-  const Strided M{X, R};
-  const int nb = min(NB, R - c0);
-  if (blockIdx.x == 0) {
-    for (int e = threadIdx.x; e < nb * NB; e += STEP_THREADS) {
-      const int r = e / NB;
-      const int c = e % NB;
-      if (c <= r) M.row(c0 + r)[c0 + c] = Ds[e];
+  for (int c0 = 0; c0 < R; c0 += NB) {
+    const int nb = min(NB, R - c0);
+    const int s = c0 + nb;
+    // step 1 in every CTA (nothing writes the diagonal block before the
+    // next barrier); CTA 0 keeps the log diagonal
+    if (tid < 32) {
+      factor_diag(y.M, c0, nb, Ls, inv_diag, blockIdx.x == 0 ? logd : nullptr);
+      __syncwarp();
+      invert_diag(Ls, inv_diag, Ds, DsT);
     }
+    __syncthreads();
+    // step 2: groups of 32 rows below the panel, then of 32 columns of
+    // block row k of [W | X]
+    const int row_groups = cdiv(R - s, NB);
+    const int groups = row_groups + cdiv(L + c0, NB);
+    for (int g = g_first; g < groups; g += g_stride) {
+      if (g < row_groups) {
+        rows_times_d(y.M, c0, nb, s + g * NB, min(NB, R - s - g * NB), T, DsT,
+                     DT_LD, 1.f, Pb + (size_t)g * NB * ST_LD);
+      } else {
+        const int q0 = (g - row_groups) * NB;
+        cols_times_d(y, c0, nb, q0, min(NB, L + c0 - q0), T, DsT, YbT);
+      }
+    }
+    grid.sync();
+    // step 3, one CTA per tile; step 4 (the panel's columns of the rows
+    // below, which no tile touches) by warp groups; X_kk = D over the
+    // diagonal block by CTA 0
+    const int tiles = count_tiles(R, L, c0, s);
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      update_tile(y, R, c0, Pb, YbT, tile, tid);
+    }
+    for (int g = g_last; g < row_groups; g += g_stride) {
+      rows_times_d(y.M, c0, nb, s + g * NB, min(NB, R - s - g * NB), T, Ds, NB,
+                   -1.f, nullptr);
+    }
+    if (blockIdx.x == 0) {
+      for (int e = tid; e < nb * NB; e += TILE_THREADS) {
+        const int r = e / NB;
+        const int c = e % NB;
+        if (c <= r) y.M.row(c0 + r)[c0 + c] = Ds[e];
+      }
+    }
+    grid.sync();
   }
-  const int r = c0 + nb + blockIdx.x * STEP_THREADS + threadIdx.x;
-  if (r < R) neg_times_d(M.row(r) + c0, M.row(r) + c0, nb, Ds);
+  if (blockIdx.x == 0) {
+    finish(logd, W, R, L, *zn_p, vn, n_rows, l_dims, nll, red);
+  }
 }
 
-__global__ void __launch_bounds__(FINISH_THREADS) finish_kernel(
-    const float* __restrict__ logd, const float* __restrict__ W,
-    const float* __restrict__ zn_p, const float* __restrict__ vn_p,
-    float* __restrict__ nll, int R, int L, float n_rows, float l_dims) {
-  __shared__ float red[FINISH_THREADS];
-  finish(logd, W, R, L, *zn_p, *vn_p, n_rows, l_dims, nll, red);
+// CTAs of the grid driver at (R, L): no more than can be resident at once
+// on the current device (up to two per SM), nor than the most work units
+// (tiles, or warp groups of 32 rows or columns) of any one step.
+int grid_blocks(int R, int L) {
+  static int per_device[MAX_DEVICES];  // resident capacity, cached
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  int cap = dev < MAX_DEVICES ? per_device[dev] : 0;
+  if (cap == 0) {
+    int sms = 0;
+    int per_sm = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, nll_core_grid,
+                                                      TILE_THREADS, 0) !=
+            cudaSuccess) {
+      return 0;
+    }
+    cap = sms * std::min(per_sm, 2);
+    if (dev < MAX_DEVICES) per_device[dev] = cap;
+  }
+  int work = 1;
+  for (int c0 = 0; c0 < R; c0 += NB) {
+    const int s = c0 + std::min(NB, R - c0);
+    work = std::max({work, count_tiles(R, L, c0, s),
+                     cdiv(R - s, NB) + cdiv(L + c0, NB)});
+  }
+  return std::min(cap, work);
 }
 
 // Whether the one-CTA driver's shared memory fits the current device's
@@ -585,59 +692,45 @@ cudaError_t allow_smem(size_t bytes) {
 extern "C" {
 
 // Floats of global scratch gppvae_nll_core needs at (R, L) on the current
-// device: 0 for the one-CTA driver, else D, step 3's copies of the panel
-// and the block row, and the log diagonal.
+// device: 0 for the one-CTA driver, else step 3's copies of the panel and
+// the block row, and the log diagonal.
 size_t gppvae_nll_core_scratch(int R, int L) {
   size_t bytes = 0;
   if (R < 1 || L < 1 || fits_one_cta(R, L, &bytes)) return 0;
-  return NB * NB + (size_t)(R + L + R) * ST_LD + R;
+  return (size_t)(R + L + R) * ST_LD + R;
 }
 
 // nll (one float), X (R×R) and W (R×L) from G (R×R), UtZ (R×L) and the
 // device scalars zn and vn; scratch holds gppvae_nll_core_scratch(R, L)
-// floats. Launches on `stream` (one kernel, or 2 + 3·⌈R/32⌉ − 1 beyond the
-// shared-memory bound), allocates nothing, does not synchronise; returns the
-// first launch error, else cudaGetLastError().
+// floats. One launch on `stream` (cooperative beyond the shared-memory
+// bound), allocates nothing, does not synchronise; returns the launch's
+// error, else cudaGetLastError().
 int gppvae_nll_core(const float* G, const float* UtZ, const float* zn,
                     const float* vn, float* nll, float* X, float* W,
                     float* scratch, int R, int L, int n_rows, int l_dims,
                     cudaStream_t stream) {
   if (R < 1 || L < 1) return (int)cudaErrorInvalidValue;
   size_t bytes = 0;
+  float nr = (float)n_rows;
+  float ld = (float)l_dims;
   if (fits_one_cta(R, L, &bytes)) {
     cudaError_t err = allow_smem(bytes);
     if (err != cudaSuccess) return (int)err;
-    nll_core_cta<<<1, CTA_THREADS, bytes, stream>>>(
-        G, UtZ, zn, vn, nll, X, W, R, L, (float)n_rows, (float)l_dims);
+    nll_core_cta<<<1, CTA_THREADS, bytes, stream>>>(G, UtZ, zn, vn, nll, X, W,
+                                                    R, L, nr, ld);
     return (int)cudaGetLastError();
   }
-  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
-  float* Dg = scratch;  // 16-byte aligned, as are the copies after it
-  float* Pb = Dg + NB * NB;
+  const int blocks = grid_blocks(R, L);
+  if (scratch == nullptr || blocks < 1) return (int)cudaErrorInvalidValue;
+  float* Pb = scratch;  // 16-byte aligned, as is the copy after it
   float* YbT = Pb + (size_t)R * ST_LD;
   float* logd = YbT + (size_t)(L + R) * ST_LD;
-  const size_t cells = (size_t)R * std::max(R, L);
-  const int init_blocks =
-      (int)std::min<size_t>((cells + STEP_THREADS - 1) / STEP_THREADS, 1024);
-  init_kernel<<<init_blocks, STEP_THREADS, 0, stream>>>(G, UtZ, vn, X, W, R, L);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  for (int c0 = 0; c0 < R; c0 += NB) {
-    const int s = c0 + std::min(NB, R - c0);
-    panel_kernel<<<cdiv((R - s) + (L + c0), STEP_THREADS), STEP_THREADS, 0,
-                   stream>>>(X, W, logd, Dg, Pb, YbT, R, L, c0);
-    const int tiles = count_tiles(R, L, c0, s);
-    if (tiles > 0) {
-      tile_kernel<<<tiles, TILE_THREADS, 0, stream>>>(X, W, Pb, YbT, R, L, c0);
-    }
-    row_kernel<<<std::max(1, cdiv(R - s, STEP_THREADS)), STEP_THREADS, 0,
-                 stream>>>(X, Dg, R, c0);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  finish_kernel<<<1, FINISH_THREADS, 0, stream>>>(
-      logd, W, zn, vn, nll, R, L, (float)n_rows, (float)l_dims);
-  return (int)cudaGetLastError();
+  void* args[] = {&G, &UtZ, &zn, &vn, &nll, &X, &W, &Pb, &YbT, &logd,
+                  &R, &L, &nr, &ld};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      (const void*)nll_core_grid, dim3(blocks), dim3(TILE_THREADS), args, 0,
+      stream);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // extern "C"

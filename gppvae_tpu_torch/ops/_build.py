@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -73,6 +74,25 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def run_nvcc(cmd: list[str]) -> subprocess.CompletedProcess:
+    """Run one nvcc command line, capturing its output."""
+    return subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+
+
+def compile_library(nvcc: str, lib: Path) -> tuple[bool, str]:
+    """Compile every source (one nvcc each, all started together) into
+    objects beside `lib`, then link them into `lib`. Returns (ok, log)."""
+    objs = [lib.parent / (Path(name).stem + ".o") for name in SOURCES]
+    cmds = [[nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(CSRC / name)]
+            for name, obj in zip(SOURCES, objs)]
+    with ThreadPoolExecutor(len(cmds)) as pool:
+        procs = list(pool.map(run_nvcc, cmds))
+    if all(p.returncode == 0 for p in procs):
+        procs.append(run_nvcc([nvcc, *LINK_FLAGS, "-o", str(lib), *map(str, objs)]))
+    log = "".join(" ".join(p.args) + "\n" + p.stdout + p.stderr for p in procs)
+    return all(p.returncode == 0 for p in procs), log
+
+
 def build() -> Path:
     """Path of the built library, compiling it if this tree has not yet."""
     out_dir = BUILD_ROOT / source_hash()
@@ -84,33 +104,13 @@ def build() -> Path:
     # build in a temporary directory, then rename the library: a concurrent
     # or interrupted build never leaves a half-written one under the final name
     tmp = Path(tempfile.mkdtemp(dir=out_dir))
-    procs = []
     try:
-        objs = [tmp / (Path(name).stem + ".o") for name in SOURCES]
-        for name, obj in zip(SOURCES, objs):
-            cmd = [nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(CSRC / name)]
-            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                stderr=subprocess.PIPE, text=True)))
-        log = []
-        for cmd, proc in procs:
-            out, err = proc.communicate(timeout=600)
-            log.append(" ".join(cmd) + "\n" + out + err)
-        link = [nvcc, *LINK_FLAGS, "-o", str(tmp / LIB_NAME), *map(str, objs)]
-        failed = [p for _, p in procs if p.returncode != 0]
-        if not failed:
-            proc = subprocess.run(link, capture_output=True, text=True, timeout=600)
-            log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
-            failed = [proc] if proc.returncode != 0 else []
-        (out_dir / "nvcc.log").write_text("".join(log))
-        if failed:
-            raise KernelBuildError(
-                f"nvcc failed ({failed[0].returncode}):\n" + "".join(log))
+        ok, log = compile_library(nvcc, tmp / LIB_NAME)
+        (out_dir / "nvcc.log").write_text(log)
+        if not ok:
+            raise KernelBuildError("nvcc failed:\n" + log)
         os.replace(tmp / LIB_NAME, lib)
     finally:
-        for _, p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
         shutil.rmtree(tmp, ignore_errors=True)
     return lib
 

@@ -5,9 +5,9 @@ Pallas kernel `_nll_core_pallas` this module's CUDA kernel replaces). The
 kernel is `csrc/nll_core.cu`: a blocked Cholesky in panels of 32 columns
 that carries [UtZ | I] along, so that W = L_B⁻¹UtZ and X = L_B⁻¹ come out of
 the factorization; one CTA with everything in shared memory while it fits
-(R = 232, L = 32 takes 224 KB), one launch per panel step on the output
-buffer above that, in fp32 (see the note at the top of that file for what
-bounds it on the H100). It takes any R.
+(R = 232, L = 32 takes 224 KB), one cooperative launch on the output buffer
+above that, in fp32 (see the note at the top of that file for what bounds
+it on the H100). It takes any R.
 
 Which version runs is decided by the tensor's device alone: a CPU tensor
 takes the plain PyTorch version, a CUDA float32 tensor launches the kernel,

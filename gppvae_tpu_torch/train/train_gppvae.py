@@ -288,6 +288,9 @@ class _Loop:
             raise ValueError(f"batch_size {config.batch_size} exceeds train set {num_train}")
         self.nb = num_batches(num_train, config.batch_size)
         self.chunk = min(config.encode_chunk, num_train)
+        with torch.no_grad():  # rejects an unknown extra effect before any work
+            self.build_effects(gp_params["X"], self.view_W(), data["d_tr"][:1],
+                               data["q_tr"][:1])
         self.restart_optimizers()
 
     def restart_optimizers(self) -> None:

@@ -40,7 +40,7 @@ def _rel_err(got, want):
 
 @pytest.mark.parametrize("n,r,l,offset", [
     (5700, 56, 16, 0), (5701, 56, 16, 0), (1, 3, 1, 0), (127, 64, 64, 0),
-    (6401, 256, 16, 0), (256, 2048, 8, 0), (332, 232, 32, 0),
+    (6401, 256, 16, 0), (256, 2048, 8, 0), (332, 232, 32, 0), (5700, 560, 16, 0),
     (5700, 56, 16, 1),  # 4-byte aligned only: the scalar copies
 ])
 def test_factor_prep_kernel_matches_plain(gen, n, r, l, offset):
@@ -52,6 +52,7 @@ def test_factor_prep_kernel_matches_plain(gen, n, r, l, offset):
     again = ops.launch_factor_prep(U, Z)
     want = ops.factor_prep_torch(U, Z)
     assert got[2].shape == ()
+    assert torch.equal(got[0], got[0].T)  # G's lower triangle, mirrored
     for g, a, w in zip(got, again, want):
         assert torch.equal(g, a)  # fixed-order reduction: bit-identical reruns
         assert _rel_err(g, w) <= 1e-5
@@ -59,11 +60,11 @@ def test_factor_prep_kernel_matches_plain(gen, n, r, l, offset):
 
 @pytest.mark.parametrize("r,l", [
     (56, 16), (3, 1), (225, 16), (232, 32), (234, 16), (235, 16), (256, 16),
-    (512, 8), (600, 16), (1024, 16), (2048, 8),
+    (512, 8), (560, 16), (600, 16), (1024, 16), (2048, 8),
 ])
 def test_nll_core_kernel_matches_plain(gen, r, l):
-    """Both drivers of the kernel: one CTA up to R = 234, one launch per
-    panel step above."""
+    """Both drivers of the kernel: one CTA up to R = 234, one cooperative
+    launch above."""
     n = 6400
     U = torch.randn(n, r, device="cuda", generator=gen) / math.sqrt(r)
     Z = torch.randn(n, l, device="cuda", generator=gen)
@@ -125,9 +126,10 @@ class _Quiet:
         pass
 
 
-def test_non_positive_pivot_gives_nan(gen):
-    G = -4.0 * torch.eye(8, device="cuda")  # B = I + G/vn has negative pivots
-    nll, X, W = ops.launch_nll_core(G, torch.ones(8, 2, device="cuda"),
+@pytest.mark.parametrize("r", [8, 600])  # each driver
+def test_non_positive_pivot_gives_nan(gen, r):
+    G = -4.0 * torch.eye(r, device="cuda")  # B = I + G/vn has negative pivots
+    nll, X, W = ops.launch_nll_core(G, torch.ones(r, 2, device="cuda"),
                                     torch.tensor(1.0, device="cuda"),
                                     torch.tensor(1.0, device="cuda"), 10, 2)
     assert torch.isnan(nll)

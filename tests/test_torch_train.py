@@ -217,6 +217,18 @@ def test_device_and_unported_options_raise(golden):
             train_gppvae.train_gppvae(golden["ds"], cfg, device="cpu", log=_Quiet())
 
 
+def test_unknown_extra_effect_raises_before_any_work(golden, monkeypatch):
+    """A bad --extra_effects name fails while the epoch loop is set up, not
+    at the first Phase B after an encode."""
+    def no_encode(self):
+        raise AssertionError("encoded before the bad option was rejected")
+
+    monkeypatch.setattr(train_gppvae._Loop, "encode", no_encode)
+    cfg = train_gppvae.GPPVAETrainConfig(**{**GOLDEN, "extra_effects": ("object", "pose")})
+    with pytest.raises(ValueError, match="unknown extra effect 'pose'"):
+        train_gppvae.train_gppvae(golden["ds"], cfg, device="cpu", log=_Quiet())
+
+
 def test_package_imports_no_jax(tmp_path):
     code = (
         "import importlib, pkgutil, sys, gppvae_tpu_torch\n"
