@@ -40,15 +40,29 @@ Phases, one per printed line group; any failure ends the run non-zero:
      (d) the digits at R = 560 (rbf, 80 RFF features), past the TPU
      kernel's 512, 1 joint epoch: one launch of each kernel and the final GP
      NLL against CPU float64;
-  6. the `kernels` line (each kernel at the main path's shape, launches
-     summed over the paths), then the last line: {"ok": true, "device": ...}.
+  6. serving, from the runs of 4, 5a and 5b (their directories are kept):
+     `generate` (held-out MSE = the trainer's last oos_mse, float32 runs),
+     `generate --export_server`, then `serve --state` through each main(argv):
+     --requests over the held-out cells with --var (= generate's images),
+     --observe (no observed cell's variance rises; two observes = one over
+     both batches), --sample 4 --joint, the --stdin loop, and --repeat 20
+     --sustained 20 at a 200-image batch (bench.py:320-346's protocol); every
+     state tensor on cuda, and neither kernel launched: the serving path has
+     none (the JAX package's gram and matmul_tn have no Pallas kernel). Prints
+     fold_s (build_server_state alone), the observe fold_s, latency_s and
+     the two rates per run;
+  7. the `kernels` line (each kernel at the main path's shape, launches
+     summed over the training paths 4, 5a-d), then the last line:
+     {"ok": true, "device": ...}.
 
-Every path (4, 5a-d) sets the kernels' counts to 0 just before it and reads
-them just after.
+Every path (4, 5a-d, and 6 per run) sets the kernels' counts to 0 just
+before it and reads them just after.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import statistics
@@ -57,6 +71,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 # (N, R, L); the first of each is the main path's (phase 4), (332, 232, 32)
@@ -79,6 +94,16 @@ LATENT_BF16_REL_BOUND = 2e-2
 SLICE_ARGS = ["--data", "synthetic", "--num_objects", "400", "--num_views", "16",
               "--seed", "0", "--device", "cuda"]
 HEADLINE = ["--dtype", "bfloat16", "--dec_upsample", "subpixel"]
+DIGITS_DATA = ("synthetic", 400, 16, 0)  # build_dataset_from_flag(flag, P, Q, seed)
+FACES_DATA = ("faces", 50, 8, 0, 128)
+# path 6 (serving): bench.py:320-346's protocol, 20 rotated 200-image batches
+SERVE_BATCH, SERVE_CHAIN, SERVE_REPEAT = 200, 20, 20
+ARCH_KEYS = ("zdim", "enc_features", "dec_features", "object_kernel", "rff_lengthscale",
+             "extra_effects", "dec_upsample", "compute_dtype")
+HELDOUT_MSE_REL_BOUND = 1e-5  # generate vs the trainer's last oos_mse: one f32 computation
+SERVE_IMAGE_ABS_BOUND = 1e-5  # serve vs generate_heldout: the same fold, card and dtype
+VAR_SLACK_REL = 1e-5  # observe: variance after ≤ before × (1 + this), f32 rounding
+OBSERVE_SPLIT_REL_BOUND = 1e-4  # two observes vs one, max |Δ mean| / max |mean|, f32
 FACES_ARGS = ["--data", "faces", "--num_objects", "50", "--num_views", "8",
               "--image_size", "128", "--zdim", "32", "--bs", "64", "--seed", "0",
               "--device", "cuda", "--dec_upsample", "subpixel", "--object_kernel", "rbf",
@@ -349,21 +374,21 @@ def final_nll_check(result, label: str) -> tuple:
     return Z, Vs, v_sigs, v_noise
 
 
-def phase_slice() -> dict:
+def phase_slice(tmp: str) -> tuple[dict, dict]:
     from gppvae_tpu_torch.train import train_gppvae, train_vae
 
     say("== 4 slice: train_vae 1 epoch → train_gppvae --mode joint 3 epochs "
         "(P=400, Q=16, zdim 16, R=56, bs 128, f32)")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        def run():
-            train_vae.main([*SLICE_ARGS, "--epochs", "1", "--outdir", f"{tmp}/vae"])
-            return train_gppvae.main([
-                *SLICE_ARGS, "--mode", "joint", "--epochs", "3",
-                "--vae_weights", f"{tmp}/vae/{train_vae.WEIGHTS_FILE}",
-                "--outdir", f"{tmp}/gppvae",
-            ])
 
-        result, counts = drive("4 slice", run)
+    def run():
+        train_vae.main([*SLICE_ARGS, "--epochs", "1", "--outdir", f"{tmp}/vae"])
+        return train_gppvae.main([
+            *SLICE_ARGS, "--mode", "joint", "--epochs", "3",
+            "--vae_weights", f"{tmp}/vae/{train_vae.WEIGHTS_FILE}",
+            "--outdir", f"{tmp}/gppvae",
+        ])
+
+    result, counts = drive("4 slice", run)
     hist = result.history
     report(hist)
     check(hist[-1]["loss"] < hist[0]["loss"], "loss falls from the first epoch to the last")
@@ -371,26 +396,26 @@ def phase_slice() -> dict:
     check(counts["launch_nll_core.launches"] == 3, "nll_core launched once per epoch")
     Z, *_ = final_nll_check(result, "4 slice")
     check(Z.shape == (5700, 16), "latents (5700, 16)")
-    return counts
+    return counts, {"dir": f"{tmp}/gppvae", "result": result, "data": DIGITS_DATA}
 
 
-def path_headline() -> dict:
+def path_headline(tmp: str) -> tuple[dict, dict]:
     from gppvae_tpu_torch.models import encode_all
     from gppvae_tpu_torch.train import train_gppvae, train_vae
 
     say("== 5a headline (config 3b): bf16 + subpixel, train_vae 1 epoch → "
         "train_gppvae --mode joint 3 epochs, the last in f32 (--polish_epochs 1)")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        def run():
-            train_vae.main([*SLICE_ARGS, *HEADLINE, "--epochs", "1", "--outdir", f"{tmp}/vae"])
-            return train_gppvae.main([
-                *SLICE_ARGS, *HEADLINE, "--mode", "joint", "--epochs", "3",
-                "--polish_epochs", "1",
-                "--vae_weights", f"{tmp}/vae/{train_vae.WEIGHTS_FILE}",
-                "--outdir", f"{tmp}/gppvae",
-            ])
 
-        result, counts = drive("5a headline", run)
+    def run():
+        train_vae.main([*SLICE_ARGS, *HEADLINE, "--epochs", "1", "--outdir", f"{tmp}/vae_bf16"])
+        return train_gppvae.main([
+            *SLICE_ARGS, *HEADLINE, "--mode", "joint", "--epochs", "3",
+            "--polish_epochs", "1",
+            "--vae_weights", f"{tmp}/vae_bf16/{train_vae.WEIGHTS_FILE}",
+            "--outdir", f"{tmp}/headline",
+        ])
+
+    result, counts = drive("5a headline", run)
     hist = result.history
     report(hist)
     check(hist[-1]["loss"] < hist[0]["loss"], "loss falls from the first epoch to the last")
@@ -413,19 +438,18 @@ def path_headline() -> dict:
         f"{rel:.3e} (bound {LATENT_BF16_REL_BOUND:.0e}); dtype {Z_bf16.dtype}")
     check(Z_bf16.dtype == torch.float32 and rel <= LATENT_BF16_REL_BOUND,
           "bf16 latents agree with f32 latents of the same weights")
-    return counts
+    return counts, {"dir": f"{tmp}/headline", "result": result, "data": DIGITS_DATA}
 
 
-def path_faces() -> dict:
+def path_faces(tmp: str) -> tuple[dict, dict]:
     from gppvae_tpu_torch import ops
     from gppvae_tpu_torch.train import train_gppvae
 
     say("== 5b GP options at face-view 128² (config 4 widths): rbf (32 RFF) + object "
         "effect, learn_sigma_y, grad_accum 2, refresh every 3 steps, subpixel, 2 epochs")
     epochs, refresh = 2, 3
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        result, counts = drive("5b faces", lambda: train_gppvae.main([
-            *FACES_ARGS, "--mode", "joint", "--epochs", str(epochs), "--outdir", f"{tmp}/g"]))
+    result, counts = drive("5b faces", lambda: train_gppvae.main([
+        *FACES_ARGS, "--mode", "joint", "--epochs", str(epochs), "--outdir", f"{tmp}/faces"]))
     hist = result.history
     report(hist)
     nb = -(-result.data["images_tr"].shape[0] // result.config.batch_size)
@@ -452,7 +476,7 @@ def path_faces() -> dict:
     check(vrel <= NLL_VALUE_REL_BOUND, "nll_core at R = 232")
     say(f"trained inputs at N={n}, R={R}, L={L}: factor_prep rel {rel:.3e}, "
         f"nll_core rel {vrel:.3e}")
-    return counts
+    return counts, {"dir": f"{tmp}/faces", "result": result, "data": FACES_DATA}
 
 
 def path_nystrom() -> dict:
@@ -488,11 +512,195 @@ def path_large_rank() -> dict:
     return counts
 
 
+def cli(fn, argv) -> list[dict]:
+    """Run a CLI's main(argv) as a user would; its JSON stdout lines."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn(argv)
+    return [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith("{")]
+
+
+def _pairs(ds, rows) -> str:
+    return ",".join(f"{ds.object_ids[i]}:{ds.view_ids[i]}" for i in rows)
+
+
+def _save_obs(path: str, ds, rows) -> str:
+    np.savez_compressed(path, images=ds.images[rows], objects=ds.object_ids[rows],
+                        views=ds.view_ids[rows])
+    return path
+
+
+def serve_run(label: str, run: dict) -> dict:
+    """Path 6 on one trained run: generate (held-out MSE), generate
+    --export_server, then serve --state for means and variances, observe,
+    joint draws, the stdin loop and the two throughput modes, each through
+    its main(argv) on the card. Returns the numbers."""
+    from gppvae_tpu_torch import gp
+    from gppvae_tpu_torch.config import build_dataset_from_flag
+    from gppvae_tpu_torch.eval import generate, serving
+
+    d = run["dir"]
+    final_path, srv = f"{d}/final_params.pt", f"{d}/m.srv"
+    with open(f"{d}/config.json") as f:
+        side = json.load(f)
+    arch = {k: side[k] for k in ARCH_KEYS}
+    ds = build_dataset_from_flag(*run["data"])  # the grid the run trained on
+    ho = ds.heldout_idx
+    last_oos = run["result"].history[-1]["oos_mse"]
+    out = {"label": label, "compute_dtype": arch["compute_dtype"],
+           "image_shape": list(ds.image_shape), "n_train": len(ds.train_idx),
+           "n_heldout": len(ho)}
+
+    (rec,) = cli(generate.main, ["--state", final_path, "--device", "cuda", "--outdir", d])
+    rel = abs(rec["heldout_mse"] - last_oos) / abs(last_oos)
+    out.update(heldout_mse=rec["heldout_mse"], trainer_oos_mse=last_oos)
+    say(f"{label} generate: held-out MSE {rec['heldout_mse']:.8f}, trainer's last oos_mse "
+        f"{last_oos:.8f}, rel {rel:.3e}" + (f" (bound {HELDOUT_MSE_REL_BOUND:.0e})"
+                                             if arch["compute_dtype"] == "float32" else
+                                             " (bf16 serving of an f32-polished run: not held)"))
+    if arch["compute_dtype"] == "float32":
+        check(rel <= HELDOUT_MSE_REL_BOUND, f"{label}: generate's MSE is the trainer's")
+    t0 = time.perf_counter()
+    (exp,) = cli(generate.main, ["--state", final_path, "--device", "cuda",
+                                 "--export_server", srv])
+    out["export_cli_s"] = time.perf_counter() - t0
+
+    # the fold alone (build_server_state, synced), best of 3 after the CLI's
+    final = torch.load(final_path, map_location="cuda", weights_only=True)
+    model, x_map = generate._model_and_xmap(final, ds, **arch)
+    images_tr, d_tr, q_tr = generate._rows(ds, ds.train_idx, "cuda")
+    folds = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        built = serving.build_server_state(model, generate._params(final), final.get("fixed_W"),
+                                           images_tr, d_tr, q_tr, x_map=x_map,
+                                           extra_effects=tuple(arch["extra_effects"]))
+        torch.cuda.synchronize()
+        folds.append(time.perf_counter() - t0)
+    out["fold_s"] = min(folds)
+
+    state, meta = serving.load_server_state(srv, map_location="cuda")
+    carried = [meta.get("nystrom_idx"), *(meta.get("rff_draws") or ())]
+    tensors = [*state.core, state.X, state.W, state.v_sig, *state.vae_params.values(),
+               *[t for t in carried if t is not None], *built.core, built.X, built.W]
+    check(all(t.is_cuda for t in tensors), f"{label}: every state tensor on cuda")
+    smodel = serving._model_from_meta(meta, state.vae_params, "cuda")
+    sx_map = serving.x_map_from_meta(meta, state.X.shape[1])
+    extra = tuple(meta["extra_effects"])
+    check(smodel.dtype == (torch.bfloat16 if arch["compute_dtype"] == "bfloat16"
+                           else torch.float32), f"{label}: served in the run's compute dtype")
+
+    y_gen, _ = generate.generate_heldout(final, ds, **arch)
+    (rec,) = cli(serving.main, ["--state", srv, "--device", "cuda", "--requests",
+                                _pairs(ds, ho), "--var", "--outdir", f"{d}/served"])
+    served = np.load(rec["npz"])["images"]
+    err = float(np.abs(served - y_gen).max())
+    out["latency_s"] = rec["latency_s"]
+    say(f"{label} serve --requests ({len(ho)} held-out cells) --var: latency_s "
+        f"{rec['latency_s']}, images vs generate's max abs err {err:.3e} "
+        f"(bound {SERVE_IMAGE_ABS_BOUND:.0e}), rank {exp['rank']}")
+    check(served.shape == y_gen.shape and err <= SERVE_IMAGE_ABS_BOUND,
+          f"{label}: serve returns generate's held-out images")
+
+    # observe: the variance of no observed cell rises; two folds equal one
+    half = len(ho) // 2
+    obs = {k: _save_obs(f"{d}/obs_{k}.npz", ds, rows)
+           for k, rows in (("a", ho[:half]), ("b", ho[half:]), ("ab", ho))}
+    orec, _ = cli(serving.main, ["--state", srv, "--device", "cuda", "--observe", obs["ab"],
+                                 "--save_state", f"{d}/ab.srv", "--requests", _pairs(ds, ho),
+                                 "--var", "--outdir", f"{d}/observed"])
+    out["observe_fold_s"] = orec["fold_s"]
+    cli(serving.main, ["--state", srv, "--device", "cuda", "--observe", obs["a"],
+                       "--save_state", f"{d}/a.srv"])
+    cli(serving.main, ["--state", f"{d}/a.srv", "--device", "cuda", "--observe", obs["b"],
+                       "--save_state", f"{d}/a_b.srv"])
+    one, _ = serving.load_server_state(f"{d}/ab.srv", map_location="cuda")
+    two, _ = serving.load_server_state(f"{d}/a_b.srv", map_location="cuda")
+    d_ho = torch.as_tensor(ds.object_ids[ho], dtype=torch.int64, device="cuda")
+    q_ho = torch.as_tensor(ds.view_ids[ho], dtype=torch.int64, device="cuda")
+    _, vb = serving.predict_images(smodel, state, d_ho, q_ho, x_map=sx_map, extra_effects=extra,
+                                   return_var=True)
+    _, va = serving.predict_images(smodel, one, d_ho, q_ho, x_map=sx_map, extra_effects=extra,
+                                   return_var=True)
+    V, v_sigs = serving._effect_rows(one, d_ho, q_ho, x_map=sx_map, extra_effects=extra)
+    m1 = gp.predict_from_core(V, one.core, v_sigs)
+    m2 = gp.predict_from_core(V, two.core, v_sigs)
+    split = float((m1 - m2).abs().max()) / float(m1.abs().max())
+    worst = float(torch.max(va / vb))
+    say(f"{label} observe ({len(ho)} cells): fold_s {orec['fold_s']}, variance after / before "
+        f"max {worst:.6f} mean {float(torch.mean(va / vb)):.6f} (bound ≤ 1 + "
+        f"{VAR_SLACK_REL:.0e}); two observes vs one: max |Δ mean| / max |mean| {split:.3e} "
+        f"(bound {OBSERVE_SPLIT_REL_BOUND:.0e})")
+    check(worst <= 1 + VAR_SLACK_REL, f"{label}: observe raises no observed cell's variance")
+    check(split <= OBSERVE_SPLIT_REL_BOUND, f"{label}: two observes equal one over both")
+
+    # joint draws over a batch that asks for one cell twice
+    cells = [ho[0], ho[0], *ho[1:4]]
+    (jrec,) = cli(serving.main, ["--state", srv, "--device", "cuda", "--requests",
+                                 _pairs(ds, cells), "--sample", "4", "--joint",
+                                 "--outdir", f"{d}/joint"])
+    draws = np.load(jrec["npz"])["images"]
+    check(draws.shape == (len(cells), 4, *ds.image_shape) and bool(np.isfinite(draws).all()),
+          f"{label}: --sample 4 --joint finite, (n, K, H, W, C)")
+
+    # the stdin loop
+    lines = [_pairs(ds, ho[:100]), f"observe {obs['a']}", _pairs(ds, ho[:1]),
+             f"save {d}/stdin.srv", "3:x"]
+    old_stdin = sys.stdin
+    sys.stdin = io.StringIO("\n".join(lines) + "\n")
+    try:
+        replies = cli(serving.main, ["--state", srv, "--device", "cuda", "--stdin",
+                                     "--max_batch", "64", "--outdir", f"{d}/stdin"])
+    finally:
+        sys.stdin = old_stdin
+    check(len(replies) == 1 + len(lines) and replies[0].get("ready") is True
+          and replies[1]["n_requests"] == min(100, len(ho)) and replies[2]["observed"] == half
+          and replies[4]["saved"] == f"{d}/stdin.srv" and "error" in replies[5],
+          f"{label}: the stdin loop answers its lines")
+    say(f"{label} stdin loop: {len(lines)} lines answered (request {replies[1]['latency_s']} s, "
+        f"observe {replies[2]['fold_s']} s, save, one error)")
+
+    # throughput at bench.py's 200-image request batch
+    batch = np.tile(ho, -(-SERVE_BATCH // len(ho)))[:SERVE_BATCH]
+    (trec,) = cli(serving.main, ["--state", srv, "--device", "cuda", "--requests",
+                                 _pairs(ds, batch), "--repeat", str(SERVE_REPEAT), "--sustained",
+                                 str(SERVE_CHAIN), "--outdir", f"{d}/throughput"])
+    out.update({k: trec[k] for k in ("images_per_sec", "repeat_latency_s_min",
+                                     "repeat_latency_s_median", "sustained_images_per_sec",
+                                     "sustained_latency_s_min")},
+               serve_batch=SERVE_BATCH, repeat=SERVE_REPEAT, sustained_chain=SERVE_CHAIN)
+    say(f"{label} throughput, {SERVE_BATCH}-image batch: --repeat {SERVE_REPEAT} "
+        f"{trec['images_per_sec']} images/s, --sustained {SERVE_CHAIN} "
+        f"{trec['sustained_images_per_sec']} images/s")
+    check(trec["images_per_sec"] > 0 and trec["sustained_images_per_sec"] > 0,
+          f"{label}: positive rates")
+    return out
+
+
+def path_serving(runs: dict) -> None:
+    """Path 6: serve every kept run; the serving path launches neither
+    kernel (gram and matmul_tn have no Pallas kernel in the JAX package), so
+    each run's counts must all be 0."""
+    say("== 6 serving: generate --export_server, then serve --state (means, variances, "
+        "observe, joint draws, the stdin loop, --repeat and --sustained) from paths 4, 5a, 5b")
+    for label, run in runs.items():
+        numbers, counts = drive(f"6 serving {label}", lambda: serve_run(label, run))
+        check(set(counts.values()) == {0}, f"6 serving {label}: no kernel launch, no plain "
+              "version on a CUDA tensor")
+        say(f"6 serving {label} numbers: {json.dumps(numbers)}")
+
+
 def main() -> None:
     kind = phase_environment()
     phase_build()
     stats = phase_kernels()
-    paths = [phase_slice(), path_headline(), path_faces(), path_nystrom(), path_large_rank()]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        c4, r4 = phase_slice(tmp)
+        c5a, r5a = path_headline(tmp)
+        c5b, r5b = path_faces(tmp)
+        paths = [c4, c5a, c5b, path_nystrom(), path_large_rank()]
+        path_serving({"4 slice": r4, "5a headline": r5a, "5b faces": r5b})
     sources = {
         "factor_prep": ("gppvae_tpu_torch/csrc/factor_prep.cu",
                         "gppvae_tpu/ops/pallas_gemm.py:162", "launch_factor_prep.launches"),

@@ -14,11 +14,17 @@ Layers (bottom → top):
             predictive posterior
   models/   conv encoder/decoder (nn.Module), VAE assembly
   train/    losses, batching, the guarded Adam, train_vae / train_gppvae
-  eval/     out-of-sample GP-predictive generation and pixel MSE
-  data/     rotated-digits and face-view grid builders (numpy)
+  eval/     out-of-sample GP-predictive generation and pixel MSE, the
+            generate CLI, the serving path (fold once, then predict,
+            sample, observe; the serve CLI) and PNG panels
+  checkpoint/ torch.save trees with a format-version sidecar
+  data/     rotated-digits and face-view grid builders (numpy), build-data
   config/   the --data flag → dataset builder
   utils/    JSONL metrics logger
-  convert   flax param tree → state_dict and GP tensors
+  convert   flax param tree → state_dict and GP tensors, a JAX server state
+
+`python -m gppvae_tpu_torch <command>` runs build-data, train-vae,
+train-gppvae, generate and serve.
 """
 
 __version__ = "0.1.0"

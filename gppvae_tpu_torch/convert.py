@@ -5,7 +5,8 @@ The flax tree (as numpy arrays) is
 optionally under a top-level "params". Conv kernels go HWIO → OIHW, Dense
 kernels (in, out) → Linear (out, in). The encoder's flatten order (H, W, C)
 and the decoder's (h, w, c) reshape are kept by models/vae.py itself, so no
-dense weight is permuted.
+dense weight is permuted. `server_state_from_numpy` carries a JAX server
+state over whole.
 """
 
 from __future__ import annotations
@@ -84,3 +85,21 @@ def rff_draws_from_map(map_fn) -> tuple[torch.Tensor, torch.Tensor]:
                      (c.cell_contents for c in map_fn.__closure__)))
     return (torch.tensor(np.asarray(cells["omega"]), dtype=torch.float32),
             torch.tensor(np.asarray(cells["phase"]), dtype=torch.float32))
+
+
+def server_state_from_numpy(state: Mapping, device: torch.device | str = "cpu"):
+    """The port's eval.serving.ServerState from a JAX ServerState as numpy:
+    {'core': {'M', 'G', 'Lb', 'v_noise'}, 'X', 'W', 'v_sig', 'vae_params'
+    (the flax VAE tree)}, i.e. `{**s._asdict(), 'core': s.core._asdict()}`.
+    Float32 tensors on `device`."""
+    from gppvae_tpu_torch.eval.serving import ServerState
+    from gppvae_tpu_torch.gp import PosteriorCore
+
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=torch.float32, device=device)
+
+    return ServerState(
+        core=PosteriorCore(**{k: t(state["core"][k]) for k in PosteriorCore._fields}),
+        X=t(state["X"]), W=t(state["W"]), v_sig=t(state["v_sig"]),
+        vae_params={k: v.to(device) for k, v in flax_to_state_dict(state["vae_params"]).items()},
+    )

@@ -13,6 +13,12 @@ import torch
 from gppvae_tpu_torch import gp
 
 
+def oos_predict_images(decode_fn, V_star, factors: gp.GPFactors, Z: torch.Tensor,
+                       v_sigs) -> torch.Tensor:
+    """ŷ* = sigmoid(decoder(K(*,·) K⁻¹ Z)) for held-out feature rows."""
+    return torch.sigmoid(decode_fn(gp.predict_latents(V_star, factors, Z, v_sigs)))
+
+
 def pixel_mse(y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:
     return torch.mean((y_true - y_pred) ** 2)
 
@@ -33,6 +39,5 @@ def predict_heldout(model, gp_params: dict, fixed_W, Z0, d_tr, q_tr, d_ho, q_ho,
     v_sig, v_noise = gp.variances_from_log(gp_params["log_vs"], gp_params["log_vn"])
     v_sigs = [v_sig.reshape(-1)[i] for i in range(len(V_tr))]
     factors = gp.factorize(V_tr, v_sigs, v_noise)
-    z_star = gp.predict_latents(V_ho, factors, Z0, v_sigs)
-    y_pred = torch.sigmoid(model.decode(z_star))
+    y_pred = oos_predict_images(model.decode, V_ho, factors, Z0, v_sigs)
     return y_pred, pixel_mse(y_ho, y_pred)

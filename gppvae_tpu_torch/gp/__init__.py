@@ -13,6 +13,7 @@ from gppvae_tpu_torch.gp.features import (
     polynomial_view_features,
     rff_draws,
 )
+from gppvae_tpu_torch.gp import dense
 from gppvae_tpu_torch.gp.nystrom import nystrom_features, pivoted_cholesky_landmarks
 from gppvae_tpu_torch.gp.taylor import (
     TaylorCoefficients,
@@ -23,10 +24,12 @@ from gppvae_tpu_torch.gp.woodbury import (
     MIN_V_NOISE,
     GPFactors,
     PosteriorCore,
+    extend_posterior_core,
     factorize,
     gp_nll_from_features,
     kinv_z_core,
     posterior_core,
+    predict_cov_from_core,
     predict_from_core,
     predict_latents,
     scaled_features,
@@ -36,10 +39,11 @@ from gppvae_tpu_torch.gp.woodbury import (
 __all__ = [
     "GPFactors", "MIN_V_NOISE", "OBJECT_KERNELS",
     "PosteriorCore", "TaylorCoefficients", "build_V", "build_effect_rows",
-    "factorize", "fourier_view_features", "gp_nll_from_features",
+    "dense", "extend_posterior_core", "factorize", "fourier_view_features", "gp_nll_from_features",
     "kinv_z_core", "kron_rows", "make_rff_map", "make_x_map",
     "normalize_rows", "nystrom_features", "pivoted_cholesky_landmarks",
-    "polynomial_view_features", "posterior_core", "predict_from_core",
+    "polynomial_view_features", "posterior_core", "predict_cov_from_core",
+    "predict_from_core",
     "predict_latents", "rff_draws", "scaled_features",
     "surrogate_batch_term", "taylor_expand", "variances_from_log",
 ]

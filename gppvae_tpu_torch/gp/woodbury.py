@@ -10,8 +10,10 @@ B = I_R + UᵀU / v_n:
 
 The NLL goes through the two kernels (`ops.factor_prep` →
 `ops.woodbury_nll_core`). The R×R Cholesky and triangular solves of the
-factorization and the predictive posterior use torch.linalg, as the JAX
-package leaves them to XLA; the Gram and projection there are plain products.
+factorization, the predictive posterior and the streaming update
+(`extend_posterior_core`) use torch.linalg, as the JAX package leaves them
+to XLA; the Gram and projection there are plain products (`ops.gram` and
+`ops.matmul_tn` have no Pallas kernel in the JAX package).
 """
 
 from __future__ import annotations
@@ -118,6 +120,32 @@ def posterior_core(factors: GPFactors, Z: torch.Tensor) -> PosteriorCore:
                          v_noise=factors.v_noise)
 
 
+def extend_posterior_core(core: PosteriorCore, Vs_new, v_sigs, Z_new: torch.Tensor) -> PosteriorCore:
+    """Fold n new observed rows (scaled features U₊, latents Z₊) into the
+    core without the original training set, in O(n·R² + R³):
+
+        G' = G + U₊ᵀU₊,   B' = I + G'/v_n,   M' = B'⁻¹ (B·M + U₊ᵀZ₊/v_n)
+
+    since B·M = UᵀZ/v_n. Equal, up to rounding, to refactorizing over the
+    union of all rows; v_n and the variances stay fixed (conditioning, not
+    training)."""
+    U_new = scaled_features(_as_list(Vs_new), _as_list(v_sigs))
+    R = core.G.shape[0]
+    if U_new.shape[1] != R:
+        raise ValueError(
+            f"new rows build rank {U_new.shape[1]} features but the core "
+            f"is rank {R}; pass the feature config the core was built with"
+        )
+    G2 = core.G + U_new.T @ U_new
+    B2 = torch.eye(R, dtype=G2.dtype, device=G2.device) + G2 / core.v_noise
+    Lb2 = torch.linalg.cholesky(B2)
+    # B·M recovers UᵀZ/v_n from the old core; add the new rows' projection
+    rhs = (core.M + core.G @ core.M / core.v_noise
+           + U_new.T @ Z_new.to(U_new.dtype) / core.v_noise)
+    M2 = torch.cholesky_solve(rhs, Lb2, upper=False)
+    return PosteriorCore(M=M2, G=G2, Lb=Lb2, v_noise=core.v_noise)
+
+
 def predict_from_core(V_star, core: PosteriorCore, v_sigs, *, return_var: bool = False):
     """Predictive mean z* = U* M (and the per-row variance
     u*ᵀu* + v_n − u*ᵀ G B⁻¹ u* / v_n) for new rows."""
@@ -129,6 +157,20 @@ def predict_from_core(V_star, core: PosteriorCore, v_sigs, *, return_var: bool =
     quad = torch.sum(U_star.T * (core.G @ Y), dim=0) / core.v_noise
     var = torch.sum(U_star * U_star, dim=1) + core.v_noise - quad
     return mean, var
+
+
+def predict_cov_from_core(V_star, core: PosteriorCore, v_sigs):
+    """Joint predictive posterior over a request batch: mean (n, L) and the
+    full n×n covariance shared by the L latent dims,
+
+        Cov = U* U*ᵀ + v_n I − U* G B⁻¹ U*ᵀ / v_n = U* B⁻¹ U*ᵀ + v_n I,
+
+    whose diagonal is predict_from_core's variance."""
+    U_star = scaled_features(_as_list(V_star), _as_list(v_sigs))
+    mean = U_star @ core.M
+    Y = torch.cholesky_solve(U_star.T, core.Lb, upper=False)  # B⁻¹ U*ᵀ
+    eye = torch.eye(U_star.shape[0], dtype=U_star.dtype, device=U_star.device)
+    return mean, U_star @ Y + core.v_noise * eye
 
 
 def predict_latents(V_star, factors: GPFactors, Z: torch.Tensor, v_sigs, *,

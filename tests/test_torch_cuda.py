@@ -126,6 +126,58 @@ class _Quiet:
         pass
 
 
+def test_serving_on_card_matches_cpu_float64(gen):
+    """A state folded on the card from a model trained there (rbf kernel,
+    extra object effect) serves the held-out cells: images within 1e-5 and
+    variances within rel 1e-5 of the same fold and prediction in float64 on
+    the CPU; no kernel launches on the serving path; every state tensor on
+    the card; the sustained-throughput chain returns a positive rate."""
+    import copy
+
+    from gppvae_tpu_torch.eval import serving
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ds = build_rotated_digits("synthetic", num_objects=10, num_views=8, seed=7)
+    cfg = train_gppvae.GPPVAETrainConfig(
+        zdim=6, epochs=1, batch_size=16, obj_feature_dim=4, view_num_freqs=2,
+        enc_features=(8, 16), dec_features=(16, 8), object_kernel="rbf", rff_features=8,
+        extra_effects=("object",))
+    res = train_gppvae.train_gppvae(ds, cfg, device="cuda", log=_Quiet())
+    d, extra = res.data, cfg.extra_effects
+    params = {"vae": res.model.state_dict(),
+              "gp": {k: v.detach() for k, v in res.gp_params.items()}}
+    ops.reset_launch_counts()
+    state = serving.build_server_state(res.model, params, None, d["images_tr"], d["d_tr"],
+                                       d["q_tr"], x_map=res.x_map, extra_effects=extra)
+    y, var = serving.predict_images(res.model, state, d["d_ho"], d["q_ho"], x_map=res.x_map,
+                                    extra_effects=extra, return_var=True)
+    torch.cuda.synchronize()
+    assert set(ops.launch_counts().values()) == {0}
+    assert all(t.is_cuda for t in (*state.core, state.X, state.W, state.v_sig,
+                                   *state.vae_params.values()))
+
+    cpu = copy.deepcopy(res.model).cpu().double()
+    cpu.dtype = torch.float64
+
+    def f64(tree):
+        return {k: v.detach().cpu().double() for k, v in tree.items()}
+
+    s64 = serving.build_server_state(cpu, {"vae": f64(params["vae"]), "gp": f64(params["gp"])},
+                                     None, d["images_tr"].cpu().double(), d["d_tr"].cpu(),
+                                     d["q_tr"].cpu(), x_map=res.x_map, extra_effects=extra)
+    y64, var64 = serving.predict_images(cpu, s64, d["d_ho"].cpu(), d["q_ho"].cpu(),
+                                        x_map=res.x_map, extra_effects=extra, return_var=True)
+    assert float((y.cpu().double() - y64).abs().max()) <= 1e-5
+    assert _rel_err(var.cpu().double(), var64) <= 1e-5
+
+    rate = serving._sustained_throughput(
+        lambda dd, qq: serving.predict_images(res.model, state, dd, qq, x_map=res.x_map,
+                                              extra_effects=extra),
+        d["d_ho"], d["q_ho"], 10, 8, 3)
+    assert rate["sustained_images_per_sec"] > 0
+
+
 @pytest.mark.parametrize("r", [8, 600])  # each driver
 def test_non_positive_pivot_gives_nan(gen, r):
     G = -4.0 * torch.eye(r, device="cuda")  # B = I + G/vn has negative pivots

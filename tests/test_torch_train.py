@@ -239,6 +239,12 @@ def test_package_imports_no_jax(tmp_path):
         " + ['--outdir', sys.argv[1]])\n"
         f"train_gppvae.main({[*GOLDEN_CLI, '--epochs', '1', '--xdim', '4', '--view_freqs', '2', '--object_kernel', 'rbf-nystrom', '--extra_effects', 'object', '--dtype', 'bfloat16', '--dec_upsample', 'subpixel']!r}"
         " + ['--outdir', sys.argv[1] + '/options'])\n"
+        "from gppvae_tpu_torch.eval import generate, serving\n"
+        "for run in (sys.argv[1], sys.argv[1] + '/options'):\n"
+        "    generate.main(['--state', run + '/final_params.pt', '--device', 'cpu',\n"
+        "                   '--export_server', run + '/m.srv'])\n"
+        "    serving.main(['--state', run + '/m.srv', '--device', 'cpu', '--requests',\n"
+        "                  '1:2,3:0', '--sample', '2', '--joint', '--outdir', run + '/served'])\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax', 'optax')))\n"
         "assert not bad, bad\n"
         "ref = sorted(m for m in sys.modules if m == 'gppvae_tpu' or m.startswith('gppvae_tpu.'))\n"
@@ -250,6 +256,7 @@ def test_package_imports_no_jax(tmp_path):
                          cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "NO_JAX_OK" in out.stdout
+    assert (tmp_path / "options" / "served" / "served.npz").is_file()
 
     # and no source of the port, nor chip_smoke.py, names the JAX package
     sources = [*sorted((REPO / "gppvae_tpu_torch").rglob("*.py")), REPO / "chip_smoke.py"]
