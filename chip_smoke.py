@@ -51,21 +51,40 @@ Phases, one per printed line group; any failure ends the run non-zero:
      none (the JAX package's gram and matmul_tn have no Pallas kernel). Prints
      fold_s (build_server_state alone), the observe fold_s, latency_s and
      the two rates per run;
-  7. the `kernels` line (each kernel at the main path's shape, launches
-     summed over the training paths 4, 5a-d), then the last line:
+  7. resume at the slice's width: --dtype bfloat16 --polish_epochs 2, 4
+     epochs with --checkpoint_every 1 --panel_every 1, then the same run
+     resumed from state_0002 (the float32 switch: both Adams restart) and
+     from state_0003 (inside the window: they do not); every history key
+     agrees with the uninterrupted run (rtol 1e-4), the panels and states
+     are on disk, each kernel is launched once per epoch actually run, and
+     a 1-epoch run with --profile_dir leaves a Chrome trace with CUDA
+     kernel events;
+  8. the accuracy protocol, validate_torch.run_validation(device="cuda") at
+     its own depth (60 pretrain + 150 epochs; 180 real digits × 16 views,
+     32², zdim 16, the published encoder and decoder, bs 128): the two
+     trivial baselines against the JAX package's recorded values (1e-6),
+     verdict PASS, the ordering joint, dis < LIVAE < per-view-mean < CVAE <
+     train-mean, no kernel launch in the VAE, LIVAE and CVAE stages and one
+     of each kernel per epoch in dis and joint; then train-cvae for 2
+     epochs at the same width through its main(argv);
+  9. the `kernels` line (each kernel at the main path's shape, launches
+     summed over the training paths 4, 5a-d, 7, 8), then the last line:
      {"ok": true, "device": ...}.
 
-Every path (4, 5a-d, and 6 per run) sets the kernels' counts to 0 just
-before it and reads them just after.
+Every path (4, 5a-d, 6 per run, each run of 7, 8) sets the kernels' counts
+to 0 just before it and reads them just after.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gzip
 import io
 import json
 import math
 import statistics
+import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -109,6 +128,19 @@ FACES_ARGS = ["--data", "faces", "--num_objects", "50", "--num_views", "8",
               "--device", "cuda", "--dec_upsample", "subpixel", "--object_kernel", "rbf",
               "--rff_features", "32", "--extra_effects", "object", "--learn_sigma_y",
               "--grad_accum_steps", "2", "--refresh_every_steps", "3"]
+
+
+# path 7: the history keys a resumed run is held to, and the bound (float32
+# epochs on the card; cuDNN's backward may sum in another order run to run)
+RESUME_KEYS = ("loss", "recon_term", "gp_term", "pen_term", "gp_nll_full", "oos_mse")
+RESUME_REL_BOUND = 1e-4
+# path 8: the JAX package's recorded trivial baselines on the same dataset
+# (functions of the data and the split alone), and the protocol's depth
+BASELINE_TRAIN_MEAN, BASELINE_PER_VIEW_MEAN = 0.0625584, 0.0166757
+BASELINE_ABS_BOUND = 1e-6
+PROTOCOL_PRETRAIN, PROTOCOL_EPOCHS = 60, 150
+PROTOCOL_ARGS = ["--data", "sklearn", "--num_objects", "180", "--num_views", "16",
+                 "--seed", "0", "--device", "cuda"]
 
 
 def say(*parts) -> None:
@@ -691,6 +723,130 @@ def path_serving(runs: dict) -> None:
         say(f"6 serving {label} numbers: {json.dumps(numbers)}")
 
 
+def path_resume(tmp: str) -> list[dict]:
+    """Path 7: an uninterrupted bf16 run with a 2-epoch float32 polish tail
+    against the same run resumed at the switch and inside the window, and a
+    profiled epoch. Returns each run's counts."""
+    from gppvae_tpu_torch.train import train_gppvae, train_vae
+    from gppvae_tpu_torch.utils.profiling import TRACE_FILE
+
+    say("== 7 resume (P=400, Q=16, bf16, --polish_epochs 2, 4 epochs): uninterrupted vs "
+        "resumed from state_0002 (the switch) and state_0003 (inside the window)")
+    common = [*SLICE_ARGS, "--mode", "joint", "--dtype", "bfloat16", "--polish_epochs", "2",
+              "--vae_weights", f"{tmp}/vae/{train_vae.WEIGHTS_FILE}"]
+    out = f"{tmp}/resume"
+    full, c_full = drive("7 uninterrupted", lambda: train_gppvae.main([
+        *common, "--epochs", "4", "--checkpoint_every", "1", "--panel_every", "1",
+        "--outdir", out]))
+    report(full.history)
+    files = sorted(os.listdir(out))
+    say(f"7 artifacts: {files}")
+    want = ([f"panel_{e:04d}.png" for e in range(4)] + ["final_state", "final_params.pt"]
+            + [f for e in (1, 2, 3) for f in (f"state_{e:04d}", f"state_{e:04d}.format.json")])
+    check(all(f in files for f in want), f"7: panels and states on disk ({want})")
+    all_counts = [c_full]
+    nb = -(-full.data["images_tr"].shape[0] // full.config.batch_size)
+    for start, label in ((2, "boundary"), (3, "mid-polish")):
+        res, counts = drive(f"7 resumed from state_{start:04d} ({label})",
+                            lambda: train_gppvae.main([
+                                *common, "--epochs", "4", "--resume", f"{out}/state_{start:04d}",
+                                "--outdir", f"{tmp}/resume_{start}"]))
+        all_counts.append(counts)
+        epochs = [h["epoch"] for h in res.history]
+        check(epochs == list(range(start, 4)), f"7 {label}: ran epochs {list(range(start, 4))}")
+        check(res.model.dtype == torch.float32, f"7 {label}: the polish tail runs float32")
+        worst = max(abs(a[k] - b[k]) / abs(b[k])
+                    for a, b in zip(res.history, full.history[start:]) for k in RESUME_KEYS)
+        steps = (res.optimizers["vae"].steps, res.optimizers["gp"].steps)
+        say(f"7 {label}: epochs {epochs}, worst relative difference over {RESUME_KEYS} "
+            f"{worst:.3e} (bound {RESUME_REL_BOUND:.0e}); Adam steps {steps} "
+            f"(two float32 epochs = {2 * nb})")
+        check(worst <= RESUME_REL_BOUND, f"7 {label}: resumed = uninterrupted")
+        check(steps == (2 * nb, 2 * nb), f"7 {label}: Adam steps counted from the switch")
+        check(counts["launch_factor_prep.launches"] == 4 - start
+              and counts["launch_nll_core.launches"] == 4 - start,
+              f"7 {label}: each kernel launched once per epoch run")
+    check(c_full["launch_factor_prep.launches"] == 4 and c_full["launch_nll_core.launches"] == 4,
+          "7 uninterrupted: each kernel launched once per epoch")
+
+    _, c_prof = drive("7 profiled epoch", lambda: train_gppvae.main([
+        *common, "--epochs", "1", "--profile_dir", f"{tmp}/trace", "--panel_every", "0",
+        "--outdir", f"{tmp}/profiled"]))
+    trace = f"{tmp}/trace/{TRACE_FILE}"
+    with gzip.open(trace, "rt") as f:
+        kernels = len(re.findall(r'"cat":\s*"kernel"', f.read()))
+    say(f"7 --profile_dir: {TRACE_FILE} {os.path.getsize(trace)} bytes for one epoch, "
+        f"{kernels} CUDA kernel events")
+    check(kernels > 0, "7: the trace holds CUDA kernel events")
+    check(c_prof["launch_factor_prep.launches"] == 1 and c_prof["launch_nll_core.launches"] == 1,
+          "7 profiled: each kernel launched once")
+    return [*all_counts, c_prof]
+
+
+def path_protocol(tmp: str) -> dict:
+    """Path 8: the accuracy protocol on the card, then train-cvae through
+    its CLI. Returns the protocol's counts."""
+    import validate_torch
+    from gppvae_tpu_torch import ops
+    from gppvae_tpu_torch.train import train_cvae
+
+    say(f"== 8 accuracy protocol: validate_torch.run_validation, {PROTOCOL_PRETRAIN} pretrain + "
+        f"{PROTOCOL_EPOCHS} epochs, 180 digits × 16 views, f32")
+    lines, launches_at, wall_at = [], {}, {}
+
+    def emit(line: str, flush: bool = True) -> None:
+        rec = json.loads(line)
+        lines.append(rec)
+        if "model" in rec:
+            launches_at[rec["model"]] = ops.launch_counts()["launch_nll_core.launches"]
+            wall_at[rec["model"]] = time.perf_counter() - t0
+        say(f"  {line}")
+
+    t0 = time.perf_counter()
+    summary, counts = drive("8 protocol", lambda: validate_torch.run_validation(
+        epochs=PROTOCOL_EPOCHS, pretrain=PROTOCOL_PRETRAIN, emit=emit, device="cuda"))
+    say(f"8 protocol: wall {time.perf_counter() - t0:.1f} s; nll_core launches after each "
+        f"model {launches_at}")
+    # each trained stage's wall seconds (set-up and its evaluation included) per epoch
+    stages = (("vae_pretrain", "baseline_per_view_mean", PROTOCOL_PRETRAIN),
+              ("cvae", "livae", PROTOCOL_PRETRAIN + PROTOCOL_EPOCHS),
+              ("gppvae_dis", "cvae", PROTOCOL_EPOCHS),
+              ("gppvae_joint", "gppvae_dis", PROTOCOL_EPOCHS))
+    say("8 protocol: wall s / epochs per stage: " + ", ".join(
+        f"{m} {wall_at[m] - wall_at[prev]:.2f} / {n} = {(wall_at[m] - wall_at[prev]) / n:.4f}"
+        for m, prev, n in stages))
+    s = summary
+    check(abs(s["baseline_train_mean"] - BASELINE_TRAIN_MEAN) <= BASELINE_ABS_BOUND
+          and abs(s["baseline_per_view_mean"] - BASELINE_PER_VIEW_MEAN) <= BASELINE_ABS_BOUND,
+          "8: the trivial baselines equal the JAX package's recorded values")
+    check(s["verdict"] == "PASS", "8: verdict PASS")
+    order = [max(s["gppvae_joint_oos_mse"], s["gppvae_dis_oos_mse"]), s["livae_oos_mse"],
+             s["baseline_per_view_mean"], s["cvae_oos_mse"], s["baseline_train_mean"]]
+    check(order == sorted(order), f"8: joint, dis < LIVAE < per-view-mean < CVAE < train-mean "
+          f"({order})")
+    check(launches_at["vae_pretrain"] == launches_at["livae"] == launches_at["cvae"] == 0,
+          "8: VAE, LIVAE and CVAE launch no kernel")
+    e = PROTOCOL_EPOCHS
+    check(launches_at["gppvae_dis"] == e and launches_at["gppvae_joint"] == 2 * e
+          and counts["launch_factor_prep.launches"] == 2 * e,
+          "8: dis and joint launch each kernel once per epoch")
+    check(len(lines) == 8, "8: seven model lines and the summary")
+
+    say("== 8b train-cvae, 2 epochs at the protocol's width, through its main(argv)")
+    res, c = drive("8b train-cvae", lambda: train_cvae.main([
+        *PROTOCOL_ARGS, "--epochs", "2", "--lr", "1e-3", "--outdir", f"{tmp}/cvae"]))
+    for h in res.history:
+        say("  " + json.dumps(h))
+    check(all(math.isfinite(v) for h in res.history for v in h.values() if isinstance(v, float)),
+          "8b: every metric is finite")
+    check(res.history[-1]["loss"] < res.history[0]["loss"], "8b: the loss falls")
+    check(set(c.values()) == {0}, "8b: the CVAE launches no kernel")
+    check(all(os.path.exists(f"{tmp}/cvae/{f}") for f in
+              (train_cvae.WEIGHTS_FILE, "final_state", "oos_panel.png", "metrics.jsonl")),
+          "8b: cvae_weights.pt, final_state, oos_panel.png, metrics.jsonl on disk")
+    return counts
+
+
 def main() -> None:
     kind = phase_environment()
     phase_build()
@@ -701,6 +857,7 @@ def main() -> None:
         c5b, r5b = path_faces(tmp)
         paths = [c4, c5a, c5b, path_nystrom(), path_large_rank()]
         path_serving({"4 slice": r4, "5a headline": r5a, "5b faces": r5b})
+        paths += [*path_resume(tmp), path_protocol(tmp)]
     sources = {
         "factor_prep": ("gppvae_tpu_torch/csrc/factor_prep.cu",
                         "gppvae_tpu/ops/pallas_gemm.py:162", "launch_factor_prep.launches"),

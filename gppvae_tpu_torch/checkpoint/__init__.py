@@ -1,8 +1,9 @@
 """The port's checkpoint format: nested dicts of tensors through torch.save,
 with a format-version sidecar (counterpart of gppvae_tpu.checkpoint).
 
-Resume from a full train state is not ported yet (ROADMAP); the serving
-artifact (eval/serving.py) is written through save_tree.
+The trainers' states (train_gppvae's state_NNNN and final_state, which
+`--resume` reads; train_vae's and train_cvae's final_state) and the serving
+artifact (eval/serving.py) are written through save_tree.
 """
 
 from gppvae_tpu_torch.checkpoint.tree_io import (

@@ -5,8 +5,10 @@ The flax tree (as numpy arrays) is
 optionally under a top-level "params". Conv kernels go HWIO → OIHW, Dense
 kernels (in, out) → Linear (out, in). The encoder's flatten order (H, W, C)
 and the decoder's (h, w, c) reshape are kept by models/vae.py itself, so no
-dense weight is permuted. `server_state_from_numpy` carries a JAX server
-state over whole.
+dense weight is permuted. A flax CVAE tree has the same layer names (its
+first encoder conv has C + Q input channels, its first decoder dense
+zdim + Q inputs) and converts by the same rules. `server_state_from_numpy`
+carries a JAX server state over whole.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ def _torch_name(part: str, layer: str, n_convs: int) -> str:
 
 
 def flax_to_state_dict(tree: Mapping) -> dict[str, torch.Tensor]:
-    """VAE state_dict (float32 CPU tensors) from a flax VAE param tree."""
+    """VAE (or CVAE) state_dict, float32 CPU tensors, from the flax param tree."""
     tree = tree.get("params", tree)
     sd = {}
     for part in ("encoder", "decoder"):
@@ -43,6 +45,9 @@ def flax_to_state_dict(tree: Mapping) -> dict[str, torch.Tensor]:
             sd[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(w))
             sd[f"{name}.bias"] = torch.from_numpy(np.asarray(p["bias"], np.float32).copy())
     return sd
+
+
+cvae_state_dict_from_flax = flax_to_state_dict  # same layer names, same rules
 
 
 def state_dict_to_flax(sd: Mapping[str, torch.Tensor]) -> dict:

@@ -11,8 +11,15 @@ Pluggable pixel sources (this environment has no network and no bundled
 MNIST, SURVEY.md §6 note):
 
   * 'mnist:<dir>'  — real MNIST idx files on disk (the reference's source)
-  * 'sklearn'      — scikit-learn's bundled 8×8 handwritten digits, upscaled
-                     (real data, always available offline)
+  * 'sklearn'      — the 1,797 8×8 handwritten digits that scikit-learn's
+                     `load_digits()` returns, upscaled (real data, always
+                     available offline). The port reads its own copy,
+                     `digits8x8.npz` beside this module (uint8 `images`
+                     (1797, 8, 8) in 0..16 and `target`), and does not import
+                     scikit-learn. Origin: the test set of the UCI "Optical
+                     Recognition of Handwritten Digits" data (Alpaydin and
+                     Kaynak, 1998), as shipped by scikit-learn
+                     (sklearn/datasets/data/digits.csv.gz, BSD-3-Clause)
   * 'synthetic'    — procedural glyph renderer, deterministic per seed, any
                      number of instances (benchmark-shape fidelity at N=6400)
 
@@ -63,11 +70,12 @@ def synthetic_digit3(num_instances: int, seed: int, hw: int = 28) -> np.ndarray:
     return out
 
 
-def _sklearn_digits(digit: int, num_instances: int) -> np.ndarray:
-    from sklearn.datasets import load_digits
+DIGITS_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "digits8x8.npz")
 
-    data = load_digits()
-    imgs = data.images[data.target == digit].astype(np.float32) / 16.0
+
+def _sklearn_digits(digit: int, num_instances: int) -> np.ndarray:
+    with np.load(DIGITS_FILE) as data:
+        imgs = data["images"][data["target"] == digit].astype(np.float32) / 16.0
     if len(imgs) < num_instances:
         reps = -(-num_instances // len(imgs))
         imgs = np.tile(imgs, (reps, 1, 1))

@@ -1,5 +1,5 @@
 """Evaluation: out-of-sample conditional generation, pixel MSE, image
-panels and the serving path. Mirrors gppvae_tpu.eval, less its
+panels, history plots (plots.py) and the serving path. Mirrors gppvae_tpu.eval, less its
 compiled-program names (not ported yet)."""
 
 from gppvae_tpu_torch.eval.oos import oos_predict_images, pixel_mse, predict_heldout

@@ -171,3 +171,14 @@ def encode_all(model: VAE, images: torch.Tensor, chunk: int) -> torch.Tensor:
     """Grad-free latent means of every row, `chunk` rows at a time (Phase A)."""
     return torch.cat([model.encode(images[s:s + chunk])[0]
                       for s in range(0, images.shape[0], chunk)])
+
+
+@torch.no_grad()
+def sample_reconstruction(model: VAE, y: torch.Tensor, seed: int, epoch: int) -> torch.Tensor:
+    """sigmoid(decode(z)) of z ~ q(z | y), for a trainer's image panel. ε
+    comes from a generator of its own keyed by (seed, epoch), so that a
+    panel never advances the stream the training draws come from."""
+    generator = torch.Generator().manual_seed(seed * 1_000_003 + epoch + 1)
+    mu, logvar = model.encode(y)
+    eps = torch.randn(mu.shape, generator=generator).to(mu.device)
+    return torch.sigmoid(model.decode(mu + torch.exp(0.5 * logvar) * eps))

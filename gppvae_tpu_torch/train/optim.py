@@ -59,6 +59,31 @@ class GuardedAdam:
     def zero_grad(self) -> None:
         self.adam.zero_grad(set_to_none=True)
 
+    def state_dict(self) -> dict:
+        """Everything the next call reads: Adam's moments and step counts,
+        the position inside an accumulation window with its running mean,
+        and the counters."""
+        return {
+            "adam": self.adam.state_dict(),
+            "mini_step": self.mini_step,
+            "acc": None if self.acc is None else [a.clone() for a in self.acc],
+            "notfinite_count": self.notfinite_count,
+            "steps": self.steps,
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        # the learning rate stays this optimizer's own (optax keeps it
+        # outside its state)
+        lr = self.adam.param_groups[0]["lr"]
+        self.adam.load_state_dict(state["adam"])
+        for group in self.adam.param_groups:
+            group["lr"] = lr
+        self.mini_step = int(state["mini_step"])
+        self.acc = None if state["acc"] is None else [
+            a.to(device=p.device, dtype=p.dtype) for a, p in zip(state["acc"], self.params)]
+        self.notfinite_count = int(state["notfinite_count"])
+        self.steps = int(state["steps"])
+
     @torch.no_grad()
     def step(self) -> bool:
         """Accumulate, or clip and apply; True if the parameters moved."""

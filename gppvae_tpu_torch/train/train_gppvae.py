@@ -28,7 +28,11 @@ also takes injected initial params (with the RFF draws and Nyström
 landmarks) and a `draws(epoch)` callable, so that a test can feed it the
 JAX trainer's own draws. `outdir` receives config.json (the config and the
 dataset it ran on), metrics.jsonl and final_params.pt, which `load_final`
-reads back.
+reads back; panel_NNNN.png every panel_every epochs; and the whole train
+state (`_train_state`) as state_NNNN every checkpoint_every epochs and as
+final_state at the end, either of which `resume` continues from: the
+interrupted and resumed run equals the uninterrupted one epoch by epoch.
+`profile_dir` wraps the epochs in a torch.profiler trace.
 """
 
 from __future__ import annotations
@@ -43,11 +47,13 @@ import numpy as np
 import torch
 
 from gppvae_tpu_torch import gp
+from gppvae_tpu_torch.checkpoint import CheckpointFormatError, load_tree, save_tree
 from gppvae_tpu_torch.config import build_dataset_from_flag
 from gppvae_tpu_torch.convert import gp_params_from_numpy
 from gppvae_tpu_torch.data import GridDataset
 from gppvae_tpu_torch.eval.oos import predict_heldout
-from gppvae_tpu_torch.models import UPSAMPLES, VAE, encode_all
+from gppvae_tpu_torch.eval.panels import save_panel
+from gppvae_tpu_torch.models import UPSAMPLES, VAE, encode_all, sample_reconstruction
 from gppvae_tpu_torch.train.batching import epoch_batches, masked_means, num_batches
 from gppvae_tpu_torch.train.device import (
     COMPUTE_DTYPES,
@@ -63,19 +69,21 @@ from gppvae_tpu_torch.train.losses import (
 )
 from gppvae_tpu_torch.train.optim import GuardedAdam, resolve_grad_accum
 from gppvae_tpu_torch.utils import MetricsLogger
+from gppvae_tpu_torch.utils.profiling import maybe_trace
 
 _METRIC_KEYS = (
     "loss", "recon_term", "gp_term", "pen_term", "mse",
     "gp_nll_full", "v_sig", "v_noise", "oos_mse",
 )
 FINAL_PARAMS_FILE = "final_params.pt"
-
-# options of the JAX trainer the port does not carry yet: each raises when
-# set away from this default (ROADMAP "Left to port")
-_UNPORTED = {
-    "resume": None,
-    "profile_dir": None,
-}
+FINAL_STATE_FILE = "final_state"
+# the config fields that shape a tensor of the train state: a resume under
+# another value of one of them is refused by name
+_SHAPE_FIELDS = (
+    "mode", "zdim", "enc_features", "dec_features", "obj_feature_dim", "view_num_freqs",
+    "view_feature_dim", "object_kernel", "rff_features", "nystrom_rank", "extra_effects",
+    "learn_sigma_y",
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,10 +117,12 @@ class GPPVAETrainConfig:
     grad_accum_steps: int = 1  # Adam step every k minibatches; -1 = auto
     refresh_every_steps: int = 0  # Phase A+B every k steps (0 = per epoch)
     vae_weights: str | None = None  # train_vae's vae_weights.pt
-    resume: str | None = None
-    profile_dir: str | None = None
+    resume: str | None = None  # a state_NNNN / final_state to continue from
+    profile_dir: str | None = None  # torch.profiler trace of the epochs
     encode_chunk: int = 1024  # Phase-A chunk (activation footprint cap)
     outdir: str | None = None
+    panel_every: int = 0  # epochs between image panels (0 = off)
+    checkpoint_every: int = 0  # epochs between state_NNNN (0 = end only)
     data: str | None = None  # the CLI --data flag, recorded in config.json
 
 
@@ -126,18 +136,6 @@ class GPPVAETrainResult:
     data: dict  # the tensors trained on, on the device: images_tr, d_tr, q_tr, *_ho
     x_map: Callable | None = None  # the object-kernel feature map (gp.make_x_map)
     optimizers: dict | None = None  # {'vae', 'gp'}: the GuardedAdams at the end
-
-
-def _check_ported(config: GPPVAETrainConfig) -> None:
-    if config.mode not in ("joint", "dis"):
-        raise ValueError(f"unknown mode {config.mode!r}; want 'joint' or 'dis'")
-    for name, default in _UNPORTED.items():
-        value = getattr(config, name)
-        if value != default:
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported to gppvae_tpu_torch yet (see "
-                "ROADMAP); the JAX trainer gppvae_tpu.train has it"
-            )
 
 
 def _init_view_features(config: GPPVAETrainConfig, dataset: GridDataset,
@@ -378,9 +376,10 @@ class _Loop:
                                d["q_tr"], d["d_ho"], d["q_ho"], d["y_ho"],
                                x_map=self.x_map, extra_effects=self.config.extra_effects)
 
-    def run_epoch(self, draws: Callable, epoch: int) -> tuple[dict, dict]:
+    def run_epoch(self, draws: Callable, epoch: int) -> tuple[dict, dict, torch.Tensor]:
         """One epoch: Phase A, B, C, then eval, each timed to a device sync.
-        Returns ({_METRIC_KEYS: float}, {phase: seconds})."""
+        Returns ({_METRIC_KEYS: float}, {phase: seconds}, the held-out
+        predictions ŷ)."""
         device = self.data["images_tr"].device
         timer = PhaseTimer(device)
         with timer.phase("A_encode"):
@@ -392,11 +391,11 @@ class _Loop:
             cm = self.minibatch_epoch(coeffs, batches.to(device),
                                       weights.to(device), eps.to(device))
         with timer.phase("eval_oos"):
-            _, oos_mse = self.oos(self.encode())
+            y_pred, oos_mse = self.oos(self.encode())
         row = [*cm.tolist(), float(coeffs.value) / self.num_train,
                math.exp(float(self.gp["log_vs"][0].detach())),  # the product effect
                math.exp(float(self.gp["log_vn"].detach())), float(oos_mse)]
-        return dict(zip(_METRIC_KEYS, row)), timer.seconds
+        return dict(zip(_METRIC_KEYS, row)), timer.seconds, y_pred
 
 
 def make_draws(generator: torch.Generator, num_train: int, bs: int, zdim: int) -> Callable:
@@ -428,6 +427,60 @@ def _write_sidecar(config: GPPVAETrainConfig, dataset: GridDataset, device) -> N
         }, f, indent=1, default=list)
 
 
+def _shape_config(config: GPPVAETrainConfig, dataset: GridDataset) -> dict:
+    """The values a train state's tensors were shaped by."""
+    shape = {k: getattr(config, k) for k in _SHAPE_FIELDS}
+    shape = {k: list(v) if isinstance(v, (tuple, list)) else v for k, v in shape.items()}
+    return {**shape, "num_objects": dataset.num_objects, "num_views": dataset.num_views,
+            "image_shape": list(dataset.image_shape)}
+
+
+def _train_state(loop: _Loop, x_draws: dict | None, generator: torch.Generator,
+                 epoch: int, shape: dict) -> dict:
+    """Everything the next epoch reads, `epoch` epochs done: the VAE, the GP
+    params, both guarded Adams whole, the 'dis' mode's fixed W, the
+    object-kernel draws and landmarks (the run's own, never re-drawn), and
+    the state of the generator that the plans and ε are drawn from in
+    sequence."""
+    return {
+        "vae": loop.model.state_dict(),
+        "gp": dict(loop.gp),
+        "opt_vae": loop.opt_vae.state_dict(),
+        "opt_gp": loop.opt_gp.state_dict(),
+        "fixed_W": loop.fixed_W,
+        "object_kernel": x_draws,
+        "generator": generator.get_state(),
+        "epoch": epoch,
+        "shape": shape,
+    }
+
+
+def _load_resume(path: str, shape: dict, device: torch.device) -> dict:
+    """The train state at `path` (format checked by load_tree), refused by
+    field name if it was written under a config of other shapes."""
+    state = load_tree(path, map_location=device)
+    if not isinstance(state, dict) or not {"shape", "generator", "opt_vae"} <= set(state):
+        raise CheckpointFormatError(
+            f"{path!r} is a tree of this format but not a train state of train_gppvae "
+            "(a state_NNNN or final_state)")
+    differs = [f"{k}: the state has {state['shape'].get(k)!r}, this run {v!r}"
+               for k, v in shape.items() if state["shape"].get(k) != v]
+    if differs:
+        raise ValueError(f"resume {path!r} was written under another configuration ("
+                         + "; ".join(differs) + ")")
+    return state
+
+
+def _save_panel(loop: _Loop, y_pred: torch.Tensor, epoch: int) -> None:
+    """panel_NNNN.png: 8 training images, their reconstructions, 8 held-out
+    images, their predictions (train_gppvae.py:979-991)."""
+    config, d = loop.config, loop.data
+    y = d["images_tr"][:8]
+    recon = sample_reconstruction(loop.model, y, config.seed, epoch)
+    save_panel(os.path.join(config.outdir, f"panel_{epoch:04d}.png"),
+               [t.cpu().numpy() for t in (y, recon, d["y_ho"][:8], y_pred[:8])])
+
+
 def train_gppvae(
     dataset: GridDataset,
     config: GPPVAETrainConfig,
@@ -438,11 +491,22 @@ def train_gppvae(
     log: MetricsLogger | None = None,
 ) -> GPPVAETrainResult:
     """Train; init_params may give 'vae', 'gp', 'rff' = (Ω, b) and
-    'nystrom_idx' in place of the fresh ones (see _setup, _object_kernel)."""
-    _check_ported(config)
-    init_params = init_params or {}
+    'nystrom_idx' in place of the fresh ones (see _setup, _object_kernel).
+    With config.resume, everything comes from that state instead and the
+    run continues at its epoch."""
+    if config.mode not in ("joint", "dis"):
+        raise ValueError(f"unknown mode {config.mode!r}; want 'joint' or 'dis'")
+    init_params = dict(init_params or {})
     device = resolve_device(str(device))
     set_float32_precision(config.compute_dtype)
+    shape = _shape_config(config, dataset)
+    # before any work, and before outdir's files are touched
+    resumed = _load_resume(config.resume, shape, device) if config.resume else None
+    if resumed and resumed["object_kernel"] is not None:
+        ok = resumed["object_kernel"]
+        init_params.update(
+            rff=(ok["omega"].cpu(), ok["phase"].cpu()),
+            nystrom_idx=None if ok["nystrom_idx"] is None else ok["nystrom_idx"].cpu())
     own_log = log is None
     log = log or MetricsLogger(config.outdir)
     if config.outdir:
@@ -454,31 +518,58 @@ def train_gppvae(
     accum = resolve_grad_accum(config.grad_accum_steps, num_train, config.batch_size)
     loop = _Loop(model, gp_params, fixed_W, data, num_train, config,
                  x_map=x_map, accum_steps=accum)
+    start_epoch = 0
+    if resumed:
+        model.load_state_dict(resumed["vae"])
+        with torch.no_grad():
+            for k, v in gp_params.items():
+                v.copy_(resumed["gp"][k])
+        if fixed_W is not None:
+            loop.fixed_W = fixed_W = resumed["fixed_W"]
+        loop.opt_vae.load_state_dict(resumed["opt_vae"])
+        loop.opt_gp.load_state_dict(resumed["opt_gp"])
+        # the plans and ε come in sequence from one generator, which _setup
+        # has advanced: continue where the interrupted run's stream stood
+        gen.set_state(resumed["generator"].cpu())
+        start_epoch = int(resumed["epoch"])
     draws = draws or make_draws(gen, num_train, config.batch_size, config.zdim)
 
     # the float32 polish tail (train_gppvae.py:799-847). Both Adams restart
-    # at the switch only when a bulk phase ran and this run crosses it;
-    # start_epoch is where a resumed run would start (resume is not ported)
+    # at the switch when a bulk phase ran and this run crosses it, which
+    # includes a resume at the boundary itself; a run resumed inside the
+    # window is float32 from its first epoch and keeps the state's Adams,
+    # which restarted before that state was written
     polish = _polish_epochs(config)
     bulk_end = config.epochs - polish
-    start_epoch = 0
-    crosses_switch = start_epoch <= bulk_end
+    if polish and start_epoch > bulk_end:
+        model.dtype = torch.float32
     history: list[dict] = []
-    for epoch in range(start_epoch, config.epochs):
-        if polish and epoch == bulk_end:
-            model.dtype = torch.float32
-            if bulk_end > 0 and crosses_switch:
-                loop.restart_optimizers()
-        metrics, seconds = loop.run_epoch(draws, epoch)
-        rec = {
-            "driver": f"train_gppvae[{config.mode}]",
-            "epoch": epoch,
-            **metrics,
-            "sec_epoch": sum(seconds.values()),
-            **{f"sec_{k}": v for k, v in seconds.items()},
-        }
-        log.log(rec)
-        history.append(rec)
+    with maybe_trace(config.profile_dir, device):
+        for epoch in range(start_epoch, config.epochs):
+            if polish and epoch == bulk_end:
+                model.dtype = torch.float32
+                if bulk_end > 0:
+                    loop.restart_optimizers()
+            metrics, seconds, y_pred = loop.run_epoch(draws, epoch)
+            rec = {
+                "driver": f"train_gppvae[{config.mode}]",
+                "epoch": epoch,
+                **metrics,
+                "sec_epoch": sum(seconds.values()),
+                **{f"sec_{k}": v for k, v in seconds.items()},
+            }
+            log.log(rec)
+            history.append(rec)
+            if config.outdir:
+                # one epoch per iteration, so the JAX trainer's dispatch
+                # window (train_gppvae.py:970-975) is the plain epoch % every
+                last = epoch == config.epochs - 1
+                if config.panel_every and (epoch % config.panel_every == 0 or last):
+                    _save_panel(loop, y_pred, epoch)
+                if (config.checkpoint_every and epoch % config.checkpoint_every == 0
+                        and not last):
+                    save_tree(os.path.join(config.outdir, f"state_{epoch + 1:04d}"),
+                              _train_state(loop, x_draws, gen, epoch + 1, shape))
 
     if config.outdir:
         torch.save(
@@ -489,6 +580,8 @@ def train_gppvae(
              {k: None if v is None else v.cpu() for k, v in x_draws.items()}},
             os.path.join(config.outdir, FINAL_PARAMS_FILE),
         )
+        save_tree(os.path.join(config.outdir, FINAL_STATE_FILE),
+                  _train_state(loop, x_draws, gen, config.epochs, shape))
     if own_log:
         log.close()
     return GPPVAETrainResult(model=model, gp_params=gp_params, fixed_W=fixed_W,
@@ -576,6 +669,14 @@ def main(argv=None) -> GPPVAETrainResult:
     p.add_argument("--dec_features", default="128,64,32")
     p.add_argument("--encode_chunk", type=int, default=1024)
     p.add_argument("--image_size", type=int, default=None)
+    p.add_argument("--panel_every", type=int, default=10,
+                   help="epochs between panel_NNNN.png (0 = off)")
+    p.add_argument("--checkpoint_every", type=int, default=0,
+                   help="epochs between state_NNNN checkpoints (0 = final_state only)")
+    p.add_argument("--resume", default=None,
+                   help="a state_NNNN or final_state to continue from, up to --epochs")
+    p.add_argument("--profile_dir", default=None,
+                   help="write a torch.profiler Chrome trace of the epochs here")
     args = p.parse_args(argv)
     device = resolve_device(args.device)
     ds = build_dataset_from_flag(args.data, args.num_objects, args.num_views,
@@ -597,7 +698,9 @@ def main(argv=None) -> GPPVAETrainResult:
         enc_features=tuple(int(f) for f in args.enc_features.split(",")),
         dec_features=tuple(int(f) for f in args.dec_features.split(",")),
         encode_chunk=args.encode_chunk, vae_weights=args.vae_weights,
-        outdir=args.outdir, data=args.data,
+        resume=args.resume, profile_dir=args.profile_dir,
+        outdir=args.outdir, panel_every=args.panel_every,
+        checkpoint_every=args.checkpoint_every, data=args.data,
     )
     return train_gppvae(ds, config, device=device)
 

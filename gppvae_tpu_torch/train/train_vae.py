@@ -2,7 +2,10 @@
 
 Counterpart of gppvae_tpu/train/train_vae.py. Writes `vae_weights.pt` (the
 VAE state_dict, via torch.save) into --outdir: the handoff that
-train_gppvae's --vae_weights reads.
+train_gppvae's --vae_weights reads. Beside it: `final_state` (weights, Adam
+state and epoch, the checkpoint format), `panel_NNNN.png` every
+--panel_every epochs (8 validation images over their reconstructions) and
+`vae_weights_NNNN.pt` every --checkpoint_every epochs.
 
     python -m gppvae_tpu_torch.train.train_vae --data synthetic \
         --outdir out/vae --device cuda
@@ -17,9 +20,11 @@ from typing import Sequence
 
 import torch
 
+from gppvae_tpu_torch.checkpoint import save_tree
 from gppvae_tpu_torch.config import build_dataset_from_flag
 from gppvae_tpu_torch.data import GridDataset
-from gppvae_tpu_torch.models import UPSAMPLES, VAE
+from gppvae_tpu_torch.eval.panels import save_panel
+from gppvae_tpu_torch.models import UPSAMPLES, VAE, sample_reconstruction
 from gppvae_tpu_torch.train.batching import epoch_batches, masked_means, num_batches
 from gppvae_tpu_torch.train.device import (
     COMPUTE_DTYPES,
@@ -52,6 +57,8 @@ class VAETrainConfig:
     sat_penalty: float = 1.0  # saturation-death barrier weight (<=0 off)
     dec_upsample: str = "resize"  # 'resize' | 'subpixel' (same forward and params)
     outdir: str | None = None
+    panel_every: int = 0  # epochs between image panels (0 = off)
+    checkpoint_every: int = 0  # epochs between vae_weights_NNNN.pt (0 = end only)
 
 
 @dataclasses.dataclass
@@ -127,14 +134,34 @@ def train_vae(
         rec["sec_epoch"] = time.perf_counter() - t0
         log.log(rec)
         history.append(rec)
+        if config.outdir:
+            _epoch_artifacts(model, images[(val_idx if len(val_idx) else train_idx)[:8]],
+                             config, epoch)
 
     if config.outdir:
-        os.makedirs(config.outdir, exist_ok=True)
-        torch.save({k: v.cpu() for k, v in model.state_dict().items()},
-                   os.path.join(config.outdir, WEIGHTS_FILE))
+        _save_weights(model, os.path.join(config.outdir, WEIGHTS_FILE))
+        save_tree(os.path.join(config.outdir, "final_state"),
+                  {"vae": model.state_dict(), "opt": opt.state_dict(), "epoch": config.epochs})
     if own_log:
         log.close()
     return VAETrainResult(model=model, config=config, history=history)
+
+
+def _save_weights(model: VAE, path: str) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, path)
+
+
+def _epoch_artifacts(model: VAE, y: torch.Tensor, config: VAETrainConfig, epoch: int) -> None:
+    """panel_NNNN.png (the rows `y` over their sampled reconstructions) and
+    vae_weights_NNNN.pt (train_vae.py:267-280)."""
+    last = epoch == config.epochs - 1
+    if config.panel_every and (epoch % config.panel_every == 0 or last):
+        recon = sample_reconstruction(model, y, config.seed, epoch)
+        save_panel(os.path.join(config.outdir, f"panel_{epoch:04d}.png"),
+                   [y.cpu().numpy(), recon.cpu().numpy()])
+    if config.checkpoint_every and epoch % config.checkpoint_every == 0 and not last:
+        _save_weights(model, os.path.join(config.outdir, f"vae_weights_{epoch:04d}.pt"))
 
 
 def main(argv=None) -> VAETrainResult:
@@ -160,6 +187,10 @@ def main(argv=None) -> VAETrainResult:
     p.add_argument("--enc_features", default="32,64,128")
     p.add_argument("--dec_features", default="128,64,32")
     p.add_argument("--image_size", type=int, default=None)
+    p.add_argument("--panel_every", type=int, default=10,
+                   help="epochs between panel_NNNN.png (0 = off)")
+    p.add_argument("--checkpoint_every", type=int, default=0,
+                   help="epochs between vae_weights_NNNN.pt checkpoints (0 = end only)")
     args = p.parse_args(argv)
     device = resolve_device(args.device)
     ds = build_dataset_from_flag(args.data, args.num_objects, args.num_views,
@@ -170,7 +201,8 @@ def main(argv=None) -> VAETrainResult:
         compute_dtype=args.dtype, dec_upsample=args.dec_upsample,
         enc_features=tuple(int(f) for f in args.enc_features.split(",")),
         dec_features=tuple(int(f) for f in args.dec_features.split(",")),
-        outdir=args.outdir,
+        outdir=args.outdir, panel_every=args.panel_every,
+        checkpoint_every=args.checkpoint_every,
     )
     return train_vae(ds, config, device=device)
 

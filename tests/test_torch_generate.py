@@ -470,14 +470,29 @@ def test_load_without_meta_sidecar_fails_loudly(runs, tmp_path):
 
 
 @pytest.mark.parametrize("argv,code,says", [
-    (["train-cvae"], 2, "not ported"), (["plot", "out"], 2, "not ported"),
+    (["train-cvae"], None, "driver=train_cvae epoch=0"), (["plot", "out"], None, "history.png"),
     (["bogus"], 2, "unknown command"), (["--help"], 0, "build-data"), ([], 1, "serve"),
 ])
-def test_package_cli_commands(monkeypatch, capsys, argv, code, says):
+def test_package_cli_commands(monkeypatch, capsys, tmp_path, argv, code, says):
+    """Every command of `python -m gppvae_tpu_torch`: train-cvae and plot
+    run (code None: no SystemExit), an unknown one exits 2."""
+    if argv[:1] == ["train-cvae"]:
+        argv = ["train-cvae", *GOLDEN_CLI[:-4], "--epochs", "1", "--outdir", str(tmp_path)]
+    elif argv[:1] == ["plot"]:
+        (tmp_path / "metrics.jsonl").write_text(
+            json.dumps({"epoch": 0, "loss": 1.0, "oos_mse": 0.1, "sec_epoch": 0.1}) + "\n")
+        argv = ["plot", str(tmp_path)]
     monkeypatch.setattr(sys, "argv", ["gppvae_tpu_torch", *argv])
-    with pytest.raises(SystemExit) as e:
+    if code is None:
         runpy.run_module("gppvae_tpu_torch", run_name="__main__")
-    assert e.value.code == code and says in capsys.readouterr().out
+    else:
+        with pytest.raises(SystemExit) as e:
+            runpy.run_module("gppvae_tpu_torch", run_name="__main__")
+        assert e.value.code == code
+    assert says in capsys.readouterr().out
+    if code is None:
+        written = {"train-cvae": "cvae_weights.pt", "plot": "history.png"}[argv[0]]
+        assert (tmp_path / written).is_file()
 
 
 def test_build_data_matches_jax(tmp_path, monkeypatch):

@@ -1,0 +1,329 @@
+"""The port's checkpoints, resume and epoch artifacts.
+
+At the golden size of tests/test_resume.py (12 objects × 8 views, zdim 8,
+features (8, 16)). For the port alone: an interrupted and resumed run equals
+the uninterrupted one epoch by epoch on every history key (rtol 1e-5; the
+CPU runs are in fact bit-equal) at the plain, boundary, mid-polish,
+mid-accumulation, rbf-nystrom and 'dis' cases, with the port's own seeded
+draws, whose generator state travels in the train state. Against the JAX
+trainer: both resumed at epoch 2 of 4 from the same state (the JAX state
+converted, the JAX draws injected), every history key rtol 1e-4.
+"""
+
+import importlib
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gppvae_tpu.checkpoint import load_train_state
+from gppvae_tpu.data import build_rotated_digits
+from gppvae_tpu.train.batching import epoch_batches as jax_epoch_batches
+from gppvae_tpu.train.batching import epoch_keys
+from gppvae_tpu_torch.checkpoint import CheckpointFormatError, load_tree, save_tree
+from gppvae_tpu_torch.convert import flax_to_state_dict
+from gppvae_tpu_torch.train import train_gppvae as tg
+from gppvae_tpu_torch.train import train_vae
+from gppvae_tpu_torch.train.optim import GuardedAdam
+from gppvae_tpu_torch.utils import NullLogger
+from gppvae_tpu_torch.utils.profiling import TRACE_FILE
+
+jtrain = importlib.import_module("gppvae_tpu.train.train_gppvae")
+BASE = dict(mode="joint", zdim=8, epochs=4, batch_size=16, lr_gp=5e-3, obj_feature_dim=4,
+            view_num_freqs=2, enc_features=(8, 16), dec_features=(16, 8))
+RESUME_KEYS = ("loss", "recon_term", "gp_term", "pen_term", "gp_nll_full", "oos_mse")
+# name → (config overrides, the states to resume from): 171 train rows,
+# 11 steps per epoch, so accumulation over 2 leaves a half-filled window
+# at every odd epoch's end
+CASES = {
+    "plain": (dict(), (2,)),
+    "polish": (dict(compute_dtype="bfloat16", polish_epochs=2), (2, 3)),  # boundary, mid
+    "grad_accum": (dict(grad_accum_steps=2), (1, 3)),
+    "rbf-nystrom": (dict(object_kernel="rbf-nystrom", rff_features=16, nystrom_rank=6), (2,)),
+    "dis": (dict(mode="dis"), (2,)),
+}
+
+
+@pytest.fixture(scope="module")
+def ds():
+    return build_rotated_digits("synthetic", num_objects=12, num_views=8, seed=0)
+
+
+def _train(ds, **kw):
+    return tg.train_gppvae(ds, tg.GPPVAETrainConfig(**{**BASE, **kw}), device="cpu",
+                           log=NullLogger())
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_resume_is_trajectory_preserving(ds, tmp_path, case):
+    kw, starts = CASES[case]
+    out = str(tmp_path / "full")
+    full = _train(ds, outdir=out, checkpoint_every=1, **kw)
+    for start in starts:
+        state = load_tree(f"{out}/state_{start:04d}")
+        assert state["epoch"] == start
+        if case == "grad_accum":  # between two Adam steps: the window is half full
+            assert state["opt_vae"]["mini_step"] == 1 and state["opt_vae"]["acc"] is not None
+        res = _train(ds, resume=f"{out}/state_{start:04d}", **kw)
+        assert [h["epoch"] for h in res.history] == list(range(start, 4))
+        for h_res, h_full in zip(res.history, full.history[start:]):
+            for key in RESUME_KEYS:
+                np.testing.assert_allclose(
+                    h_res[key], h_full[key], rtol=1e-5,
+                    err_msg=f"{case}: epoch {h_full['epoch']} {key!r} diverged on resume "
+                            f"from state_{start:04d}")
+        if case == "polish":
+            # resumed at the switch both Adams restart; inside the window they
+            # do not: either way they count the float32 epochs only
+            assert res.model.dtype == torch.float32
+            assert res.optimizers["vae"].steps == full.optimizers["vae"].steps
+        if case == "rbf-nystrom":  # the run's own landmarks and draws, not fresh ones
+            assert torch.equal(state["object_kernel"]["nystrom_idx"],
+                               load_tree(f"{out}/final_state")["object_kernel"]["nystrom_idx"])
+    # final_state continues a run to a later --epochs
+    more = _train(ds, resume=f"{out}/final_state", **{**kw, "epochs": 5})
+    assert [h["epoch"] for h in more.history] == [4]
+
+
+def test_generator_state_round_trip(ds, tmp_path):
+    """The plans and ε come in sequence from one generator: its state is in
+    the train state, and a resume that re-seeded instead would run other
+    epochs."""
+    out = str(tmp_path / "run")
+    full = _train(ds, outdir=out, checkpoint_every=2)
+    state = load_tree(f"{out}/state_0003")
+    assert state["generator"].dtype == torch.uint8
+    res = _train(ds, resume=f"{out}/state_0003")
+    assert res.history[0]["loss"] == full.history[3]["loss"]
+    # the same state with a fresh generator's stream: another epoch 3
+    gen = torch.Generator().manual_seed(BASE.get("seed", 0))
+    state["generator"] = gen.get_state()
+    save_tree(str(tmp_path / "reseeded"), state)
+    other = _train(ds, resume=str(tmp_path / "reseeded"))
+    assert other.history[0]["loss"] != full.history[3]["loss"]
+
+
+def test_guarded_adam_state_dict_round_trip():
+    """state_dict() / load_state_dict() carry Adam's moments, the position
+    inside an accumulation window, its running mean and the counters: two
+    optimizers fed the same gradients stay equal after a mid-window copy."""
+    rng = np.random.default_rng(0)
+    grads = [rng.standard_normal((4, 3)) * s for s in (1.0, 1.0, np.nan, 1.0, 0.5, 2.0, 1.0)]
+
+    def make():
+        p = torch.nn.Parameter(torch.ones(4, 3, dtype=torch.float64))
+        return p, GuardedAdam([p], lr=1e-2, clip_grad_norm=1e3, accum_steps=2)
+
+    pa, a = make()
+    for g in grads[:3]:
+        pa.grad = torch.tensor(g)
+        a.step()
+    saved = a.state_dict()
+    assert saved["mini_step"] == 1 and saved["steps"] == 1
+    pb, b = make()
+    with torch.no_grad():
+        pb.copy_(pa)
+    b.load_state_dict(saved)
+    for g in grads[3:]:
+        for p, opt in ((pa, a), (pb, b)):
+            p.grad = torch.tensor(g)
+            opt.step()
+    assert torch.equal(pa, pb) or (torch.isnan(pa) == torch.isnan(pb)).all()
+    assert (a.steps, a.mini_step, a.notfinite_count) == (b.steps, b.mini_step, b.notfinite_count)
+    assert b.notfinite_count >= 1  # the NaN mean is carried, as optax carries it
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("version", "format_version=99"), ("missing", "no format sidecar"),
+    ("unreadable", "unreadable format sidecar"),
+])
+def test_resume_format_errors_before_any_training(ds, tmp_path, monkeypatch, fault, match):
+    out = str(tmp_path / "run")
+    _train(ds, outdir=out, epochs=1)
+    sidecar = f"{out}/final_state.format.json"
+    assert json.load(open(sidecar))["format_version"] == 1
+    if fault == "version":
+        open(sidecar, "w").write('{"format_version": 99}')
+    elif fault == "missing":
+        os.remove(sidecar)
+    else:
+        open(sidecar, "w").write('{"format_ver')
+
+    def no_encode(self):
+        raise AssertionError("trained before the state was refused")
+
+    monkeypatch.setattr(tg._Loop, "encode", no_encode)
+    with pytest.raises(CheckpointFormatError, match=match):
+        _train(ds, resume=f"{out}/final_state")
+    # a tree of the format that is no train state (here the VAE's own final_state)
+    save_tree(f"{out}/other", {"vae": {}, "opt": {}, "epoch": 1})
+    with pytest.raises(CheckpointFormatError, match="not a train state"):
+        _train(ds, resume=f"{out}/other")
+
+
+@pytest.mark.parametrize("change,names", [
+    (dict(zdim=6), ["zdim"]),
+    (dict(mode="dis"), ["mode"]),
+    (dict(enc_features=(8, 8), learn_sigma_y=True), ["enc_features", "learn_sigma_y"]),
+    (dict(extra_effects=("object",)), ["extra_effects"]),
+])
+def test_resume_config_mismatch_names_the_field(ds, tmp_path, change, names):
+    """A state written under a config that shapes its tensors otherwise is
+    refused by field name, not by a size mismatch from load_state_dict."""
+    out = str(tmp_path / "run")
+    _train(ds, outdir=out, epochs=1)
+    with pytest.raises(ValueError, match="another configuration") as e:
+        _train(ds, resume=f"{out}/final_state", **change)
+    assert all(f"{n}:" in str(e.value) for n in names)
+    other = build_rotated_digits("synthetic", num_objects=10, num_views=8, seed=0)
+    with pytest.raises(ValueError, match="num_objects"):
+        _train(other, resume=f"{out}/final_state")
+
+
+def test_epoch_artifacts_and_cli_flags(ds, tmp_path, monkeypatch):
+    """panel_NNNN.png on the cadence and the last epoch, state_NNNN on the
+    cadence but the last, final_state and final_params.pt at the end; the
+    CLI's defaults are the JAX CLI's (--panel_every 10, --checkpoint_every 0)
+    and every new flag reaches the config."""
+    out = tmp_path / "run"
+    _train(ds, outdir=str(out), epochs=5, panel_every=2, checkpoint_every=2)
+    files = set(os.listdir(out))
+    assert {f for f in files if f.startswith("panel_")} == {
+        "panel_0000.png", "panel_0002.png", "panel_0004.png"}
+    assert {f for f in files if f.startswith("state_") and not f.endswith(".json")} == {
+        "state_0001", "state_0003"}  # epochs 0 and 2 done; epoch 4 is the last
+    assert {"final_state", "final_state.format.json", "final_params.pt"} <= files
+    assert (out / "panel_0000.png").read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+    # 4 rows of 8 images: train, reconstructions, held-out, predictions
+    import struct
+
+    w, h = struct.unpack(">II", (out / "panel_0000.png").read_bytes()[16:24])
+    assert (w, h) == (8 * 34 + 2, 4 * 34 + 2)
+
+    captured = {}
+    monkeypatch.setattr(tg, "train_gppvae",
+                        lambda ds, config, **kw: captured.update(config=config))
+    small = ["--data", "synthetic", "--num_objects", "6", "--num_views", "4", "--device", "cpu"]
+    tg.main(small)
+    c = captured["config"]
+    assert (c.panel_every, c.checkpoint_every, c.resume, c.profile_dir) == (10, 0, None, None)
+    tg.main([*small, "--panel_every", "3", "--checkpoint_every", "7", "--resume", "a/state_0007",
+             "--profile_dir", "trace"])
+    c = captured["config"]
+    assert (c.panel_every, c.checkpoint_every, c.resume, c.profile_dir) == (
+        3, 7, "a/state_0007", "trace")
+
+
+def test_train_vae_artifacts(tmp_path):
+    """train_vae's pair: panel_NNNN.png (8 validation rows over their
+    reconstructions), vae_weights_NNNN.pt on the cadence but the last epoch,
+    final_state; a panel does not move the training stream."""
+    cli = ["--data", "synthetic", "--num_objects", "10", "--num_views", "8", "--zdim", "6",
+           "--bs", "16", "--enc_features", "8,16", "--dec_features", "16,8", "--device", "cpu",
+           "--epochs", "3"]
+    out = tmp_path / "vae"
+    res = train_vae.main([*cli, "--outdir", str(out), "--panel_every", "1",
+                          "--checkpoint_every", "2"])
+    files = set(os.listdir(out))
+    assert {"panel_0000.png", "panel_0001.png", "panel_0002.png", "vae_weights_0000.pt",
+            "vae_weights.pt", "final_state", "final_state.format.json"} <= files
+    assert "vae_weights_0002.pt" not in files  # the last epoch writes vae_weights.pt
+    state = load_tree(str(out / "final_state"))
+    assert state["epoch"] == 3 and set(state) == {"vae", "opt", "epoch"}
+    for k, v in res.model.state_dict().items():
+        assert torch.equal(state["vae"][k], v)
+    import struct
+
+    w, h = struct.unpack(">II", (out / "panel_0000.png").read_bytes()[16:24])
+    n_val = min(8, len(build_rotated_digits("synthetic", num_objects=10, num_views=8).val_idx))
+    assert (w, h) == (n_val * 34 + 2, 2 * 34 + 2)  # up to 8 validation rows, 2 panel rows
+    plain = train_vae.main([*cli, "--outdir", str(tmp_path / "plain"), "--panel_every", "0"])
+    assert [h["loss"] for h in plain.history] == [h["loss"] for h in res.history]
+    assert not any(f.startswith("panel_") for f in os.listdir(tmp_path / "plain"))
+
+
+def test_profile_dir_writes_a_trace(ds, tmp_path):
+    """profile_dir wraps the epochs in torch.profiler and leaves a Chrome
+    trace (the twin of the JAX trainer's jax.profiler trace)."""
+    import gzip
+
+    _train(ds, epochs=1, profile_dir=str(tmp_path / "trace"))
+    with gzip.open(tmp_path / "trace" / TRACE_FILE, "rt") as f:
+        trace = json.load(f)
+    names = {ev.get("name") for ev in trace["traceEvents"]}
+    assert any("conv" in (n or "") for n in names)
+
+
+def _jax_plan(rng, epoch, num_train, bs, zdim):
+    key = epoch_keys(rng, epoch, 1)[0]
+    batches, weights = jax_epoch_batches(key, num_train, bs)
+    step_keys = jax.random.split(jax.random.fold_in(key, 1), batches.shape[0])
+    eps = jnp.stack([jax.random.normal(k, (bs, zdim), jnp.float32) for k in step_keys])
+    return [torch.from_numpy(np.array(a)) for a in (batches, weights, eps)]
+
+
+def test_resumed_run_matches_jax_resumed_run(ds, tmp_path):
+    """The JAX trainer interrupted at epoch 2 and resumed to 4, against the
+    port resumed at epoch 2 from that same state (params and both Adams'
+    moments converted) with the JAX draws injected: every history key of
+    epochs 2 and 3, rtol 1e-4."""
+    jcfg = dict(BASE, epochs=2)
+    jout = str(tmp_path / "jax")
+    jtrain.train_gppvae(ds, jtrain.GPPVAETrainConfig(**jcfg, outdir=jout), log=NullLogger())
+    jres = jtrain.train_gppvae(
+        ds, jtrain.GPPVAETrainConfig(**BASE, resume=jout + "/final_state"), log=NullLogger())
+    assert [h["epoch"] for h in jres.history] == [2, 3]
+
+    # the JAX state, restored as its trainer restores it, → the port's
+    jcfg4 = jtrain.GPPVAETrainConfig(**BASE)
+    _, params, _, _, rng, _ = jtrain._setup(ds, jcfg4, None, None)
+    jopts = {"ov_state": jtrain.make_optimizer(jcfg4.lr_vae, jcfg4.clip_grad_norm, 1),
+             "og_state": jtrain.make_optimizer(jcfg4.lr_gp, jcfg4.clip_grad_norm, 1)}
+    jstate = load_train_state(jout + "/final_state", {
+        "params": params, "ov_state": jopts["ov_state"].init(params["vae"]),
+        "og_state": jopts["og_state"].init(params["gp"]), "epoch": 0})
+    assert int(jstate["epoch"]) == 2
+
+    cfg = tg.GPPVAETrainConfig(**BASE)
+    gen = torch.Generator().manual_seed(0)
+    model, gp_params, fixed_W, data, n = tg._setup(ds, cfg, torch.device("cpu"), gen)
+    loop = tg._Loop(model, gp_params, fixed_W, data, n, cfg)
+
+    def vae_tensors(tree):
+        return flax_to_state_dict(jax.tree.map(np.asarray, tree))
+
+    def gp_tensors(tree):
+        return {k: torch.tensor(np.asarray(v)) for k, v in tree.items()}
+
+    def adam_sd(opt, jopt_state, names, convert):
+        """The GuardedAdam state_dict holding optax's moments and count,
+        in the port's parameter order."""
+        adam = jopt_state["inner"][0]  # optax ScaleByAdamState
+        mu, nu, count = convert(adam.mu), convert(adam.nu), float(adam.count)
+        sd = opt.state_dict()
+        sd["steps"] = int(count)
+        sd["adam"]["state"] = {i: {"step": torch.tensor(count), "exp_avg": mu[name],
+                                   "exp_avg_sq": nu[name]} for i, name in enumerate(names)}
+        return sd
+
+    state = tg._train_state(loop, None, gen, 2, tg._shape_config(cfg, ds))
+    state.update(
+        vae=vae_tensors(jstate["params"]["vae"]), gp=gp_tensors(jstate["params"]["gp"]),
+        opt_vae=adam_sd(loop.opt_vae, jstate["ov_state"],
+                        [k for k, _ in model.named_parameters()], vae_tensors),
+        opt_gp=adam_sd(loop.opt_gp, jstate["og_state"], sorted(gp_params), gp_tensors))
+    save_tree(str(tmp_path / "converted"), state)
+
+    res = tg.train_gppvae(
+        ds, tg.GPPVAETrainConfig(**BASE, resume=str(tmp_path / "converted")), device="cpu",
+        draws=lambda epoch: [t.long() if i == 0 else t
+                             for i, t in enumerate(_jax_plan(rng, epoch, n, 16, 8))],
+        log=NullLogger())
+    assert [h["epoch"] for h in res.history] == [2, 3]
+    for ours, theirs in zip(res.history, jres.history):
+        for k in tg._METRIC_KEYS:
+            np.testing.assert_allclose(ours[k], theirs[k], rtol=1e-4, err_msg=k)

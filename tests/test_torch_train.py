@@ -36,6 +36,7 @@ from gppvae_tpu.data import build_rotated_digits
 from gppvae_tpu.train.batching import epoch_batches as jax_epoch_batches
 from gppvae_tpu.train.batching import epoch_keys
 from gppvae_tpu_torch import ops
+from gppvae_tpu_torch.checkpoint import CheckpointFormatError
 from gppvae_tpu_torch.convert import flax_to_state_dict, rff_draws_from_map
 from gppvae_tpu_torch.eval import predict_heldout
 from gppvae_tpu_torch.models import encode_all
@@ -196,18 +197,23 @@ def test_cli_entry_points_on_cpu(tmp_path):
     assert set(ops.launch_counts().values()) == {0}  # CPU: plain versions only
 
 
-def test_device_and_unported_options_raise(golden):
-    """--device cuda without CUDA raises; resume and profile_dir are not
-    ported and raise; unknown option values raise ValueError as the JAX
-    trainer does."""
+def test_device_and_unported_options_raise(golden, tmp_path):
+    """--device cuda without CUDA raises; no trainer option is left
+    unported: resume continues a run from its final_state (and a path that
+    holds no state fails with the checkpoint format's error before any
+    training); unknown option values raise ValueError as the JAX trainer
+    does."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             train_gppvae.main(["--device", "cuda", "--epochs", "1"])
-    assert set(train_gppvae._UNPORTED) == {"resume", "profile_dir"}
-    for bad in (dict(resume="x"), dict(profile_dir="x")):
-        cfg = train_gppvae.GPPVAETrainConfig(**{**GOLDEN, **bad})
-        with pytest.raises(NotImplementedError, match="not ported"):
-            train_gppvae.train_gppvae(golden["ds"], cfg, device="cpu", log=_Quiet())
+    assert not hasattr(train_gppvae, "_UNPORTED")
+    first = _train(golden, outdir=str(tmp_path))
+    more = _train(golden, epochs=3, resume=str(tmp_path / train_gppvae.FINAL_STATE_FILE))
+    assert [h["epoch"] for h in first.history] == [0, 1]
+    assert [h["epoch"] for h in more.history] == [2]
+    assert more.optimizers["vae"].steps == first.optimizers["vae"].steps * 3 // 2
+    with pytest.raises(CheckpointFormatError, match="no format sidecar"):
+        _train(golden, resume=str(tmp_path / "x"))
     for bad, what in ((dict(extra_effects=("pose",)), "extra effect"),
                       (dict(object_kernel="matern"), "object_kernel"),
                       (dict(compute_dtype="float16"), "compute_dtype"),
@@ -245,6 +251,11 @@ def test_package_imports_no_jax(tmp_path):
         "                   '--export_server', run + '/m.srv'])\n"
         "    serving.main(['--state', run + '/m.srv', '--device', 'cpu', '--requests',\n"
         "                  '1:2,3:0', '--sample', '2', '--joint', '--outdir', run + '/served'])\n"
+        "from gppvae_tpu_torch.train import train_cvae\n"
+        f"train_cvae.main({[*GOLDEN_CLI, '--epochs', '1']!r}"
+        " + ['--outdir', sys.argv[1] + '/cvae'])\n"
+        "import validate_torch\n"
+        "validate_torch.run_validation(epochs=1, pretrain=1, num_objects=12, device='cpu')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax', 'optax')))\n"
         "assert not bad, bad\n"
         "ref = sorted(m for m in sys.modules if m == 'gppvae_tpu' or m.startswith('gppvae_tpu.'))\n"
@@ -258,16 +269,19 @@ def test_package_imports_no_jax(tmp_path):
     assert "NO_JAX_OK" in out.stdout
     assert (tmp_path / "options" / "served" / "served.npz").is_file()
 
-    # and no source of the port, nor chip_smoke.py, names the JAX package
-    sources = [*sorted((REPO / "gppvae_tpu_torch").rglob("*.py")), REPO / "chip_smoke.py"]
+    # and no source of the port, nor chip_smoke.py or validate_torch.py,
+    # names the JAX package or a JAX library
+    sources = [*sorted((REPO / "gppvae_tpu_torch").rglob("*.py")), REPO / "chip_smoke.py",
+               REPO / "validate_torch.py"]
     found = []
     for path in sources:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             names = ([a.name for a in node.names] if isinstance(node, ast.Import)
                      else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
             found += [f"{path.name}:{node.lineno} {n}" for n in names
-                      if n == "gppvae_tpu" or n.startswith("gppvae_tpu.")]
-    assert len(sources) > 30 and not found, found
+                      if n.split(".")[0] in ("gppvae_tpu", "jax", "flax", "optax")]
+    assert len(sources) > 35 and not found, found
+    assert {"train_cvae.py", "plots.py", "cvae.py", "profiling.py"} <= {p.name for p in sources}
 
 
 def test_guarded_adam_matches_optax_spike_guard():

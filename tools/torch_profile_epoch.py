@@ -50,7 +50,7 @@ def kernel_seconds(events) -> float:
 def timed_epoch(loop, draws, epoch) -> tuple[float, dict]:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, phases = loop.run_epoch(draws, epoch)
+    _, phases, _ = loop.run_epoch(draws, epoch)
     return time.perf_counter() - t0, phases
 
 
