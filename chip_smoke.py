@@ -24,7 +24,9 @@ Phases, one per printed line group; any failure ends the run non-zero:
   4. the slice at the full width of BASELINE's GPPVAE-joint: synthetic
      rotated digits (P = 400, Q = 16, 32×32×1), train_vae for 1 epoch, then
      train_gppvae --mode joint for 3 epochs from its vae_weights, both
-     through their `main(argv)`; checks finite metrics, a falling loss, the
+     through their `main(argv)`; prints the analytic FLOP per epoch
+     (utils/flops.py) and the rate achieved against the fp32 peak (also in
+     5a); checks finite metrics, a falling loss, the
      kernels' launch counts, no plain-version call on a CUDA tensor, and the
      final GP NLL on the card against a float64 CPU evaluation;
   5. (a) the headline (bench.py config 3b): the same slice with --dtype
@@ -50,7 +52,13 @@ Phases, one per printed line group; any failure ends the run non-zero:
      state tensor on cuda, and neither kernel launched: the serving path has
      none (the JAX package's gram and matmul_tn have no Pallas kernel). Prints
      fold_s (build_server_state alone), the observe fold_s, latency_s and
-     the two rates per run;
+     the two rates per run. Then the exported program of each run: `serve
+     --state m.srv --export_exe m.exe` (each entry's export seconds and
+     bytes), and `serve --exe m.exe` for the same requests with --var,
+     --sample 4 and --sample 4 --joint at one seed, --observe --save_core
+     then --core, the --stdin loop on the same lines, and --repeat 20
+     --sustained 20: every reply within a stated bound of the `serve --state`
+     reply, the rates side by side, still no kernel launch;
   7. resume at the slice's width: --dtype bfloat16 --polish_epochs 2, 4
      epochs with --checkpoint_every 1 --panel_every 1, then the same run
      resumed from state_0002 (the float32 switch: both Adams restart) and
@@ -123,6 +131,15 @@ HELDOUT_MSE_REL_BOUND = 1e-5  # generate vs the trainer's last oos_mse: one f32 
 SERVE_IMAGE_ABS_BOUND = 1e-5  # serve vs generate_heldout: the same fold, card and dtype
 VAR_SLACK_REL = 1e-5  # observe: variance after ≤ before × (1 + this), f32 rounding
 OBSERVE_SPLIT_REL_BOUND = 1e-4  # two observes vs one, max |Δ mean| / max |mean|, f32
+# serve --exe vs serve --state: the exported graph runs the eager path's ATen
+# ops in its order, on the same card and dtype
+EXE_IMAGE_ABS_BOUND = 1e-5  # float32 runs: images in [0, 1], means and draws
+# a bfloat16 run: a last-bit difference in the float32 latents (a batch of one
+# may reach another BLAS routine) can flip one bfloat16 rounding in the
+# decoder; one ulp of a value below 1 is 4e-3
+EXE_IMAGE_ABS_BOUND_BF16 = 4e-3
+EXE_VAR_ABS_BOUND = 2e-6  # the reply's posterior_var, printed to 6 decimals
+EXE_CORE_REL_BOUND = 1e-4  # the observe-updated core, max |Δ| / max |·| per tensor
 FACES_ARGS = ["--data", "faces", "--num_objects", "50", "--num_views", "8",
               "--image_size", "128", "--zdim", "32", "--bs", "64", "--seed", "0",
               "--device", "cuda", "--dec_upsample", "subpixel", "--object_kernel", "rbf",
@@ -176,7 +193,8 @@ def max_err(got, want) -> tuple[float, float]:
     return err, err / max(scale, 1e-30)
 
 
-def phase_environment() -> str:
+def phase_environment() -> tuple[str, str]:
+    """(torch's device name, nvidia-smi's `name, power.limit` line)."""
     say("== 1 environment")
     say(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
     if not torch.cuda.is_available():
@@ -185,12 +203,13 @@ def phase_environment() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     )
-    say(f"nvidia-smi: {smi.stdout.strip() or smi.stderr.strip()}")
+    card = smi.stdout.strip() or smi.stderr.strip()
+    say(f"nvidia-smi: {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     say(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn {torch.backends.cudnn.allow_tf32}")
-    return torch.cuda.get_device_name(0)
+    return torch.cuda.get_device_name(0), card
 
 
 def phase_build() -> None:
@@ -379,6 +398,27 @@ def report(hist) -> None:
               if isinstance(v, float)), "every metric is finite")
 
 
+def report_flops(label: str, result, card: str) -> None:
+    """The analytic FLOP of one epoch of this run (utils/flops.py: what the
+    algorithm needs, 1 MAC = 2 FLOP) over the median sec_epoch of the steady
+    epochs, against the card's fp32 peak outside the tensor cores."""
+    from gppvae_tpu_torch.utils import flops
+
+    cfg, data = result.config, result.data
+    per_epoch = flops.gppvae_epoch_flops(
+        image_shape=tuple(data["images_tr"].shape[1:]), enc_features=cfg.enc_features,
+        dec_features=cfg.dec_features, zdim=cfg.zdim, n_train=data["images_tr"].shape[0],
+        n_heldout=data["y_ho"].shape[0], batch_size=cfg.batch_size,
+        rank=cfg.obj_feature_dim * (2 * cfg.view_num_freqs + 1))
+    sec = statistics.median(h["sec_epoch"] for h in result.history[1:])
+    rate = per_epoch["total"] / sec
+    say(f"{label} analytic FLOP per epoch: {flops.format_tflops(per_epoch['total'])} ("
+        + ", ".join(f"{k} {flops.format_tflops(v)}" for k, v in per_epoch.items() if k != "total")
+        + f"); steady sec_epoch {sec:.4f} → {rate / 1e12:.3f} TFLOP/s achieved, "
+        f"{rate / FP32_FLOPS:.4f} of the fp32 peak ({FP32_FLOPS / 1e12:.0f} TFLOP/s) on {card}")
+    check(per_epoch["total"] > 0 and math.isfinite(rate), f"{label}: a finite FLOP rate")
+
+
 def final_nll_check(result, label: str) -> tuple:
     """The trained model's exact GP NLL on the rows it trained on: kernels
     on the card vs CPU float64. Returns (Z, Vs, v_sigs, v_noise)."""
@@ -406,7 +446,7 @@ def final_nll_check(result, label: str) -> tuple:
     return Z, Vs, v_sigs, v_noise
 
 
-def phase_slice(tmp: str) -> tuple[dict, dict]:
+def phase_slice(tmp: str, card: str) -> tuple[dict, dict]:
     from gppvae_tpu_torch.train import train_gppvae, train_vae
 
     say("== 4 slice: train_vae 1 epoch → train_gppvae --mode joint 3 epochs "
@@ -423,6 +463,7 @@ def phase_slice(tmp: str) -> tuple[dict, dict]:
     result, counts = drive("4 slice", run)
     hist = result.history
     report(hist)
+    report_flops("4 slice", result, card)
     check(hist[-1]["loss"] < hist[0]["loss"], "loss falls from the first epoch to the last")
     check(counts["launch_factor_prep.launches"] == 3, "factor_prep launched once per epoch")
     check(counts["launch_nll_core.launches"] == 3, "nll_core launched once per epoch")
@@ -431,7 +472,7 @@ def phase_slice(tmp: str) -> tuple[dict, dict]:
     return counts, {"dir": f"{tmp}/gppvae", "result": result, "data": DIGITS_DATA}
 
 
-def path_headline(tmp: str) -> tuple[dict, dict]:
+def path_headline(tmp: str, card: str) -> tuple[dict, dict]:
     from gppvae_tpu_torch.models import encode_all
     from gppvae_tpu_torch.train import train_gppvae, train_vae
 
@@ -450,6 +491,7 @@ def path_headline(tmp: str) -> tuple[dict, dict]:
     result, counts = drive("5a headline", run)
     hist = result.history
     report(hist)
+    report_flops("5a headline", result, card)
     check(hist[-1]["loss"] < hist[0]["loss"], "loss falls from the first epoch to the last")
     check(counts["launch_factor_prep.launches"] == 3 and counts["launch_nll_core.launches"] == 3,
           "each kernel launched once per epoch")
@@ -639,9 +681,9 @@ def serve_run(label: str, run: dict) -> dict:
     half = len(ho) // 2
     obs = {k: _save_obs(f"{d}/obs_{k}.npz", ds, rows)
            for k, rows in (("a", ho[:half]), ("b", ho[half:]), ("ab", ho))}
-    orec, _ = cli(serving.main, ["--state", srv, "--device", "cuda", "--observe", obs["ab"],
-                                 "--save_state", f"{d}/ab.srv", "--requests", _pairs(ds, ho),
-                                 "--var", "--outdir", f"{d}/observed"])
+    orec, cli_observed = cli(serving.main, [
+        "--state", srv, "--device", "cuda", "--observe", obs["ab"], "--save_state",
+        f"{d}/ab.srv", "--requests", _pairs(ds, ho), "--var", "--outdir", f"{d}/observed"])
     out["observe_fold_s"] = orec["fold_s"]
     cli(serving.main, ["--state", srv, "--device", "cuda", "--observe", obs["a"],
                        "--save_state", f"{d}/a.srv"])
@@ -707,6 +749,145 @@ def serve_run(label: str, run: dict) -> dict:
         f"{trec['sustained_images_per_sec']} images/s")
     check(trec["images_per_sec"] > 0 and trec["sustained_images_per_sec"] > 0,
           f"{label}: positive rates")
+
+    # the exported program: serve --export_exe, then serve --exe for the
+    # same requests, flags and stdin lines, held to the --state replies above
+    state_side = dict(rec=rec, served=served, observed=cli_observed, joint=draws,
+                      cells=cells, stdin=replies, lines=lines, throughput=trec, core=one.core)
+    out["exe"] = serve_exe_run(label, d, srv, ds, obs, batch, state_side)
+    return out
+
+
+def serve_exe_run(label: str, d: str, srv: str, ds, obs: dict, batch, state_side: dict) -> dict:
+    """Path 6's exported program on one run: `serve --state m.srv --export_exe
+    m.exe`, then `serve --exe m.exe` with --var, --sample 4 [--joint],
+    --observe --save_core, --core, --stdin and the throughput modes, each
+    reply held to the `serve --state` reply for the same flags (state_side).
+    Returns the export's seconds and bytes and the --exe numbers."""
+    from gppvae_tpu_torch.eval import serving
+
+    ho = ds.heldout_idx
+    exe = f"{d}/m.exe"
+    t0 = time.perf_counter()
+    (meta,) = cli(serving.main, ["--state", srv, "--device", "cuda", "--export_exe", exe])
+    out = {"export_cli_s": time.perf_counter() - t0, "total_bytes": meta["total_bytes"],
+           "platforms": meta["platforms"], "compute_dtype": meta["compute_dtype"],
+           "entries": {k: {"export_s": e["export_s"], "bytes": e["bytes"]}
+                       for k, e in meta["entry_points"].items()}}
+    check(sorted(meta["entry_points"]) == sorted(serving._EXE_ENTRIES) and meta["platforms"]
+          == ["cuda"] and os.path.isfile(f"{exe}.core.npz"),
+          f"{label}: eight programs for cuda, the core npz and the meta")
+    say(f"{label} serve --export_exe: {out['export_cli_s']:.2f} s, {meta['total_bytes']} bytes, "
+        "per entry (s, bytes): " + ", ".join(
+            f"{k} {e['export_s']} {e['bytes']}" for k, e in out["entries"].items()))
+
+    def exe_cli(*flags, outdir: str) -> list[dict]:
+        return cli(serving.main, ["--exe", exe, "--device", "cuda", *flags,
+                                  "--outdir", f"{d}/{outdir}"])
+
+    def images_err(a, b) -> float:
+        check(a.shape == b.shape, f"{label}: --exe reply of shape {a.shape}, --state {b.shape}")
+        return float(np.abs(a - b).max())
+
+    def var_err(a, b) -> float:
+        return float(np.abs(np.asarray(a) - np.asarray(b)).max())
+
+    # means and variances of the held-out cells
+    (rec,) = exe_cli("--requests", _pairs(ds, ho), "--var", outdir="exe_served")
+    errs = {"var_images": images_err(np.load(rec["npz"])["images"], state_side["served"]),
+            "var": var_err(rec["posterior_var"], state_side["rec"]["posterior_var"])}
+    check(rec["entry"] == "var", f"{label}: --exe --var reaches the var entry")
+    out["latency_s"] = rec["latency_s"]
+
+    # draws at one seed: joint (the --state run above drew at the default
+    # seed 0) and independent (both surfaces at seed 3)
+    cells = state_side["cells"]
+    (jrec,) = exe_cli("--requests", _pairs(ds, cells), "--sample", "4", "--joint",
+                      outdir="exe_joint")
+    errs["joint_draws"] = images_err(np.load(jrec["npz"])["images"], state_side["joint"])
+    (srec,) = cli(serving.main, ["--state", srv, "--device", "cuda", "--requests",
+                                 _pairs(ds, cells), "--sample", "4", "--seed", "3",
+                                 "--outdir", f"{d}/sample"])
+    (erec,) = exe_cli("--requests", _pairs(ds, cells), "--sample", "4", "--seed", "3",
+                      outdir="exe_sample")
+    errs["draws"] = images_err(np.load(erec["npz"])["images"], np.load(srec["npz"])["images"])
+    check(jrec["entry"] == "sample_joint" and erec["entry"] == "sample",
+          f"{label}: --sample [--joint] reach the sample entries")
+
+    # observe → save_core → core, against --observe --save_state above
+    core_npz = f"{d}/ab.core.npz"
+    orec, arec = exe_cli("--observe", obs["ab"], "--save_core", core_npz, "--requests",
+                         _pairs(ds, ho), "--var", outdir="exe_observed")
+    (crec,) = exe_cli("--core", core_npz, "--requests", _pairs(ds, ho), "--var",
+                      outdir="exe_core")
+    after = state_side["observed"]
+    errs["observed_images"] = images_err(np.load(crec["npz"])["images"],
+                                         np.load(after["npz"])["images"])
+    errs["observed_var"] = max(var_err(arec["posterior_var"], after["posterior_var"]),
+                               var_err(crec["posterior_var"], after["posterior_var"]))
+    check(arec["entry"] == crec["entry"] == "predict_core",
+          f"{label}: after --observe and under --core the predict_core entry answers")
+    with np.load(core_npz) as f:
+        core_rel = max(max_err([torch.from_numpy(f[k])], [getattr(state_side["core"], k).cpu()])[1]
+                       for k in f.files)
+    out["observe_fold_s"] = orec["fold_s"]
+    (cjrec,) = exe_cli("--core", core_npz, "--requests", _pairs(ds, cells), "--sample", "4",
+                       "--joint", outdir="exe_core_joint")
+    (sjrec,) = cli(serving.main, ["--state", f"{d}/ab.srv", "--device", "cuda", "--requests",
+                                  _pairs(ds, cells), "--sample", "4", "--joint",
+                                  "--outdir", f"{d}/observed_joint"])
+    errs["observed_joint_draws"] = images_err(np.load(cjrec["npz"])["images"],
+                                              np.load(sjrec["npz"])["images"])
+    check(cjrec["entry"] == "sample_joint_core", f"{label}: --core --sample --joint entry")
+
+    # the stdin loop on the lines the --state loop got
+    lines = [ln.replace(f"save {d}/stdin.srv", f"save {d}/stdin.core.npz")
+             for ln in state_side["lines"]]
+    old_stdin = sys.stdin
+    sys.stdin = io.StringIO("\n".join(lines) + "\n")
+    try:
+        replies = exe_cli("--stdin", "--max_batch", "64", outdir="exe_stdin")
+    finally:
+        sys.stdin = old_stdin
+    theirs = state_side["stdin"]
+    check(len(replies) == len(theirs) and replies[0].get("exe") == exe
+          and replies[2]["observed"] == theirs[2]["observed"]
+          and replies[4]["saved"] == f"{d}/stdin.core.npz" and "error" in replies[5],
+          f"{label}: the --exe stdin loop answers its lines")
+    errs["stdin_var"] = max(var_err(replies[i]["posterior_var"], theirs[i]["posterior_var"])
+                            for i in (1, 3))
+    errs["stdin_images"] = max(images_err(np.load(replies[i]["npz"])["images"],
+                                          np.load(theirs[i]["npz"])["images"]) for i in (1, 3))
+    stdin_state, _ = serving.load_server_state(f"{d}/stdin.srv")
+    with np.load(f"{d}/stdin.core.npz") as f:
+        core_rel = max(core_rel, *(max_err([torch.from_numpy(f[k])],
+                                           [getattr(stdin_state.core, k)])[1] for k in f.files))
+    errs["core_rel"] = core_rel
+    out["errors"] = errs
+    image_bound = (EXE_IMAGE_ABS_BOUND_BF16 if meta["compute_dtype"] == "bfloat16"
+                   else EXE_IMAGE_ABS_BOUND)
+    say(f"{label} serve --exe vs serve --state, max abs err: " + json.dumps(errs)
+        + f" (bounds: images {image_bound:.0e}, var {EXE_VAR_ABS_BOUND:.0e}, "
+        f"core rel {EXE_CORE_REL_BOUND:.0e})")
+    for k, v in errs.items():
+        bound = (EXE_CORE_REL_BOUND if k == "core_rel" else EXE_VAR_ABS_BOUND if "var" in k
+                 and "images" not in k else image_bound)
+        check(v <= bound, f"{label}: --exe {k} within {bound:.0e} of --state ({v:.3e})")
+
+    # throughput at the 200-image batch, beside --state's
+    (trec,) = exe_cli("--requests", _pairs(ds, batch), "--repeat", str(SERVE_REPEAT),
+                      "--sustained", str(SERVE_CHAIN), outdir="exe_throughput")
+    ours = state_side["throughput"]
+    out.update({k: trec[k] for k in ("images_per_sec", "repeat_latency_s_min",
+                                     "repeat_latency_s_median", "sustained_images_per_sec",
+                                     "sustained_latency_s_min")})
+    say(f"{label} --exe throughput, {SERVE_BATCH}-image batch: --repeat {SERVE_REPEAT} "
+        f"{trec['images_per_sec']} images/s (--state {ours['images_per_sec']}), --sustained "
+        f"{SERVE_CHAIN} {trec['sustained_images_per_sec']} images/s (--state "
+        f"{ours['sustained_images_per_sec']}); latency_s {out['latency_s']} (--state "
+        f"{state_side['rec']['latency_s']}), observe fold_s {out['observe_fold_s']}")
+    check(trec["entry"] == "mean" and trec["images_per_sec"] > 0
+          and trec["sustained_images_per_sec"] > 0, f"{label}: positive --exe rates")
     return out
 
 
@@ -715,7 +896,8 @@ def path_serving(runs: dict) -> None:
     kernel (gram and matmul_tn have no Pallas kernel in the JAX package), so
     each run's counts must all be 0."""
     say("== 6 serving: generate --export_server, then serve --state (means, variances, "
-        "observe, joint draws, the stdin loop, --repeat and --sustained) from paths 4, 5a, 5b")
+        "observe, joint draws, the stdin loop, --repeat and --sustained), then serve "
+        "--export_exe and the same through serve --exe, from paths 4, 5a, 5b")
     for label, run in runs.items():
         numbers, counts = drive(f"6 serving {label}", lambda: serve_run(label, run))
         check(set(counts.values()) == {0}, f"6 serving {label}: no kernel launch, no plain "
@@ -848,12 +1030,12 @@ def path_protocol(tmp: str) -> dict:
 
 
 def main() -> None:
-    kind = phase_environment()
+    kind, card = phase_environment()
     phase_build()
     stats = phase_kernels()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        c4, r4 = phase_slice(tmp)
-        c5a, r5a = path_headline(tmp)
+        c4, r4 = phase_slice(tmp, card)
+        c5a, r5a = path_headline(tmp, card)
         c5b, r5b = path_faces(tmp)
         paths = [c4, c5a, c5b, path_nystrom(), path_large_rank()]
         path_serving({"4 slice": r4, "5a headline": r5a, "5b faces": r5b})

@@ -8,7 +8,10 @@ and the decoder's (h, w, c) reshape are kept by models/vae.py itself, so no
 dense weight is permuted. A flax CVAE tree has the same layer names (its
 first encoder conv has C + Q input channels, its first decoder dense
 zdim + Q inputs) and converts by the same rules. `server_state_from_numpy`
-carries a JAX server state over whole.
+carries a JAX server state over whole, `train_state_from_jax` a JAX train
+state with both Adams' moments, so that the port can resume, generate from
+and serve a run the JAX trainer began. Every function takes numpy trees:
+nothing here imports jax, flax, optax or orbax.
 """
 
 from __future__ import annotations
@@ -108,3 +111,44 @@ def server_state_from_numpy(state: Mapping, device: torch.device | str = "cpu"):
         X=t(state["X"]), W=t(state["W"]), v_sig=t(state["v_sig"]),
         vae_params={k: v.to(device) for k, v in flax_to_state_dict(state["vae_params"]).items()},
     )
+
+
+def train_state_from_jax(params: Mapping, ov_state: Mapping, og_state: Mapping, epoch: int, *,
+                         template: Mapping) -> dict:
+    """The port's train state (a `state_NNNN` tree of train_gppvae) from the
+    JAX trainer's state as numpy trees, `epoch` epochs done.
+
+    params: {'vae': the flax VAE tree, 'gp': {'X', ['W'], 'log_vs', 'log_vn',
+    ...}}. ov_state / og_state: the Adam state of each optimizer as {'mu',
+    'nu', 'count'}, mu and nu shaped like params['vae'] / params['gp'] (of
+    the JAX trainer's optax state: `state["inner"][0]`, a ScaleByAdamState).
+    template: a train state of the port for the same configuration (what
+    `train_gppvae._train_state` gives for a freshly set-up run): it supplies
+    the parameter order (the VAE's named_parameters, the sorted GP names),
+    the Adams' hyperparameters and what the JAX state does not carry (the
+    generator's state, the shape record, the object kernel's draws).
+    Returns a new tree; `checkpoint.save_tree` writes it, `--resume` reads it."""
+    def adam(template_sd: Mapping, moments: Mapping, names, convert) -> dict:
+        mu, nu, count = convert(moments["mu"]), convert(moments["nu"]), float(moments["count"])
+        sd = dict(template_sd)
+        sd["steps"] = int(count)
+        sd["adam"] = dict(sd["adam"], state={
+            i: {"step": torch.tensor(count), "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+            for i, name in enumerate(names)})
+        return sd
+
+    state = dict(template)
+    state["vae"] = flax_to_state_dict(params["vae"])
+    state["gp"] = gp_params_from_numpy(params["gp"])
+    if list(state["vae"]) and set(state["vae"]) != set(template["vae"]):
+        raise ValueError("the flax tree converts to other parameters than the template's VAE: "
+                         f"{sorted(set(state['vae']) ^ set(template['vae']))}")
+    if set(state["gp"]) != set(template["gp"]):
+        raise ValueError(f"GP params {sorted(state['gp'])}; the template has "
+                         f"{sorted(template['gp'])}")
+    state["opt_vae"] = adam(template["opt_vae"], ov_state, list(template["vae"]),
+                            flax_to_state_dict)
+    state["opt_gp"] = adam(template["opt_gp"], og_state, sorted(template["gp"]),
+                           gp_params_from_numpy)
+    state["epoch"] = int(epoch)
+    return state

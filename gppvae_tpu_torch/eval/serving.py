@@ -27,8 +27,15 @@ draws Ω, b: the JAX package rebuilds them from the training seed through
 threefry (serving.py:617-624), which torch cannot reproduce, so an rbf
 model served without them would get another kernel.
 
-The compiled-program surface of the JAX package (`serve --exe`,
-`--export_exe`, jax.export blobs) is not ported yet (ROADMAP).
+The compiled-program surface (`serve --state m.srv --export_exe m.exe`,
+then `serve --exe m.exe`) goes through torch.export: one program per entry
+of _EXE_ENTRIES, the state's tensors baked in as buffers, the batch and the
+sample count symbolic, answered at serve time by the loaded graph alone
+(no VAE, no feature map, no gp function). A torch.Generator cannot cross
+the export, so the sample entries take ε where the JAX entries take a seed;
+an exported graph records the device of its constants, so an artifact is
+exported once per device named in `platforms` and refused by name on any
+other.
 """
 
 from __future__ import annotations
@@ -66,10 +73,15 @@ def _part(vae_params: dict, name: str) -> dict:
     return {k[len(pre):]: v for k, v in vae_params.items() if k.startswith(pre)}
 
 
-def _encode_all(model, vae_params: dict, images: torch.Tensor, chunk: int) -> torch.Tensor:
+def _encode_all(model, vae_params: dict, images: torch.Tensor, chunk: int | None) -> torch.Tensor:
     """Latent means of every row, `chunk` rows at a time, with the encoder
-    run on `vae_params` (models.encode_all on the state's weights)."""
+    run on `vae_params` (models.encode_all on the state's weights). None:
+    one forward and no Python loop over the row count, which is what a
+    symbolic batch (torch.export) needs."""
     enc = _part(vae_params, "encoder")
+    if chunk is None:
+        return functional_call(model.encoder, enc, (images,))[0]
+    chunk = min(chunk, images.shape[0])
     return torch.cat([functional_call(model.encoder, enc, (images[s:s + chunk],))[0]
                       for s in range(0, images.shape[0], chunk)])
 
@@ -103,7 +115,7 @@ def build_server_state(model, params: dict, fixed_W, images_tr: torch.Tensor,
     'log_vs', 'log_vn', ...}}; fixed_W is the 'dis'-mode view matrix."""
     W = params["gp"]["W"] if "W" in params["gp"] else fixed_W
     X = params["gp"]["X"]
-    Z0 = _encode_all(model, params["vae"], images_tr, min(encode_chunk, images_tr.shape[0]))
+    Z0 = _encode_all(model, params["vae"], images_tr, encode_chunk)
     V_tr = gp.build_effect_rows(X, W, d_tr, q_tr, extra_effects=extra_effects, x_map=x_map)
     v_sig, v_noise = gp.variances_from_log(params["gp"]["log_vs"], params["gp"]["log_vn"])
     v_sig = v_sig.reshape(-1)
@@ -116,15 +128,16 @@ def build_server_state(model, params: dict, fixed_W, images_tr: torch.Tensor,
 
 @torch.no_grad()
 def decode_images(model, vae_params: dict, z: torch.Tensor, chunk: int | None = 512) -> torch.Tensor:
-    """sigmoid(decode(z)) in chunks of at most `chunk` rows (None: one
-    forward), which bounds the activations of a large joint sample; the
-    chunks give the rows a single forward gives. Latents and images are
+    """sigmoid(decode(z)) in chunks of at most `chunk` rows, which bounds
+    the activations of a large joint sample; the chunks give the rows a
+    single forward gives. None: one forward and no Python loop over the row
+    count (a symbolic batch under torch.export). Latents and images are
     float32 whatever the model's compute dtype."""
     dec = _part(vae_params, "decoder")
-    n = z.shape[0]
-    step = n if chunk is None or n <= chunk else chunk
-    return torch.cat([torch.sigmoid(functional_call(model.decoder, dec, (z[s:s + step],)))
-                      for s in range(0, n, step)])
+    if chunk is None or z.shape[0] <= chunk:
+        return torch.sigmoid(functional_call(model.decoder, dec, (z,)))
+    return torch.cat([torch.sigmoid(functional_call(model.decoder, dec, (z[s:s + chunk],)))
+                      for s in range(0, z.shape[0], chunk)])
 
 
 @torch.no_grad()
@@ -193,18 +206,20 @@ def sample_images(model, state: ServerState, d: torch.Tensor, q: torch.Tensor,
 @torch.no_grad()
 def observe(model, state: ServerState, images: torch.Tensor, d: torch.Tensor,
             q: torch.Tensor, *, x_map=None, extra_effects: tuple = (),
-            encode_chunk: int = 1024, row_mask: torch.Tensor | None = None) -> ServerState:
+            encode_chunk: int | None = 1024,
+            row_mask: torch.Tensor | None = None) -> ServerState:
     """Fold new observed images into the serving posterior (streaming
     conditioning): encode them, build their feature rows from the state's
     X, W and extend the core (gp.extend_posterior_core), O(n·R² + R³). The
     same state build_server_state gives with these rows in the training
     set; the GP and VAE parameters stay fixed. row_mask (n,) ∈ {0, 1}:
-    weight-0 rows contribute nothing (their feature rows are zeroed)."""
+    weight-0 rows contribute nothing (their feature rows are zeroed).
+    encode_chunk=None encodes in one forward."""
     V_new, v_sigs = _effect_rows(state, d, q, x_map=x_map, extra_effects=extra_effects)
     if row_mask is not None:
         m = row_mask.to(V_new[0].dtype)[:, None]
         V_new = [v * m for v in V_new]
-    Z_new = _encode_all(model, state.vae_params, images, min(encode_chunk, images.shape[0]))
+    Z_new = _encode_all(model, state.vae_params, images, encode_chunk)
     return state._replace(core=gp.extend_posterior_core(state.core, V_new, v_sigs, Z_new))
 
 
@@ -282,6 +297,272 @@ def x_map_from_meta(meta: dict, in_dim: int):
                          meta.get("rff_lengthscale", 1.0), meta.get("nystrom_idx"))
 
 
+# exported-program entry points: the names and file suffixes of
+# gppvae_tpu/eval/serving.py:360-390. Two differences from the JAX entries,
+# both in the `sig` strings: the indices are int64, and the sample entries
+# take eps f32[b,k,L] where the JAX entries take `seed` and `k_dummy` (a
+# torch.Generator cannot cross the export; k is eps's second dimension).
+# The core is passed and returned as its four tensors.
+_CORE_SIG = "M:f32[R,L], G:f32[R,R], Lb:f32[R,R], v_noise:f32[]"
+_EXE_ENTRIES = {
+    "mean": {"suffix": "", "sig": "call(d:i64[b], q:i64[b]) -> y:f32[b,H,W,C]"},
+    "var": {"suffix": ".var", "sig": "call(d, q) -> (y:f32[b,H,W,C], var:f32[b])"},
+    "sample": {"suffix": ".sample",
+               "sig": "call(d, q, eps:f32[b,k,L]) -> y:f32[b,k,H,W,C]  (independent "
+                      "per-row draws; eps ~ N(0, I) is drawn by the caller)"},
+    "sample_joint": {"suffix": ".joint",
+                     "sig": "call(d, q, eps:f32[b,k,L]) -> y:f32[b,k,H,W,C]  (one coherent "
+                            "scene per draw via the full b×b posterior covariance)"},
+    "observe": {"suffix": ".observe",
+                "sig": f"call({_CORE_SIG}, images:f32[b,H,W,C], d, q, mask:f32[b]) -> "
+                       "(M', G', Lb', v_noise)  (streaming conditioning; mask 0-rows "
+                       "are ignored)"},
+    "sample_core": {"suffix": ".sample_core",
+                    "sig": f"call({_CORE_SIG}, d, q, eps:f32[b,k,L]) -> y:f32[b,k,H,W,C]  "
+                           "(independent per-row draws from an observe-updated core)"},
+    "sample_joint_core": {"suffix": ".joint_core",
+                          "sig": f"call({_CORE_SIG}, d, q, eps:f32[b,k,L]) -> "
+                                 "y:f32[b,k,H,W,C]  (coherent scenes from the updated "
+                                 "core's full b×b posterior covariance)"},
+    "predict_core": {"suffix": ".predict",
+                     "sig": f"call({_CORE_SIG}, d, q) -> (y:f32[b,H,W,C], var:f32[b])  "
+                            "(serve from an observe-updated core; initial core in "
+                            "<path>.core.npz)"},
+}
+_STATEFUL_ENTRIES = ("observe", "predict_core", "sample_core", "sample_joint_core")
+EXE_FORMAT = "torch.export.v1"
+
+
+class _EntryProgram(torch.nn.Module):
+    """One entry of _EXE_ENTRIES as a module to export: the state's tensors
+    are its buffers (baked into the artifact) and `forward` is the library
+    function of that entry. Only the half of the VAE the entry runs is held
+    (the encoder for `observe`, the decoder elsewhere), and a stateful entry
+    holds no core: it takes one. Each buffer is a contiguous copy: the
+    archive writer stores whole storages, and L_B comes column-major out of
+    the Cholesky. `model` gives the architecture and the compute dtype and
+    runs on the buffers (functional_call); it is kept out of the module
+    tree, so its own parameters are not saved as well."""
+
+    def __init__(self, name: str, model, state: ServerState, x_map, extra_effects: tuple):
+        super().__init__()
+        self.name, self.x_map, self.extra_effects = name, x_map, tuple(extra_effects)
+        object.__setattr__(self, "model", model)
+
+        def own(t: torch.Tensor) -> torch.Tensor:
+            return t.detach().clone(memory_format=torch.contiguous_format)
+
+        half = "encoder." if name == "observe" else "decoder."
+        self.vae_keys = [k for k in state.vae_params if k.startswith(half)]
+        for i, k in enumerate(self.vae_keys):
+            self.register_buffer(f"vae_{i}", own(state.vae_params[k]))
+        for f in ("X", "W", "v_sig"):
+            self.register_buffer(f, own(getattr(state, f)))
+        if name not in _STATEFUL_ENTRIES:
+            for f, v in state.core._asdict().items():
+                self.register_buffer(f"core_{f}", own(v))
+
+    def _state(self, core=None) -> ServerState:
+        if core is None:
+            core = [getattr(self, f"core_{f}") for f in gp.PosteriorCore._fields]
+        return ServerState(core=gp.PosteriorCore(*core), X=self.X, W=self.W, v_sig=self.v_sig,
+                           vae_params={k: getattr(self, f"vae_{i}")
+                                       for i, k in enumerate(self.vae_keys)})
+
+    def forward(self, *args):
+        kw = dict(x_map=self.x_map, extra_effects=self.extra_effects)
+        name = self.name
+        core, args = (args[:4], args[4:]) if name in _STATEFUL_ENTRIES else (None, args)
+        state = self._state(core)
+        if name == "observe":
+            images, d, q, mask = args
+            return tuple(observe(self.model, state, images, d, q, encode_chunk=None,
+                                 row_mask=mask, **kw).core)
+        if name in ("mean", "var", "predict_core"):
+            return predict_images(self.model, state, *args, return_var=name != "mean", **kw)
+        d, q, eps = args
+        return sample_images(self.model, state, d, q, None, eps.shape[1], eps=eps,
+                             joint="joint" in name, decode_chunk=None, **kw)
+
+
+def _entry_example(name: str, state: ServerState, image_shape, device):
+    """(example arguments, dynamic_shapes) of one entry: b and k symbolic
+    from 1 up, the core's sizes fixed."""
+    from torch.export import Dim
+
+    b, k = Dim("b", min=1), Dim("k", min=1)
+    n, K, L = 3, 2, state.core.M.shape[1]  # sizes other than 0 and 1, which export specializes
+    idx = torch.zeros(n, dtype=torch.int64, device=device)
+    args, shapes = [idx, idx.clone()], [{0: b}, {0: b}]
+    if name == "observe":
+        args = [torch.zeros((n, *image_shape), device=device), *args,
+                torch.ones(n, device=device)]
+        shapes = [{0: b}, *shapes, {0: b}]
+    elif name.startswith("sample"):
+        args.append(torch.zeros((n, K, L), device=device))
+        shapes.append({0: b, 1: k})
+    if name in _STATEFUL_ENTRIES:
+        args, shapes = [*state.core, *args], [None] * 4 + shapes
+    return tuple(args), tuple(shapes)
+
+
+def _state_to(state: ServerState, device) -> ServerState:
+    def move(t):
+        return t.to(device)
+
+    return ServerState(core=gp.PosteriorCore(*map(move, state.core)), X=move(state.X),
+                       W=move(state.W), v_sig=move(state.v_sig),
+                       vae_params={k: move(v) for k, v in state.vae_params.items()})
+
+
+def _save_core_npz(path: str, core: gp.PosteriorCore) -> None:
+    np.savez(path, **{f: v.detach().cpu().numpy() for f, v in core._asdict().items()})
+
+
+def _load_core_npz(path: str, device) -> gp.PosteriorCore:
+    with np.load(path) as f:
+        return gp.PosteriorCore(**{k: torch.from_numpy(f[k]).to(device) for k in f.files})
+
+
+def _load_user_core(path: str, exe: str, device) -> gp.PosteriorCore:
+    """The --core NPZ of an --exe run, held to the artifact's own initial
+    core: the same four tensors at the same shapes (R and zdim are fixed in
+    the exported graphs), else SystemExit naming the file."""
+    like, _ = load_compiled_program(exe, "core", device)
+    want = {k: tuple(v.shape) for k, v in like._asdict().items()}
+    try:
+        with np.load(path) as f:
+            got = {k: tuple(f[k].shape) for k in f.files}
+    except (OSError, ValueError) as e:
+        raise SystemExit(f"serve: --core {path!r} is not a readable npz: {e}")
+    if got != want:
+        raise SystemExit(f"serve: --core {path!r} holds {got}; {exe!r} serves from a "
+                         f"posterior core of {want} (write one with --observe --save_core)")
+    return _load_core_npz(path, device)
+
+
+def export_compiled_program(model, state: ServerState, path: str, *, x_map=None,
+                            extra_effects: tuple = (), platforms: tuple | None = None,
+                            entry_points: tuple = tuple(_EXE_ENTRIES)) -> dict:
+    """Serialize the whole serving surface with torch.export: the server
+    state (posterior core and the VAE half an entry runs) baked in as
+    buffers, the batch and the sample count symbolic from 1 up.
+
+    The `.srv` artifact needs this package at serve time to rebuild the VAE
+    and the feature map; an exported program is a graph of ATen ops that
+    `torch.export.load(file).module()` answers requests with. Entries (see
+    _EXE_ENTRIES): means, means + variance, K draws (independent and joint;
+    the caller passes ε, whose second size is K) and the stateful
+    `observe` / `predict_core` / `sample_core` / `sample_joint_core`, which
+    take the R-sized posterior core as four tensors, so that a deployment
+    can stream observations and serve the sharpened posterior. The initial
+    core rides in `<path>.core.npz`.
+
+    platforms: torch device types ('cuda', 'cpu') to export for, default
+    the state's own. An exported graph records the device of its constants
+    and factory calls, so each platform gets its own programs: the first
+    at `<path><suffix>`, any further one at `<path><suffix>@<platform>`.
+    Writes `<path>.meta.json` (grid, image shape, zdim, the entry table
+    with file, sig, bytes and export seconds, platforms, torch version,
+    compute dtype) and returns it."""
+    unknown = set(entry_points) - set(_EXE_ENTRIES)
+    if unknown:
+        raise ValueError(f"unknown export entry points: {sorted(unknown)}")
+    platforms = tuple(platforms or (state.core.M.device.type,))
+    apath = os.path.abspath(os.path.expanduser(path))
+    entries: dict = {}
+    total = 0
+    for i, platform in enumerate(platforms):
+        device = resolve_device(platform)
+        st = _state_to(state, device)
+        for name in entry_points:
+            t0 = time.perf_counter()
+            args, shapes = _entry_example(name, st, model.image_shape, device)
+            entry = _EntryProgram(name, model, st, x_map, extra_effects)
+            with torch.no_grad():
+                program = torch.export.export(entry, args, dynamic_shapes={"args": shapes},
+                                              strict=False)
+            fname = apath + _EXE_ENTRIES[name]["suffix"] + (f"@{platform}" if i else "")
+            with open(fname, "wb") as f:  # an open file: save() wants a name to end in .pt2
+                torch.export.save(program, f)
+            total += os.path.getsize(fname)
+            e = entries.setdefault(name, {
+                "file": os.path.basename(fname), "sig": _EXE_ENTRIES[name]["sig"],
+                "bytes": os.path.getsize(fname), "files": {}})
+            e["files"][platform] = os.path.basename(fname)
+            e["export_s"] = round(e.get("export_s", 0.0) + time.perf_counter() - t0, 3)
+    core_npz = None
+    if any(e in entries for e in _STATEFUL_ENTRIES):
+        core_npz = apath + ".core.npz"
+        _save_core_npz(core_npz, state.core)
+    meta = {
+        "format": EXE_FORMAT,
+        "grid": [int(state.X.shape[0]), int(state.W.shape[0])],
+        "image_shape": [int(s) for s in model.image_shape],
+        "zdim": int(state.core.M.shape[1]),
+        "platforms": list(platforms),
+        "entry_points": entries,
+        "core_npz": os.path.basename(core_npz) if core_npz else None,
+        "bytes": entries.get("mean", {}).get("bytes"),
+        "total_bytes": total,
+        "torch": torch.__version__,
+        "compute_dtype": str(model.dtype).removeprefix("torch."),
+    }
+    with open(apath + ".meta.json", "w") as f:
+        json.dump(meta, f, indent=1)
+    return meta
+
+
+def load_compiled_program(path: str, entry: str = "mean", device=None):
+    """(program, meta) of an `export_compiled_program` artifact: `program`
+    is the loaded graph as a module, called as
+    meta["entry_points"][entry]["sig"] says, with tensors on `device`
+    (default: the first platform the artifact was exported for). A device
+    the artifact was not exported for is refused by name. entry="core"
+    returns (PosteriorCore, meta) from the `<path>.core.npz` initial-state
+    sidecar of the stateful entries."""
+    apath = os.path.abspath(os.path.expanduser(path))
+    meta_path = apath + ".meta.json"
+    if not os.path.exists(meta_path):
+        raise FileNotFoundError(
+            f"compiled-program sidecar {meta_path} not found: it records "
+            "the grid bounds used to validate requests."
+        )
+    with open(meta_path) as f:
+        meta = json.load(f)
+    fmt = meta.get("format")
+    if fmt != EXE_FORMAT:
+        raise ValueError(
+            f"{path!r} records format {fmt!r}; this build reads {EXE_FORMAT} "
+            "(a jax.export artifact is served by the JAX package; re-export "
+            "with serve --state … --export_exe)"
+        )
+    platform = torch.device(device).type if device is not None else meta["platforms"][0]
+    if platform not in meta["platforms"]:
+        raise ValueError(
+            f"{path!r} was exported for {meta['platforms']}, not for {platform!r}: an "
+            "exported program records its device; re-export with --exe_platforms "
+            f"{platform} or serve with --device {meta['platforms'][0]}"
+        )
+    if entry == "core":
+        if not meta.get("core_npz"):
+            raise ValueError(
+                f"{path!r} was exported without the stateful entries — "
+                "no core sidecar"
+            )
+        return _load_core_npz(os.path.join(os.path.dirname(apath), meta["core_npz"]),
+                              device if device is not None else platform), meta
+    if entry not in meta.get("entry_points", {}):
+        raise ValueError(
+            f"{path!r} exports {sorted(meta.get('entry_points', {}))}; "
+            f"no entry {entry!r}"
+        )
+    fname = meta["entry_points"][entry]["files"][platform]
+    with open(os.path.join(os.path.dirname(apath), fname), "rb") as f:
+        program = torch.export.load(f).module()
+    return program, meta
+
+
 def _load_observation_npz(path: str, P: int, Q: int, image_shape, err=ValueError):
     """Load and validate an observation npz (images + objects/views, or
     GridDataset's object_ids/view_ids). `err` picks the error type:
@@ -338,38 +619,41 @@ def _index(a, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a), dtype=torch.int64, device=device)
 
 
-def _serve_stdin_loop(model, state: ServerState, x_map, extra: tuple, args,
-                      lines=None, meta: dict | None = None) -> None:
-    """Persistent online serving loop (serve --stdin): one command per input
-    line, one JSON reply line each, EOF ends:
+def _serve_stdin_loop(args, *, grid, image_shape, device, predict, observe, save,
+                      ready: dict | None = None, lines=None) -> None:
+    """Persistent online serving loop (serve --stdin), for either surface:
+    one command per input line, one JSON reply line each, EOF ends:
 
         d:q,d:q,…         answer a request batch (writes a .npz per batch)
         observe <npz>     fold new observed images into the posterior
-        save <path>       persist the current server state + .meta.json
+        save <path>       persist what `save` persists (the server state
+                          under --state, the core npz under --exe)
 
-    Request and observation lines longer than --max_batch run in chunks of
-    that size; the replies are the JAX loop's. `lines` overrides sys.stdin
-    for tests."""
+    The surface is three callables on `device` tensors: predict(d, q) ->
+    (y, var), observe(images, d, q), which updates the posterior it serves
+    from, and save(path). Request and observation lines longer than
+    --max_batch run in chunks of that size, each at its own size (a torch
+    program does not recompile per batch size, so nothing is padded); the
+    replies are the JAX loop's. `ready` adds keys to the first line; `lines`
+    overrides sys.stdin for tests."""
     B = int(args.max_batch)
     if B < 1:
         raise SystemExit("serve: --max_batch must be >= 1")
-    P, Q = int(state.X.shape[0]), int(state.W.shape[0])
-    device = state.core.M.device
+    P, Q = grid
     os.makedirs(args.outdir, exist_ok=True)
-    print(json.dumps({"ready": True, "grid": [P, Q], "max_batch": B,
+    print(json.dumps({"ready": True, "grid": [P, Q], "max_batch": B, **(ready or {}),
                       "commands": ["d:q,…", "observe <npz>", "save <path>"]}), flush=True)
 
     def _observe_line(k: int, path: str) -> None:
-        nonlocal state
-        imgs, dd, qq = _load_observation_npz(path, P, Q, model.image_shape)
+        imgs, dd, qq = _load_observation_npz(path, P, Q, image_shape)
         n = imgs.shape[0]
         t0 = time.perf_counter()
         for s0 in range(0, n, B):
             rows = slice(s0, min(s0 + B, n))
-            state = observe(model, state, torch.from_numpy(imgs[rows]).to(device),
-                            _index(dd[rows], device), _index(qq[rows], device),
-                            x_map=x_map, extra_effects=extra)
-        _sync(state.core.M)
+            observe(torch.from_numpy(imgs[rows]).to(device), _index(dd[rows], device),
+                    _index(qq[rows], device))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
         print(json.dumps({
             "line": k, "observed": int(n),
             "fold_s": round(time.perf_counter() - t0, 5),
@@ -385,7 +669,7 @@ def _serve_stdin_loop(model, state: ServerState, x_map, extra: tuple, args,
                     _observe_line(k, line[len("observe "):].strip())
                 else:
                     path = line[len("save "):].strip()
-                    _resave(path, state, meta or {})
+                    save(path)
                     print(json.dumps({"line": k, "saved": path}), flush=True)
             except (ValueError, OSError, zipfile.BadZipFile) as e:
                 print(json.dumps({"line": k, "error": str(e)}), flush=True)
@@ -401,9 +685,7 @@ def _serve_stdin_loop(model, state: ServerState, x_map, extra: tuple, args,
         imgs, var = [], []
         for s0 in range(0, len(pairs), B):
             rows = slice(s0, min(s0 + B, len(pairs)))
-            y, v = predict_images(model, state, _index(d_all[rows], device),
-                                  _index(q_all[rows], device), x_map=x_map,
-                                  extra_effects=extra, return_var=True)
+            y, v = predict(_index(d_all[rows], device), _index(q_all[rows], device))
             imgs.append(y.cpu().numpy())
             var.append(v.cpu().numpy())
         y = np.concatenate(imgs, axis=0)
@@ -416,6 +698,38 @@ def _serve_stdin_loop(model, state: ServerState, x_map, extra: tuple, args,
             "posterior_var": [round(float(v0), 6) for v0 in var],
             "npz": npz,
         }), flush=True)
+
+
+def _state_surface(model, state: ServerState, x_map, extra: tuple, meta: dict) -> dict:
+    """The stdin loop's three callables over a server state (--state)."""
+    kw = dict(x_map=x_map, extra_effects=extra)
+
+    def predict(d, q):
+        return predict_images(model, state, d, q, return_var=True, **kw)
+
+    def observe_(images, d, q):
+        nonlocal state
+        state = observe(model, state, images, d, q, **kw)
+
+    return dict(predict=predict, observe=observe_, save=lambda path: _resave(path, state, meta))
+
+
+def _exe_surface(exe: str, core: gp.PosteriorCore, device) -> dict:
+    """The stdin loop's three callables over the exported programs alone
+    (--exe): `predict_core` on the current core, `observe` (loaded at the
+    first observe line) with a mask of ones, and the core as a plain npz."""
+    predict_core = load_compiled_program(exe, "predict_core", device)[0]
+    observe_core = None
+
+    def observe_(images, d, q):
+        nonlocal core, observe_core
+        if observe_core is None:
+            observe_core = load_compiled_program(exe, "observe", device)[0]
+        core = gp.PosteriorCore(*observe_core(*core, images, d, q,
+                                              torch.ones(d.shape[0], device=device)))
+
+    return dict(predict=lambda d, q: predict_core(*core, d, q), observe=observe_,
+                save=lambda path: _save_core_npz(path, core))
 
 
 def _repeat_throughput(call, d: torch.Tensor, q: torch.Tensor, P: int, Q: int,
@@ -482,6 +796,89 @@ def _model_from_meta(meta: dict, vae_params: dict, device) -> VAE:
     return model.to(device)
 
 
+def _serve_exe(args) -> None:
+    """Answer --requests straight from a compiled-program artifact
+    (`--export_exe` output): load the entry the flags ask for, validate
+    against the recorded grid, call. No model is rebuilt and no feature map:
+    the loaded graph is the whole serving path. --var, --sample K [--joint]
+    pick the uncertainty entries; --observe folds an npz into the core and
+    --save_core keeps it; --core serves from such a core. ε of --sample is
+    drawn here from torch.Generator().manual_seed(--seed) as sample_images
+    draws it, so the draws are those of `serve --state` with the same
+    flags."""
+    device = resolve_device(args.device)
+    set_float32_precision("float32")
+    core = None
+    if args.core:
+        # the (observe-updated) core is the only state, kept as a plain npz
+        core = _load_user_core(args.core, args.exe, device)
+    elif args.observe:
+        core, _ = load_compiled_program(args.exe, "core", device)
+    if args.observe:
+        observe_core, meta0 = load_compiled_program(args.exe, "observe", device)
+        P, Q = meta0["grid"]
+        imgs, d_new, q_new = _load_observation_npz(
+            args.observe, P, Q, meta0["image_shape"], err=SystemExit)
+        t0 = time.perf_counter()
+        core = gp.PosteriorCore(*observe_core(
+            *core, torch.from_numpy(imgs).to(device), _index(d_new, device),
+            _index(q_new, device), torch.ones(imgs.shape[0], device=device)))
+        _sync(core.M)
+        fold_s = round(time.perf_counter() - t0, 4)
+        _save_core_npz(args.save_core, core)
+        print(json.dumps({"observed": int(imgs.shape[0]), "fold_s": fold_s,
+                          "save_core": args.save_core}), flush=True)
+        if args.requests is None:
+            return
+
+    entry = "mean"
+    if args.sample:
+        if core is not None:  # draws from the observe-updated posterior
+            entry = "sample_joint_core" if args.joint else "sample_core"
+        else:
+            entry = "sample_joint" if args.joint else "sample"
+    elif core is not None:
+        entry = "predict_core"
+    elif args.var:
+        entry = "var"
+    program, meta = load_compiled_program(args.exe, entry, device)
+    P, Q = meta["grid"]
+    pairs = _parse_requests(args.requests, P, Q, err=SystemExit)
+    d = _index([r[0] for r in pairs], device)
+    q = _index([r[1] for r in pairs], device)
+    out = {"n_requests": len(pairs), "exe": args.exe, "entry": entry}
+    lead = tuple(core) if core is not None else ()
+    t0 = time.perf_counter()
+    if args.sample:
+        eps = torch.randn((len(pairs), args.sample, int(meta["zdim"])),
+                          generator=torch.Generator().manual_seed(args.seed)).to(device)
+        y = program(*lead, d, q, eps).cpu().numpy()
+        rows = [y[i] for i in range(len(pairs))]  # one panel row per cell
+        out["samples_per_request"] = args.sample
+        if args.joint:
+            out["joint"] = True
+    else:
+        res = program(*lead, d, q)
+        y, var = res if entry != "mean" else (res, None)
+        y = y.cpu().numpy()
+        rows = [y]
+        if args.var:
+            out["posterior_var"] = [round(float(v0), 6) for v0 in var.cpu()]
+    out["latency_s"] = round(time.perf_counter() - t0, 4)
+    if args.repeat > 0:
+        out.update(_repeat_throughput(program, d, q, P, Q, args.repeat))
+    if args.sustained > 0:
+        out.update(_sustained_throughput(program, d, q, P, Q, args.sustained))
+    os.makedirs(args.outdir, exist_ok=True)
+    panel = os.path.join(args.outdir, "served.png")
+    save_panel(panel, rows)
+    npz = os.path.join(args.outdir, "served.npz")
+    np.savez_compressed(npz, images=y, objects=np.asarray([r[0] for r in pairs], np.int32),
+                        views=np.asarray([r[1] for r in pairs], np.int32))
+    out["panel"], out["npz"] = panel, npz
+    print(json.dumps(out))
+
+
 def main(argv=None):
     """Serve conditional generations from an exported artifact:
 
@@ -501,9 +898,21 @@ def main(argv=None):
     p.add_argument("--state", default=None,
                    help="server-state artifact from generate --export_server")
     p.add_argument("--exe", default=None,
-                   help="compiled-program artifact (not ported yet; see ROADMAP)")
+                   help="compiled-program artifact from --export_exe: torch.export "
+                        "programs (weights baked in, symbolic batch) answered "
+                        "without rebuilding any model — means by default, --var / "
+                        "--sample K [--joint] select the uncertainty entries")
     p.add_argument("--export_exe", default=None, metavar="PATH",
-                   help="serialize the serving surface (not ported yet; see ROADMAP)")
+                   help="with --state: serialize the whole serving surface "
+                        "(torch.export, state baked in, batch and sample count "
+                        "symbolic) — mean/var/sample/sample_joint programs plus the "
+                        "stateful observe/predict_core/sample_core/sample_joint_core "
+                        "entries with the initial core in PATH.core.npz — to PATH* "
+                        "+ PATH.meta.json, then exit")
+    p.add_argument("--exe_platforms", default=None,
+                   help="--export_exe: comma-separated devices to export for (cuda, "
+                        "cpu; default: --device). An exported program records its "
+                        "device and is refused on another")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--requests", default=None,
                    help="comma-separated object:view pairs, e.g. 3:2,5:0")
@@ -540,17 +949,62 @@ def main(argv=None):
     p.add_argument("--save_state", default=None, metavar="PATH",
                    help="--observe: write the updated server state (+ its "
                         ".meta.json sidecar) here")
+    p.add_argument("--core", default=None, metavar="NPZ",
+                   help="--exe: serve from this (previously observe-updated) "
+                        "posterior core instead of the exported initial one — "
+                        "means/variances via the predict_core entry, posterior draws "
+                        "via --sample K [--joint] (the sample_core entries)")
+    p.add_argument("--save_core", default=None, metavar="NPZ",
+                   help="--exe --observe: write the updated posterior core here "
+                        "(feed back via --core)")
     p.add_argument("--outdir", default=".")
     args = p.parse_args(argv)
 
-    if args.exe or args.export_exe:
-        raise NotImplementedError(
-            "serve --exe / --export_exe (the compiled-program artifact) is not "
-            "ported to gppvae_tpu_torch yet (see ROADMAP); the JAX package "
-            "gppvae_tpu has it"
-        )
-    if args.state is None:
+    if (args.state is None) == (args.exe is None):
         raise SystemExit("serve: pass exactly one of --state or --exe")
+    if args.exe:
+        if args.export_exe:
+            raise SystemExit("serve: --export_exe needs --state")
+        if args.stdin:
+            if args.requests or args.sample or args.repeat \
+                    or args.sustained or args.var or args.observe:
+                raise SystemExit(
+                    "serve: --exe --stdin is a persistent loop (requests "
+                    "and 'observe <npz>' are input LINES); drop the other "
+                    "flags"
+                )
+            device = resolve_device(args.device)
+            set_float32_precision("float32")
+            core, meta = load_compiled_program(args.exe, "core", device)
+            if args.core:
+                core = _load_user_core(args.core, args.exe, device)
+            _serve_stdin_loop(args, grid=meta["grid"], image_shape=meta["image_shape"],
+                              device=device, ready={"exe": args.exe},
+                              **_exe_surface(args.exe, core, device))
+            return
+        if args.observe and args.save_core is None:
+            raise SystemExit(
+                "serve: --exe --observe needs --save_core for the updated "
+                "posterior core (answerable later via --core)"
+            )
+        if args.requests is None and not args.observe:
+            raise SystemExit("serve: --exe needs --requests (or --observe)")
+        if args.joint and not args.sample:
+            raise SystemExit("serve: --joint modifies --sample; pass --sample K")
+        if args.sample and args.var:
+            raise SystemExit(
+                "serve: --sample decodes posterior draws; --var reports the "
+                "diagonal of the same posterior — pass one of them"
+            )
+        if (args.repeat or args.sustained) and (
+                args.sample or args.var or args.observe or args.core):
+            raise SystemExit(
+                "serve: --repeat/--sustained (throughput modes) time the"
+                " baked posterior-mean program; drop the other flags"
+            )
+        _serve_exe(args)
+        return
+
     device = resolve_device(args.device)
     set_float32_precision("float32")
     state, meta = load_server_state(args.state, map_location=device)
@@ -563,6 +1017,20 @@ def main(argv=None):
     x_map = x_map_from_meta(meta, state.X.shape[1])
     extra = tuple(meta.get("extra_effects", ()))
     P, Q = int(state.X.shape[0]), int(state.W.shape[0])
+
+    if args.export_exe:
+        if args.stdin or args.sample or args.repeat or args.var \
+                or args.sustained or args.observe:
+            raise SystemExit("serve: --export_exe only serializes; answer "
+                             "requests from the artifact via --exe (fold new "
+                             "observations into the .srv state first with "
+                             "--observe, then re-export)")
+        emeta = export_compiled_program(
+            model, state, args.export_exe, x_map=x_map, extra_effects=extra,
+            platforms=tuple(p0 for p0 in (args.exe_platforms or device.type).split(",") if p0),
+        )
+        print(json.dumps({"export_exe": args.export_exe, **emeta}))
+        return
 
     if args.observe:
         if args.save_state is None:
@@ -600,7 +1068,8 @@ def main(argv=None):
             " posterior-mean path; drop --sample or the throughput flag"
         )
     if args.stdin:
-        _serve_stdin_loop(model, state, x_map, extra, args, meta=meta)
+        _serve_stdin_loop(args, grid=(P, Q), image_shape=model.image_shape, device=device,
+                          **_state_surface(model, state, x_map, extra, meta))
         return
 
     pairs = _parse_requests(args.requests, P, Q, err=SystemExit)

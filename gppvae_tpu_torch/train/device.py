@@ -2,10 +2,9 @@
 
 from __future__ import annotations
 
-import time
-from contextlib import contextmanager
-
 import torch
+
+from gppvae_tpu_torch.utils.timers import PhaseTimer  # noqa: F401  (its home since the move)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -38,23 +37,3 @@ def set_float32_precision(compute_dtype_name: str) -> None:
     compute_dtype(compute_dtype_name)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-
-
-class PhaseTimer:
-    """Wall-clock seconds per named phase, each ended by a device sync."""
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.seconds: dict[str, float] = {}
-
-    def sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
-    @contextmanager
-    def phase(self, name: str):
-        self.sync()
-        t0 = time.perf_counter()
-        yield
-        self.sync()
-        self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0

@@ -138,12 +138,18 @@ class GPPVAETrainResult:
     optimizers: dict | None = None  # {'vae', 'gp'}: the GuardedAdams at the end
 
 
-def _init_view_features(config: GPPVAETrainConfig, dataset: GridDataset,
-                        generator: torch.Generator) -> torch.Tensor:
+_RANDOM_W_KEY = 7  # the JAX trainer's PRNGKey(7) for the same fallback
+
+
+def _init_view_features(config: GPPVAETrainConfig, dataset: GridDataset) -> torch.Tensor:
     """Fixed view features (Q, M_w) float32 from the view auxiliary:
     Fourier features of rotation angles, polynomial features of a linear
-    axis, else random unit rows (drawn from `generator`, so not the JAX
-    package's draw)."""
+    axis, else random unit rows. The random rows come from a generator of
+    their own with a fixed key, as the JAX trainer draws them from
+    PRNGKey(7) (train_gppvae.py:229): they do not move with config.seed and
+    take nothing from the run's generator, so the epoch plans and ε that
+    follow are those of a dataset with a view aux. The values are not the
+    JAX package's: threefry's stream cannot be reproduced here."""
     aux = dataset.view_aux
     if aux.shape[1] == 1 and dataset.periodic_views:
         freqs = config.view_num_freqs
@@ -161,7 +167,8 @@ def _init_view_features(config: GPPVAETrainConfig, dataset: GridDataset,
         pos = torch.from_numpy(np.asarray(aux[:, 0], np.float32))
         return gp.polynomial_view_features(pos, degree=degree)
     Mw = config.view_feature_dim or (2 * config.view_num_freqs + 1)
-    return gp.normalize_rows(torch.randn((dataset.num_views, Mw), generator=generator))
+    return gp.normalize_rows(torch.randn(
+        (dataset.num_views, Mw), generator=torch.Generator().manual_seed(_RANDOM_W_KEY)))
 
 
 def _data_tensors(dataset: GridDataset, device: torch.device) -> dict:
@@ -196,7 +203,7 @@ def _setup(dataset: GridDataset, config: GPPVAETrainConfig, device: torch.device
                                          weights_only=True))
     model.to(device)
 
-    W0 = _init_view_features(config, dataset, generator)
+    W0 = _init_view_features(config, dataset)
     M = config.obj_feature_dim
     gp_init = {
         "X": torch.randn((dataset.num_objects, M), generator=generator) / math.sqrt(M),
@@ -395,7 +402,7 @@ class _Loop:
         row = [*cm.tolist(), float(coeffs.value) / self.num_train,
                math.exp(float(self.gp["log_vs"][0].detach())),  # the product effect
                math.exp(float(self.gp["log_vn"].detach())), float(oos_mse)]
-        return dict(zip(_METRIC_KEYS, row)), timer.seconds, y_pred
+        return dict(zip(_METRIC_KEYS, row)), timer.reset(), y_pred
 
 
 def make_draws(generator: torch.Generator, num_train: int, bs: int, zdim: int) -> Callable:

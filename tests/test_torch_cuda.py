@@ -224,3 +224,78 @@ def test_factor_prep_refuses_bf16(gen):
     Z = torch.randn(64, 4, device="cuda", generator=gen).bfloat16()
     with pytest.raises(TypeError, match="float32"):
         ops.factor_prep(U, Z)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_exported_program_round_trip_on_card(gen, tmp_path, dtype):
+    """`serve --export_exe` then `serve --exe` on the card at the golden
+    size (rbf kernel, an extra object effect): every entry exported for
+    cuda; means, variances and both kinds of draws equal the eager library
+    calls on the same state within 1e-6; the observe entry's core within rel
+    1e-5 of `observe`; one artifact answers b = 1 and k = 1 as well as
+    larger sizes; no kernel launch; and the artifact is refused by name on a
+    device it was not exported for."""
+    from gppvae_tpu_torch.eval import serving
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ds = build_rotated_digits("synthetic", num_objects=10, num_views=8, seed=7)
+    cfg = train_gppvae.GPPVAETrainConfig(
+        zdim=6, epochs=1, batch_size=16, obj_feature_dim=4, view_num_freqs=2,
+        enc_features=(8, 16), dec_features=(16, 8), object_kernel="rbf", rff_features=8,
+        extra_effects=("object",), compute_dtype=dtype)
+    res = train_gppvae.train_gppvae(ds, cfg, device="cuda", log=_Quiet())
+    d, kw = res.data, dict(x_map=res.x_map, extra_effects=cfg.extra_effects)
+    params = {"vae": res.model.state_dict(),
+              "gp": {k: v.detach() for k, v in res.gp_params.items()}}
+    state = serving.build_server_state(res.model, params, None, d["images_tr"], d["d_tr"],
+                                       d["q_tr"], **kw)
+    exe = str(tmp_path / "m.exe")
+    ops.reset_launch_counts()
+    meta = serving.export_compiled_program(res.model, state, exe, **kw)
+    assert meta["platforms"] == ["cuda"] and meta["compute_dtype"] == dtype
+    assert sorted(meta["entry_points"]) == sorted(serving._EXE_ENTRIES)
+
+    core, _ = serving.load_compiled_program(exe, "core", "cuda")
+    for b, k in ((1, 1), (5, 3), (10, 1)):
+        dd, qq = d["d_ho"][:b], d["q_ho"][:b]
+        eps = torch.randn((b, k, 6), generator=torch.Generator().manual_seed(b)).cuda()
+        y, var = serving.predict_images(res.model, state, dd, qq, return_var=True, **kw)
+        ey, evar = serving.load_compiled_program(exe, "var", "cuda")[0](dd, qq)
+        assert ey.is_cuda and ey.dtype == torch.float32 and ey.shape == (b, 32, 32, 1)
+        assert float((ey - y).abs().max()) <= 1e-6 and _rel_err(evar, var) <= 1e-6
+        py, _ = serving.load_compiled_program(exe, "predict_core", "cuda")[0](*core, dd, qq)
+        assert float((py - y).abs().max()) <= 1e-6
+        for entry, joint in (("sample", False), ("sample_joint", True)):
+            want = serving.sample_images(res.model, state, dd, qq, None, k, joint=joint,
+                                         eps=eps, **kw)
+            got = serving.load_compiled_program(exe, entry, "cuda")[0](dd, qq, eps)
+            assert got.shape == (b, k, 32, 32, 1)
+            assert float((got - want).abs().max()) <= 1e-6, (entry, b, k)
+    mask = torch.ones(10, device="cuda")
+    mask[7:] = 0
+    new = serving.load_compiled_program(exe, "observe", "cuda")[0](
+        *core, d["y_ho"], d["d_ho"], d["q_ho"], mask)
+    want = serving.observe(res.model, state, d["y_ho"], d["d_ho"], d["q_ho"], row_mask=mask,
+                           **kw).core
+    for g, w in zip(new, want):
+        assert _rel_err(g, w) <= 1e-5
+    torch.cuda.synchronize()
+    assert set(ops.launch_counts().values()) == {0}
+
+    with pytest.raises(ValueError, match="exported for \\['cuda'\\], not for 'cpu'"):
+        serving.load_compiled_program(exe, "mean", "cpu")
+    with pytest.raises(ValueError, match="not for 'cpu'"):
+        serving.main(["--exe", exe, "--device", "cpu", "--requests", "1:1",
+                      "--outdir", str(tmp_path)])
+    # exported for both: each device gets its own programs
+    both = str(tmp_path / "both.exe")
+    meta = serving.export_compiled_program(res.model, state, both, platforms=("cuda", "cpu"),
+                                           entry_points=("mean",), **kw)
+    assert meta["entry_points"]["mean"]["files"] == {"cuda": "both.exe", "cpu": "both.exe@cpu"}
+    on_cpu = serving.load_compiled_program(both, "mean", "cpu")[0](d["d_ho"].cpu(),
+                                                                   d["q_ho"].cpu())
+    on_card = serving.load_compiled_program(both, "mean", "cuda")[0](d["d_ho"], d["q_ho"])
+    # two devices' convolutions round differently, in bfloat16 at its 8 bits
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    assert not on_cpu.is_cuda and float((on_card.cpu() - on_cpu).abs().max()) <= tol

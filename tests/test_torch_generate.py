@@ -312,9 +312,289 @@ def test_serve_cli_refuses_flag_combinations(runs, flags, match, tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--exe", "--export_exe"])
-def test_compiled_program_flags_are_not_ported(runs, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serving.main(["--state", runs["f32"]["srv"], "--device", "cpu", flag, "x"])
+def test_compiled_program_flags_are_not_ported(runs, flag, tmp_path):
+    """The name dates from when both flags raised NotImplementedError. Now
+    each is held to the refusals that no other test makes: --exe of a path
+    that holds no artifact fails by the sidecar's name, and neither flag
+    goes together with the other surface's."""
+    if flag == "--exe":
+        with pytest.raises(FileNotFoundError, match="compiled-program sidecar .*x.meta.json"):
+            serving.main(["--exe", str(tmp_path / "x"), "--device", "cpu", "--requests", "1:1"])
+        with pytest.raises(SystemExit, match="exactly one of --state or --exe"):
+            serving.main(["--state", runs["f32"]["srv"], "--device", "cpu", "--exe", "x"])
+    else:
+        with pytest.raises(SystemExit, match="--export_exe needs --state"):
+            serving.main(["--exe", str(tmp_path / "x"), "--device", "cpu", "--export_exe", "y"])
+
+
+@pytest.fixture(scope="module")
+def exes(runs):
+    """Each run's exported program, through `serve --state --export_exe`."""
+    out = {}
+    for name, run in runs.items():
+        exe = str(run["dir"] / "m.exe")
+        (rec,) = _cli(serving.main, ["--state", run["srv"], "--device", "cpu",
+                                     "--export_exe", exe])
+        out[name] = dict(exe=exe, meta=rec)
+    return out
+
+
+def _serve_exe(exe, *flags, outdir):
+    return _cli(serving.main, ["--exe", exe["exe"], "--device", "cpu", *flags,
+                               "--outdir", str(outdir)])
+
+
+def _same(ours, theirs, name):
+    """An --exe reply against the --state reply: the loaded graph runs the
+    eager path's ATen ops, but a batch of one may reach another BLAS or
+    convolution routine, so float32 images agree to 1e-6, not to the bit;
+    in a bfloat16 run such a last-bit difference can flip one bfloat16
+    rounding in the decoder (one ulp of a value below 1 is 4e-3)."""
+    np.testing.assert_allclose(ours, theirs, rtol=0, atol=1e-6 if name == "f32" else 4e-3)
+
+
+def _same_var(ours, theirs):
+    assert (ours is None) == (theirs is None)
+    if ours is not None:  # printed to 6 decimals
+        np.testing.assert_allclose(ours, theirs, rtol=0, atol=2e-6)
+
+
+EXE_KEYS = {
+    "export": {"export_exe", "format", "grid", "image_shape", "zdim", "platforms",
+               "entry_points", "core_npz", "bytes", "total_bytes", "torch", "compute_dtype"},
+    "mean": {"n_requests", "exe", "entry", "latency_s", "panel", "npz"},
+    "observe": {"observed", "fold_s", "save_core"},
+}
+
+
+@pytest.mark.parametrize("name", list(RUNS))
+def test_export_exe_then_exe_equals_state(runs, exes, name, tmp_path):
+    """`serve --state m.srv --export_exe m.exe` writes the eight programs, the
+    core npz and the meta; `serve --exe m.exe` then returns what `serve
+    --state` returns for the same flags and seed (see _same): means
+    (with and without --var), --sample K, --sample K --joint, at one request
+    and at several, in the run's compute dtype; the throughput modes run on
+    the mean program."""
+    run, exe = runs[name], exes[name]
+    meta = exe["meta"]
+    assert set(meta) == EXE_KEYS["export"] and meta["format"] == "torch.export.v1"
+    assert meta["compute_dtype"] == ("float32" if name == "f32" else "bfloat16")
+    assert meta["platforms"] == ["cpu"] and meta["grid"] == [10, 8] and meta["zdim"] == 6
+    files = sorted(p.name for p in run["dir"].iterdir() if p.name.startswith("m.exe"))
+    assert files == sorted(["m.exe", "m.exe.var", "m.exe.sample", "m.exe.joint", "m.exe.observe",
+                            "m.exe.sample_core", "m.exe.joint_core", "m.exe.predict",
+                            "m.exe.core.npz", "m.exe.meta.json"])
+    several = _heldout_pairs(run)
+    for i, (req, flags, entry) in enumerate([
+            (several, ["--var"], "var"), (several, [], "mean"), ("3:2", [], "mean"),
+            ("3:2,5:0,3:2", ["--sample", "3", "--seed", "4"], "sample"),
+            ("3:2,5:0,3:2", ["--sample", "3", "--joint", "--seed", "4"], "sample_joint"),
+            ("3:2", ["--sample", "1", "--joint"], "sample_joint")]):
+        (theirs,) = _serve(run, "--requests", req, *flags, outdir=tmp_path / f"s{i}")
+        (ours,) = _serve_exe(exe, "--requests", req, *flags, outdir=tmp_path / f"e{i}")
+        assert ours["entry"] == entry and ours["exe"] == exe["exe"]
+        assert set(ours) - {"exe", "entry"} == set(theirs) - {"state"}
+        a, b = np.load(ours["npz"]), np.load(theirs["npz"])
+        _same(a["images"], b["images"], name)
+        np.testing.assert_array_equal(a["objects"], b["objects"])
+        assert a["objects"].dtype == np.int32 and a["images"].dtype == np.float32
+        _same_var(ours.get("posterior_var"), theirs.get("posterior_var"))
+        assert (tmp_path / f"e{i}" / "served.png").is_file()
+    (rec,) = _serve_exe(exe, "--requests", "3:2,5:0", "--repeat", "2", "--sustained", "3",
+                        outdir=tmp_path / "t")
+    assert set(rec) == (KEYS["throughput"] - {"state"}) | {"exe", "entry"}
+    assert rec["entry"] == "mean" and rec["images_per_sec"] > 0
+    assert rec["sustained_images_per_sec"] > 0
+
+
+@pytest.mark.parametrize("name", list(RUNS))
+def test_exe_observe_save_core_then_core(runs, exes, name, tmp_path):
+    """--exe --observe --save_core folds an npz into the exported initial
+    core and keeps it as a plain npz; --core serves from it: means,
+    variances and draws equal `serve --state` on the state that --observe
+    --save_state wrote; a second --observe on --core equals one over both."""
+    run, exe = runs[name], exes[name]
+    ds = _dataset()
+    ho = ds.heldout_idx
+    obs = {}
+    for part, rows in (("a", ho[:6]), ("b", ho[6:]), ("ab", ho)):
+        obs[part] = str(tmp_path / f"{part}.npz")
+        np.savez_compressed(obs[part], images=ds.images[rows], objects=ds.object_ids[rows],
+                            views=ds.view_ids[rows])
+    req = _heldout_pairs(run)
+    core_ab = str(tmp_path / "ab.core.npz")
+    rec, after = _serve_exe(exe, "--observe", obs["ab"], "--save_core", core_ab,
+                            "--requests", req, "--var", outdir=tmp_path / "e1")
+    assert set(rec) == EXE_KEYS["observe"] and rec["observed"] == 10
+    assert after["entry"] == "predict_core"
+    _, theirs = _serve(run, "--observe", obs["ab"], "--save_state", str(tmp_path / "ab.srv"),
+                       "--requests", req, "--var", outdir=tmp_path / "s1")
+    _same_var(after["posterior_var"], theirs["posterior_var"])
+    _same(np.load(after["npz"])["images"], np.load(theirs["npz"])["images"], name)
+    state_ab, _ = serving.load_server_state(str(tmp_path / "ab.srv"))
+    with np.load(core_ab) as f:
+        assert sorted(f.files) == ["G", "Lb", "M", "v_noise"]
+        for k in f.files:
+            np.testing.assert_allclose(f[k], getattr(state_ab.core, k).numpy(), rtol=1e-5,
+                                       atol=1e-6)
+
+    for flags, entry in ((["--var"], "predict_core"), (["--sample", "2"], "sample_core"),
+                         (["--sample", "2", "--joint"], "sample_joint_core")):
+        (ours,) = _serve_exe(exe, "--core", core_ab, "--requests", "3:2,5:0,3:2", *flags,
+                             outdir=tmp_path / "e2")
+        (want,) = _cli(serving.main, ["--state", str(tmp_path / "ab.srv"), "--device", "cpu",
+                                      "--requests", "3:2,5:0,3:2", *flags,
+                                      "--outdir", str(tmp_path / "s2")])
+        assert ours["entry"] == entry
+        _same(np.load(ours["npz"])["images"], np.load(want["npz"])["images"], name)
+
+    core_a, core_a_b = str(tmp_path / "a.core.npz"), str(tmp_path / "a_b.core.npz")
+    assert len(_serve_exe(exe, "--observe", obs["a"], "--save_core", core_a,
+                          outdir=tmp_path)) == 1
+    _serve_exe(exe, "--core", core_a, "--observe", obs["b"], "--save_core", core_a_b,
+               outdir=tmp_path)
+    with np.load(core_a_b) as two, np.load(core_ab) as one:
+        np.testing.assert_allclose(two["G"], one["G"], rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(two["M"], one["M"], rtol=1e-4, atol=1e-5)
+
+
+def test_exe_stdin_loop_equals_the_state_loop(runs, exes, tmp_path):
+    """The one stdin loop over both surfaces: the same lines (a request past
+    --max_batch with a ragged last chunk, an observe of 5 rows in chunks of
+    2, errors, a save) get the same replies, images and variances under
+    --exe as under --state; `save` writes the core npz, equal to the saved
+    state's core."""
+    run, exe = runs["bf16_polish"], exes["bf16_polish"]
+    ds = _dataset()
+    obs = str(tmp_path / "obs.npz")
+    rows = ds.heldout_idx[:5]
+    np.savez_compressed(obs, images=ds.images[rows], objects=ds.object_ids[rows],
+                        views=ds.view_ids[rows])
+    replies = {}
+    for surface in ("state", "exe"):
+        saved = str(tmp_path / ("saved.srv" if surface == "state" else "saved.core.npz"))
+        lines = ["0:0,1:1,2:2,3:3,4:4", "", "3", "99:0", f"observe {obs}", "0:0,1:1,2:2",
+                 f"save {saved}", "observe /nonexistent.npz", "1:1"]
+        old = sys.stdin
+        sys.stdin = io.StringIO("\n".join(lines) + "\n")
+        try:
+            serve = _serve if surface == "state" else _serve_exe
+            replies[surface] = serve(run if surface == "state" else exe, "--stdin",
+                                     "--max_batch", "2", outdir=tmp_path / surface)
+        finally:
+            sys.stdin = old
+    ours, theirs = replies["exe"], replies["state"]
+    assert set(ours[0]) == KEYS["ready"] | {"exe"} and ours[0]["max_batch"] == 2
+    assert {k: v for k, v in ours[0].items() if k != "exe"} == theirs[0]
+    assert [r["line"] for r in ours[1:]] == [r["line"] for r in theirs[1:]] == [0, 2, 3, 4, 5, 6,
+                                                                                7, 8]
+    for a, b in zip(ours[1:], theirs[1:]):
+        assert set(a) == set(b)
+        if "npz" in a:
+            assert a["n_requests"] == b["n_requests"]
+            _same_var(a["posterior_var"], b["posterior_var"])
+            _same(np.load(a["npz"])["images"], np.load(b["npz"])["images"], "bf16_polish")
+        elif "error" in a:
+            assert a["error"] == b["error"]
+        elif "observed" in a:
+            assert a["observed"] == b["observed"] == 5
+    back, _ = serving.load_server_state(str(tmp_path / "saved.srv"))
+    with np.load(tmp_path / "saved.core.npz") as f:
+        for k in f.files:
+            np.testing.assert_allclose(f[k], getattr(back.core, k).numpy(), rtol=1e-5, atol=1e-6)
+    # the saved core is served from with --core, also by the loop
+    sys.stdin, old = io.StringIO("0:0\n"), sys.stdin
+    try:
+        again = _serve_exe(exe, "--stdin", "--core", str(tmp_path / "saved.core.npz"),
+                           outdir=tmp_path / "again")
+    finally:
+        sys.stdin = old
+    _same_var(again[1]["posterior_var"][:1], ours[5]["posterior_var"][:1])
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--stdin", "--requests", "3:2"], "persistent loop"),
+    (["--stdin", "--sample", "2"], "persistent loop"),
+    (["--stdin", "--repeat", "2"], "persistent loop"),
+    (["--stdin", "--sustained", "2"], "persistent loop"),
+    (["--stdin", "--var"], "persistent loop"),
+    (["--stdin", "--observe", "x.npz"], "persistent loop"),
+    (["--stdin", "--max_batch", "0"], "max_batch"),
+    (["--observe", "x.npz"], "needs --save_core"),
+    ([], "--exe needs --requests"),
+    (["--requests", "3:2", "--joint"], "--joint modifies --sample"),
+    (["--requests", "3:2", "--sample", "2", "--var"], "pass one of them"),
+    (["--requests", "3:2", "--repeat", "2", "--sample", "2"], "baked posterior-mean program"),
+    (["--requests", "3:2", "--sustained", "2", "--var"], "baked posterior-mean program"),
+    (["--requests", "3:2", "--repeat", "2", "--core", "c.npz"], "baked posterior-mean program"),
+    (["--requests", "3:2", "--sustained", "2", "--observe", "x.npz", "--save_core", "c"],
+     "baked posterior-mean program"),
+    (["--requests", "99:0"], "outside"),
+    (["--requests", "3:2:5"], "want object:view"),
+    (["--requests", "3:2", "--core", "BAD_KEYS"], "--core .*bad_keys.npz' holds"),
+    (["--requests", "3:2", "--core", "BAD_SHAPE"], "--core .*bad_shape.npz' holds"),
+    (["--stdin", "--core", "BAD_SHAPE"], "--core .*bad_shape.npz' holds"),
+    (["--requests", "3:2", "--core", "MISSING"], "not a readable npz"),
+])
+def test_serve_exe_cli_refuses_flag_combinations(exes, flags, match, tmp_path):
+    """The flag checks of the JAX CLI's --exe branch, with its messages, and
+    a --core file that is not this artifact's posterior core: other keys,
+    another R, or no file at all."""
+    with np.load(exes["f32"]["exe"] + ".core.npz") as f:
+        core = {k: f[k] for k in f.files}
+    np.savez(tmp_path / "bad_keys.npz", M=core["M"], G=core["G"])
+    np.savez(tmp_path / "bad_shape.npz", **{**core, "M": core["M"][:-1]})
+    stand_ins = {"BAD_KEYS": str(tmp_path / "bad_keys.npz"), "MISSING": str(tmp_path / "no.npz"),
+                 "BAD_SHAPE": str(tmp_path / "bad_shape.npz")}
+    with pytest.raises(SystemExit, match=match):
+        _serve_exe(exes["f32"], *(stand_ins.get(f, f) for f in flags), outdir=tmp_path)
+
+
+@pytest.mark.parametrize("flags", [["--stdin"], ["--sample", "2"], ["--repeat", "2"], ["--var"],
+                                   ["--sustained", "2"], ["--observe", "x.npz"]])
+def test_export_exe_only_serializes(runs, flags, tmp_path):
+    with pytest.raises(SystemExit, match="--export_exe only serializes"):
+        _serve(runs["f32"], "--export_exe", str(tmp_path / "x.exe"), *flags, outdir=tmp_path)
+    assert not list(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("fault,error,match", [
+    ("no_sidecar", FileNotFoundError, "compiled-program sidecar .* not found"),
+    ("jax_format", ValueError, "records format 'jax.export.v2'; this build reads torch.export.v1"),
+    ("no_format", ValueError, "records format None"),
+    ("unknown_entry", ValueError, "no entry 'median'"),
+    ("other_device", ValueError, "exported for \\['cpu'\\], not for 'cuda'"),
+])
+def test_load_compiled_program_errors_name_the_fault(exes, tmp_path, fault, error, match):
+    """A missing sidecar, another format (the JAX package's included), an
+    unknown entry and a device the artifact was not exported for each fail
+    by name, before any program is read."""
+    import shutil
+
+    src = exes["f32"]["exe"]
+    exe = str(tmp_path / "m.exe")
+    for suffix in ("", ".meta.json", ".core.npz"):
+        shutil.copy(src + suffix, exe + suffix)
+    meta = json.loads(open(exe + ".meta.json").read())
+    entry, device = "mean", None
+    if fault == "no_sidecar":
+        os.remove(exe + ".meta.json")
+    elif fault == "jax_format":
+        meta["format"] = "jax.export.v2"
+    elif fault == "no_format":
+        del meta["format"]
+    elif fault == "unknown_entry":
+        entry = "median"
+    elif fault == "other_device":
+        device = "cuda"
+    if fault != "no_sidecar":
+        with open(exe + ".meta.json", "w") as f:
+            json.dump(meta, f)
+    with pytest.raises(error, match=match):
+        serving.load_compiled_program(exe, entry, device)
+    if fault in ("no_sidecar", "jax_format"):  # the CLI fails the same way
+        with pytest.raises(error, match=match):
+            serving.main(["--exe", exe, "--device", "cpu", "--requests", "1:1"])
 
 
 def test_entry_points_default_to_cuda(runs):

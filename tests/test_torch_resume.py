@@ -25,7 +25,7 @@ from gppvae_tpu.data import build_rotated_digits
 from gppvae_tpu.train.batching import epoch_batches as jax_epoch_batches
 from gppvae_tpu.train.batching import epoch_keys
 from gppvae_tpu_torch.checkpoint import CheckpointFormatError, load_tree, save_tree
-from gppvae_tpu_torch.convert import flax_to_state_dict
+from gppvae_tpu_torch.convert import train_state_from_jax
 from gppvae_tpu_torch.train import train_gppvae as tg
 from gppvae_tpu_torch.train import train_vae
 from gppvae_tpu_torch.train.optim import GuardedAdam
@@ -266,21 +266,16 @@ def _jax_plan(rng, epoch, num_train, bs, zdim):
     return [torch.from_numpy(np.array(a)) for a in (batches, weights, eps)]
 
 
-def test_resumed_run_matches_jax_resumed_run(ds, tmp_path):
-    """The JAX trainer interrupted at epoch 2 and resumed to 4, against the
-    port resumed at epoch 2 from that same state (params and both Adams'
-    moments converted) with the JAX draws injected: every history key of
-    epochs 2 and 3, rtol 1e-4."""
-    jcfg = dict(BASE, epochs=2)
-    jout = str(tmp_path / "jax")
-    jtrain.train_gppvae(ds, jtrain.GPPVAETrainConfig(**jcfg, outdir=jout), log=NullLogger())
-    jres = jtrain.train_gppvae(
-        ds, jtrain.GPPVAETrainConfig(**BASE, resume=jout + "/final_state"), log=NullLogger())
-    assert [h["epoch"] for h in jres.history] == [2, 3]
-
-    # the JAX state, restored as its trainer restores it, → the port's
+@pytest.fixture(scope="module")
+def jax_interrupted(ds, tmp_path_factory):
+    """The JAX trainer stopped after epoch 2 of 4: its final_state restored as
+    its trainer restores it, and that state carried across whole by
+    convert.train_state_from_jax (numpy trees in, the port's tree out)."""
+    jout = str(tmp_path_factory.mktemp("jax") / "run")
+    jtrain.train_gppvae(ds, jtrain.GPPVAETrainConfig(**dict(BASE, epochs=2), outdir=jout),
+                        log=NullLogger())
     jcfg4 = jtrain.GPPVAETrainConfig(**BASE)
-    _, params, _, _, rng, _ = jtrain._setup(ds, jcfg4, None, None)
+    _, params, fixed_W, _, rng, _ = jtrain._setup(ds, jcfg4, None, None)
     jopts = {"ov_state": jtrain.make_optimizer(jcfg4.lr_vae, jcfg4.clip_grad_norm, 1),
              "og_state": jtrain.make_optimizer(jcfg4.lr_gp, jcfg4.clip_grad_norm, 1)}
     jstate = load_train_state(jout + "/final_state", {
@@ -293,37 +288,78 @@ def test_resumed_run_matches_jax_resumed_run(ds, tmp_path):
     model, gp_params, fixed_W, data, n = tg._setup(ds, cfg, torch.device("cpu"), gen)
     loop = tg._Loop(model, gp_params, fixed_W, data, n, cfg)
 
-    def vae_tensors(tree):
-        return flax_to_state_dict(jax.tree.map(np.asarray, tree))
-
-    def gp_tensors(tree):
-        return {k: torch.tensor(np.asarray(v)) for k, v in tree.items()}
-
-    def adam_sd(opt, jopt_state, names, convert):
-        """The GuardedAdam state_dict holding optax's moments and count,
-        in the port's parameter order."""
+    def adam_np(jopt_state):
         adam = jopt_state["inner"][0]  # optax ScaleByAdamState
-        mu, nu, count = convert(adam.mu), convert(adam.nu), float(adam.count)
-        sd = opt.state_dict()
-        sd["steps"] = int(count)
-        sd["adam"]["state"] = {i: {"step": torch.tensor(count), "exp_avg": mu[name],
-                                   "exp_avg_sq": nu[name]} for i, name in enumerate(names)}
-        return sd
+        return {"mu": jax.tree.map(np.asarray, adam.mu), "nu": jax.tree.map(np.asarray, adam.nu),
+                "count": np.asarray(adam.count)}
 
-    state = tg._train_state(loop, None, gen, 2, tg._shape_config(cfg, ds))
-    state.update(
-        vae=vae_tensors(jstate["params"]["vae"]), gp=gp_tensors(jstate["params"]["gp"]),
-        opt_vae=adam_sd(loop.opt_vae, jstate["ov_state"],
-                        [k for k, _ in model.named_parameters()], vae_tensors),
-        opt_gp=adam_sd(loop.opt_gp, jstate["og_state"], sorted(gp_params), gp_tensors))
-    save_tree(str(tmp_path / "converted"), state)
+    state = train_state_from_jax(
+        jax.tree.map(np.asarray, jstate["params"]), adam_np(jstate["ov_state"]),
+        adam_np(jstate["og_state"]), int(jstate["epoch"]),
+        template=tg._train_state(loop, None, gen, 0, tg._shape_config(cfg, ds)))
+    assert state["epoch"] == 2 and state["opt_vae"]["steps"] == state["opt_gp"]["steps"] > 0
+    return dict(jout=jout, jstate=jstate, rng=rng, state=state, n=n)
+
+
+def test_resumed_run_matches_jax_resumed_run(ds, tmp_path, jax_interrupted):
+    """The JAX trainer interrupted at epoch 2 and resumed to 4, against the
+    port resumed at epoch 2 from that same state (params and both Adams'
+    moments converted) with the JAX draws injected: every history key of
+    epochs 2 and 3, rtol 1e-4."""
+    ji = jax_interrupted
+    jres = jtrain.train_gppvae(
+        ds, jtrain.GPPVAETrainConfig(**BASE, resume=ji["jout"] + "/final_state"),
+        log=NullLogger())
+    assert [h["epoch"] for h in jres.history] == [2, 3]
+    save_tree(str(tmp_path / "converted"), ji["state"])
 
     res = tg.train_gppvae(
         ds, tg.GPPVAETrainConfig(**BASE, resume=str(tmp_path / "converted")), device="cpu",
         draws=lambda epoch: [t.long() if i == 0 else t
-                             for i, t in enumerate(_jax_plan(rng, epoch, n, 16, 8))],
+                             for i, t in enumerate(_jax_plan(ji["rng"], epoch, ji["n"], 16, 8))],
         log=NullLogger())
     assert [h["epoch"] for h in res.history] == [2, 3]
     for ours, theirs in zip(res.history, jres.history):
         for k in tg._METRIC_KEYS:
             np.testing.assert_allclose(ours[k], theirs[k], rtol=1e-4, err_msg=k)
+
+
+def test_converted_jax_state_is_generated_from_and_served(ds, tmp_path, jax_interrupted):
+    """The converted train state through the port's CLIs: `generate
+    --export_server` folds it, `serve --state` answers the held-out cells;
+    images and variances equal the JAX package's serving functions on the
+    JAX state (rtol 1e-4, atol 1e-5)."""
+    from gppvae_tpu.eval import serving as jserving
+    from gppvae_tpu.models import VAE as JVAE
+    from gppvae_tpu_torch.eval import generate, serving
+
+    ji = jax_interrupted
+    run = tmp_path / "run"
+    run.mkdir()
+    save_tree(str(run / "state_0002"), ji["state"])
+    (run / "config.json").write_text(json.dumps({
+        **{k: BASE[k] for k in ("zdim", "enc_features", "dec_features")}, "seed": 0,
+        "data": "synthetic", "dataset": {"num_objects": 12, "num_views": 8}}))
+    srv = str(tmp_path / "m.srv")
+    generate.main(["--state", str(run / "state_0002"), "--device", "cpu", "--export_server", srv])
+    d_ho, q_ho = ds.object_ids[ds.heldout_idx], ds.view_ids[ds.heldout_idx]
+    serving.main(["--state", srv, "--device", "cpu", "--var", "--outdir", str(tmp_path / "out"),
+                  "--requests", ",".join(f"{a}:{b}" for a, b in zip(d_ho, q_ho))])
+    served = np.load(tmp_path / "out" / "served.npz")
+    state, _ = serving.load_server_state(srv)
+
+    jmodel = JVAE(zdim=8, image_shape=tuple(ds.image_shape), enc_features=(8, 16),
+                  dec_features=(16, 8))
+    tr = ds.train_idx
+    jsrv = jserving.build_server_state(
+        jmodel, ji["jstate"]["params"], None, jnp.asarray(ds.images[tr]),
+        jnp.asarray(ds.object_ids[tr]), jnp.asarray(ds.view_ids[tr]))
+    y, var = jserving.predict_images(jmodel, jsrv, jnp.asarray(d_ho), jnp.asarray(q_ho),
+                                     return_var=True)
+    np.testing.assert_allclose(served["images"], np.asarray(y), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(state.core.M.numpy(), np.asarray(jsrv.core.M), rtol=1e-3, atol=1e-5)
+    port_var = serving.predict_images(
+        serving._model_from_meta(serving.load_server_state(srv)[1], state.vae_params, "cpu"),
+        state, torch.as_tensor(d_ho, dtype=torch.int64), torch.as_tensor(q_ho, dtype=torch.int64),
+        return_var=True)[1]
+    np.testing.assert_allclose(port_var.numpy(), np.asarray(var), rtol=1e-4, atol=1e-5)

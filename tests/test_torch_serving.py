@@ -16,6 +16,8 @@ through convert, and no test trains JAX again. Tolerances:
     chained-observe drift bound of the JAX package's own test.
 """
 
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -483,3 +485,160 @@ def test_generate_draws_are_seeded(trained):
     b, _ = generate.sample_posterior_sweep(ts, ds, 1, 3, draw_seed=2, **ARCH)
     np.testing.assert_array_equal(b, generate.sample_posterior_sweep(ts, ds, 1, 3, draw_seed=2,
                                                                      **ARCH)[0])
+
+
+# -- the exported program against the JAX package's exported program -----------
+
+EXE_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def exported(trained, tmp_path_factory):
+    """Both packages' compiled-program artifacts of the same state, all eight
+    entries each: the JAX package's for the CPU, the port's from the JAX
+    state carried over. Programs are loaded once and kept."""
+    root = tmp_path_factory.mktemp("exe")
+    t = trained
+    jmeta = jserving.export_compiled_program(t["jres"].model, t["jstate"], str(root / "j.exe"),
+                                             platforms=("cpu",))
+    meta = serving.export_compiled_program(t["model"], t["state"], str(root / "t.exe"))
+    programs = {}
+
+    def program(which, entry):
+        if (which, entry) not in programs:
+            load = jserving.load_compiled_program if which == "jax" \
+                else serving.load_compiled_program
+            programs[which, entry] = load(str(root / f"{which[0]}.exe"), entry=entry)[0]
+        return programs[which, entry]
+
+    return dict(root=root, jmeta=jmeta, meta=meta, program=program)
+
+
+def test_export_writes_the_jax_packages_entries(trained, exported):
+    """The same eight names and file suffixes, the core sidecar and a meta
+    with the grid, the image shape and each entry's file, sig and bytes; an
+    unknown entry name raises as in the JAX function."""
+    meta, jmeta, root = exported["meta"], exported["jmeta"], exported["root"]
+    assert serving._EXE_ENTRIES.keys() == jserving._EXE_ENTRIES.keys()
+    for name, e in serving._EXE_ENTRIES.items():
+        assert e["suffix"] == jserving._EXE_ENTRIES[name]["suffix"]
+        entry = meta["entry_points"][name]
+        assert entry["file"] == "t.exe" + e["suffix"] == entry["files"]["cpu"]
+        assert entry["sig"] == e["sig"] and "i64" in serving._EXE_ENTRIES["mean"]["sig"]
+        assert entry["bytes"] == (root / entry["file"]).stat().st_size > 0
+        if name.startswith("sample"):
+            assert "eps:f32[b,k,L]" in e["sig"] and "seed" not in e["sig"]
+    assert meta["format"] == "torch.export.v1" and jmeta["format"] == "jax.export.v2"
+    assert meta["grid"] == jmeta["grid"] == [10, 8]
+    assert meta["image_shape"] == jmeta["image_shape"] == [32, 32, 1]
+    assert meta["zdim"] == 8 and meta["platforms"] == ["cpu"]
+    assert meta["compute_dtype"] == "float32" and meta["torch"] == torch.__version__
+    assert meta["core_npz"] == "t.exe.core.npz" and (root / "t.exe.core.npz").is_file()
+    assert json.loads((root / "t.exe.meta.json").read_text()) == meta
+    # only the half an entry runs is baked in: observe the encoder, the rest the decoder
+    assert meta["total_bytes"] == sum(e["bytes"] for e in meta["entry_points"].values())
+    with pytest.raises(ValueError, match="unknown export entry points: \\['median'\\]"):
+        serving.export_compiled_program(trained["model"], trained["state"], str(root / "x.exe"),
+                                        entry_points=("mean", "median"))
+    partial = serving.export_compiled_program(trained["model"], trained["state"],
+                                              str(root / "p.exe"), entry_points=("mean", "var"))
+    assert partial["core_npz"] is None and not (root / "p.exe.core.npz").exists()
+    with pytest.raises(ValueError, match="without the stateful entries"):
+        serving.load_compiled_program(str(root / "p.exe"), "core")
+    with pytest.raises(ValueError, match="no entry 'observe'"):
+        serving.load_compiled_program(str(root / "p.exe"), "observe")
+
+
+def _exe_request(t, b):
+    d = t["ho"]["d"][[0, 0, 1, 2, 3][:b]]  # b = 5 asks for one cell twice
+    q = t["ho"]["q"][[0, 0, 1, 2, 3][:b]]
+    return d, q
+
+
+@pytest.mark.parametrize("b", [1, 5])
+@pytest.mark.parametrize("entry", ["mean", "var", "predict_core"])
+def test_exported_means_and_variances_match_jax(trained, exported, entry, b):
+    """One artifact at b = 1 and b = 5: the port's program against the JAX
+    package's program, and against the port's eager predict_images (the
+    graph is the eager path's ops: within 1e-6, a batch of one may reach
+    another BLAS routine)."""
+    t = trained
+    d, q = _exe_request(t, b)
+    td, tq = torch.as_tensor(d, dtype=torch.int64), torch.as_tensor(q, dtype=torch.int64)
+    core = serving.load_compiled_program(str(exported["root"] / "t.exe"), "core")[0]
+    jcore = jserving.load_compiled_program(str(exported["root"] / "j.exe"), "core")[0]
+    lead, jlead = ((tuple(core),), (jcore,)) if entry == "predict_core" else (((),), ())
+    got = exported["program"]("torch", entry)(*lead[0], td, tq)
+    want = exported["program"]("jax", entry).call(*jlead, jnp.asarray(d), jnp.asarray(q))
+    eager = serving.predict_images(t["model"], t["state"], td, tq, return_var=entry != "mean")
+    if entry == "mean":
+        got, want, eager = (got,), (want,), (eager,)
+    assert got[0].shape == (b, 32, 32, 1) and got[0].dtype == torch.float32
+    for g, w, e in zip(got, want, eager):
+        _close(g, w, **EXE_TOL)
+        _close(g, e, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("b", [1, 5])
+@pytest.mark.parametrize("entry", ["sample", "sample_joint", "sample_core", "sample_joint_core"])
+def test_exported_draws_match_jax(trained, exported, entry, b, k):
+    """The sample entries with the ε that the JAX entry draws from its seed
+    argument, jax.random.normal(PRNGKey(seed), (b, K, L)), injected; b and k
+    of 1 and more from the one artifact."""
+    t = trained
+    d, q = _exe_request(t, b)
+    seed = 5
+    # drawn in the JAX state's dtype, as its sample_images does inside the program
+    eps = np.array(jax.random.normal(jax.random.PRNGKey(seed), (b, k, 8),
+                                     t["jstate"].core.M.dtype), np.float32)
+    jargs = (jnp.asarray(d), jnp.asarray(q), jnp.int32(seed), jnp.zeros((k,), jnp.int32))
+    targs = (torch.as_tensor(d, dtype=torch.int64), torch.as_tensor(q, dtype=torch.int64),
+             torch.from_numpy(eps))
+    if entry.endswith("core"):
+        jargs = (jserving.load_compiled_program(str(exported["root"] / "j.exe"), "core")[0],
+                 *jargs)
+        targs = (*serving.load_compiled_program(str(exported["root"] / "t.exe"), "core")[0],
+                 *targs)
+    got = exported["program"]("torch", entry)(*targs)
+    want = exported["program"]("jax", entry).call(*jargs)
+    assert got.shape == (b, k, 32, 32, 1)
+    _close(got, want, **EXE_TOL)
+    eager = serving.sample_images(t["model"], t["state"], targs[-3], targs[-2], None, k,
+                                  joint="joint" in entry, eps=targs[-1], decode_chunk=None)
+    _close(got, eager, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("b", [1, 5])
+def test_exported_observe_matches_jax_with_masked_rows(trained, exported, b):
+    """core' = observe(core, images, d, q, mask): b real rows and three
+    weight-0 rows of noise against the JAX entry; the masked rows change
+    nothing; predict_core on the new core answers as the JAX one does."""
+    t = trained
+    y, d, q = t["ho"]["y"][:b], t["ho"]["d"][:b], t["ho"]["q"][:b]
+    junk = np.random.default_rng(0).random((3, 32, 32, 1), np.float32)
+    images = np.concatenate([y, junk])
+    dd, qq = np.r_[d, d[:1], d[:1], d[:1]], np.r_[q, q[:1], q[:1], q[:1]]
+    mask = np.r_[np.ones(b, np.float32), np.zeros(3, np.float32)]
+    core = serving.load_compiled_program(str(exported["root"] / "t.exe"), "core")[0]
+    jcore = jserving.load_compiled_program(str(exported["root"] / "j.exe"), "core")[0]
+    new = exported["program"]("torch", "observe")(
+        *core, torch.from_numpy(images), torch.as_tensor(dd, dtype=torch.int64),
+        torch.as_tensor(qq, dtype=torch.int64), torch.from_numpy(mask))
+    jnew = exported["program"]("jax", "observe").call(
+        jcore, jnp.asarray(images), jnp.asarray(dd), jnp.asarray(qq), jnp.asarray(mask))
+    for g, w in zip(new, jnew):
+        _close(g, w, **EXE_TOL)
+    unmasked = exported["program"]("torch", "observe")(
+        *core, torch.from_numpy(y), torch.as_tensor(d, dtype=torch.int64),
+        torch.as_tensor(q, dtype=torch.int64), torch.ones(b))
+    for g, w in zip(new, unmasked):
+        _close(g, w, rtol=1e-6, atol=1e-7)
+    td, tq = torch.as_tensor(d, dtype=torch.int64), torch.as_tensor(q, dtype=torch.int64)
+    py, pvar = exported["program"]("torch", "predict_core")(*new, td, tq)
+    jy, jvar = exported["program"]("jax", "predict_core").call(jnew, jnp.asarray(d),
+                                                               jnp.asarray(q))
+    _close(py, jy, **EXE_TOL)
+    _close(pvar, jvar, **EXE_TOL)
+    _, v0 = exported["program"]("torch", "var")(td, tq)
+    assert bool((pvar < v0).all())  # the observed cells' variance fell

@@ -181,6 +181,66 @@ class _Quiet:
         pass
 
 
+@pytest.mark.parametrize("mode", ["dis", "joint"])
+def test_twelve_epoch_trajectory_matches_jax_at_dispatch_10(mode):
+    """The accuracy protocol runs the JAX trainer's fused path at
+    epochs_per_dispatch=10 (validate.py:134), every other parity trajectory
+    here at 1 and for 2 epochs. 12 epochs (one dispatch of 10, one of 2)
+    with the reference's draws injected: every history key at rtol 1e-4, so
+    neither the dispatch size nor a drift that needs more than 2 epochs to
+    show separates the port from the reference."""
+    g = _golden(mode)
+    jcfg = jtrain.GPPVAETrainConfig(**{**GOLDEN, **CASES[mode], "epochs": 12,
+                                       "epochs_per_dispatch": 10})
+    jres = jtrain.train_gppvae(g["ds"], jcfg, log=_Quiet())
+
+    def draws(epoch):
+        _, batches, weights, eps = _jax_plan(g["rng"], epoch, g["num_train"], 16, 6)
+        b, w, e = _to_torch(batches, weights, eps)
+        return b.long(), w, e
+
+    cfg = train_gppvae.GPPVAETrainConfig(**{**GOLDEN, **CASES[mode], "epochs": 12})
+    res = train_gppvae.train_gppvae(g["ds"], cfg, device="cpu", init_params=g["init"],
+                                    draws=draws, log=_Quiet())
+    assert [h["epoch"] for h in res.history] == [h["epoch"] for h in jres.history] \
+        == list(range(12))
+    for ours, theirs in zip(res.history, jres.history):
+        for k in train_gppvae._METRIC_KEYS:
+            np.testing.assert_allclose(ours[k], theirs[k], rtol=1e-4,
+                                       err_msg=f"epoch {ours['epoch']} {k}")
+
+
+def test_random_view_features_come_from_a_fixed_key():
+    """With no one-column view aux the view features are random unit rows,
+    drawn from a generator of their own with a fixed key, as the JAX trainer
+    draws them from PRNGKey(7): W0 is the same at two training seeds, and
+    the run's generator gives the plans and ε of a dataset that has an aux
+    column."""
+    import dataclasses
+
+    ds = _golden("joint")["ds"]
+    auxless = dataclasses.replace(ds, view_aux=np.zeros((ds.num_views, 2), np.float32))
+    runs = {}
+    for name, data, seed in (("aux", ds, 7), ("auxless", auxless, 7),
+                             ("auxless_seed3", auxless, 3)):
+        cfg = train_gppvae.GPPVAETrainConfig(**{**GOLDEN, "seed": seed, "epochs": 1})
+        gen = torch.Generator().manual_seed(seed)
+        _, gp_params, _, _, n = train_gppvae._setup(data, cfg, torch.device("cpu"), gen)
+        runs[name] = (gp_params["W"].detach(), gp_params["X"].detach(),
+                      train_gppvae.make_draws(gen, n, cfg.batch_size, cfg.zdim)(0))
+    W = runs["auxless"][0]
+    assert W.shape == (8, 5) and torch.equal(W, runs["auxless_seed3"][0])
+    np.testing.assert_allclose(W.norm(dim=1).numpy(), 1.0, rtol=1e-6)
+    assert not torch.equal(W, runs["aux"][0])  # Fourier rows there
+    assert torch.equal(runs["auxless"][1], runs["aux"][1])  # X0: the same later draws
+    assert not torch.equal(runs["auxless"][1], runs["auxless_seed3"][1])
+    for a, b in zip(runs["auxless"][2], runs["aux"][2]):
+        assert torch.equal(a, b)
+    res = train_gppvae.train_gppvae(auxless, train_gppvae.GPPVAETrainConfig(
+        **{**GOLDEN, "epochs": 1}), device="cpu", log=_Quiet())
+    assert np.isfinite(res.history[0]["oos_mse"])
+
+
 def test_cli_entry_points_on_cpu(tmp_path):
     ops.reset_launch_counts()
     vae = train_vae.main([*GOLDEN_CLI, "--epochs", "1", "--outdir", str(tmp_path / "vae")])
@@ -251,6 +311,10 @@ def test_package_imports_no_jax(tmp_path):
         "                   '--export_server', run + '/m.srv'])\n"
         "    serving.main(['--state', run + '/m.srv', '--device', 'cpu', '--requests',\n"
         "                  '1:2,3:0', '--sample', '2', '--joint', '--outdir', run + '/served'])\n"
+        "serving.main(['--state', run + '/m.srv', '--device', 'cpu', '--export_exe',\n"
+        "              run + '/m.exe'])\n"
+        "serving.main(['--exe', run + '/m.exe', '--device', 'cpu', '--requests', '1:2,3:0',\n"
+        "              '--sample', '2', '--joint', '--outdir', run + '/served_exe'])\n"
         "from gppvae_tpu_torch.train import train_cvae\n"
         f"train_cvae.main({[*GOLDEN_CLI, '--epochs', '1']!r}"
         " + ['--outdir', sys.argv[1] + '/cvae'])\n"
@@ -268,6 +332,11 @@ def test_package_imports_no_jax(tmp_path):
     assert out.returncode == 0, out.stderr[-3000:]
     assert "NO_JAX_OK" in out.stdout
     assert (tmp_path / "options" / "served" / "served.npz").is_file()
+    # the exported program of the bfloat16 rbf-nystrom run answers as --state
+    # does (within one bfloat16 rounding of a value below 1)
+    np.testing.assert_allclose(
+        np.load(tmp_path / "options" / "served_exe" / "served.npz")["images"],
+        np.load(tmp_path / "options" / "served" / "served.npz")["images"], rtol=0, atol=1e-2)
 
     # and no source of the port, nor chip_smoke.py or validate_torch.py,
     # names the JAX package or a JAX library
