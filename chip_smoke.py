@@ -75,12 +75,30 @@ Phases, one per printed line group; any failure ends the run non-zero:
      train-mean, no kernel launch in the VAE, LIVAE and CVAE stages and one
      of each kernel per epoch in dis and joint; then train-cvae for 2
      epochs at the same width through its main(argv);
-  9. the `kernels` line (each kernel at the main path's shape, launches
-     summed over the training paths 4, 5a-d, 7, 8), then the last line:
-     {"ok": true, "device": ...}.
+  9. data parallelism (gppvae_tpu_torch/parallel/): one RankPool of 2 gloo
+     ranks, both on cuda:0 (NCCL takes one rank per card; gloo all-reduces
+     CUDA tensors, and only all_reduce and broadcast are used), running
+     functions of parallel/dryrun.py. (a) GPPVAE-joint at the slice's width
+     (P = 400 × Q = 16, 5,700 rows, zdim 16, R = 56, f32, bs 128, from path
+     4's vae_weights), 2 epochs on 2 ranks against the same run in one
+     process, run twice: every history key within max(1e-4, 10 × the two
+     single runs' spread); each rank launches each kernel once per epoch
+     (factor_prep on its 2,850 rows) and no plain version on a CUDA tensor;
+     the collectives of each epoch (calls, bytes, the largest), none larger
+     than the gradient all-reduce; sec/epoch beside one process's; then
+     parallel.dryrun on the same ranks (the small config, and the same
+     collectives at 53 and 56 training rows); (b) train_vae, 1 epoch at the
+     same width, on 2 ranks against one process (twice); (c) the data-
+     parallel fold, predict_images (with variances) and observe of (a)'s
+     trained params against the single-process serving calls, max abs err /
+     max |·| ≤ 1e-5;
+ 10. the `kernels` line (each kernel at the main path's shape, launches
+     summed over the training paths 4, 5a-d, 7, 8 and 9a's ranks), then the
+     last line: {"ok": true, "device": ...}.
 
 Every path (4, 5a-d, 6 per run, each run of 7, 8) sets the kernels' counts
-to 0 just before it and reads them just after.
+to 0 just before it and reads them just after; in path 9 each rank does so
+around its own run (parallel/dryrun.py), and its counts come back with it.
 """
 
 from __future__ import annotations
@@ -102,9 +120,10 @@ import numpy as np
 import torch
 
 # (N, R, L); the first of each is the main path's (phase 4), (332, 232, 32)
-# path (b)'s, (5700, 560, 16) path (d)'s; from R = 560 past the TPU kernel's 512
+# path (b)'s, (5700, 560, 16) path (d)'s, (2850, 56, 16) one rank's shard in
+# path 9; from R = 560 past the TPU kernel's 512
 SHAPES_FACTOR_PREP = [(5700, 56, 16), (5701, 56, 16), (6401, 256, 16), (256, 2048, 8),
-                      (332, 232, 32), (5700, 560, 16)]
+                      (332, 232, 32), (5700, 560, 16), (2850, 56, 16)]
 SHAPES_NLL_CORE = [(5700, 56, 16), (332, 232, 32), (5700, 560, 16), (6400, 600, 16),
                    (6400, 1024, 16), (6400, 2048, 8)]
 FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores (NVIDIA's data sheet)
@@ -158,6 +177,15 @@ BASELINE_ABS_BOUND = 1e-6
 PROTOCOL_PRETRAIN, PROTOCOL_EPOCHS = 60, 150
 PROTOCOL_ARGS = ["--data", "sklearn", "--num_objects", "180", "--num_views", "16",
                  "--seed", "0", "--device", "cuda"]
+# path 9: the slice's grid and widths (the trainers' defaults: zdim 16, bs 128,
+# encoder (32, 64, 128), xdim 8 × 7 view features = R 56), 2 ranks on one card
+DP_WORLD, DP_DEVICE = 2, "cuda:0"
+DP_DATA = dict(source="synthetic", num_objects=400, num_views=16, seed=0)
+DP_GPPVAE = dict(mode="joint", epochs=2, seed=0)
+DP_VAE = dict(epochs=1, seed=0)
+# ranks vs one process: at least this, or 10× the spread of two single runs
+DP_REL_FLOOR = 1e-4
+DP_SERVE_REL_BOUND = 1e-5  # serving: max abs err / max |·|, fp32 sums in another order
 
 
 def say(*parts) -> None:
@@ -1029,7 +1057,120 @@ def path_protocol(tmp: str) -> dict:
     return counts
 
 
+def _worst_rel(a: list[dict], b: list[dict], keys) -> float:
+    return max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-30) for x, y in zip(a, b) for k in keys)
+
+
+def dp_against_one(label: str, ranks: list[dict], singles: list[dict], keys) -> float:
+    """Every rank's history against the first single-process run, within
+    max(DP_REL_FLOOR, 10 × the two single runs' spread); returns the worst."""
+    spread = _worst_rel(singles[1]["history"], singles[0]["history"], keys)
+    bound = max(DP_REL_FLOOR, 10 * spread)
+    worst = max(_worst_rel(r["history"], singles[0]["history"], keys) for r in ranks)
+    say(f"{label}: {len(ranks)} ranks vs one process, worst relative difference over {keys} "
+        f"{worst:.3e}; two single-process runs differ by {spread:.3e}; bound {bound:.1e}")
+    check(worst <= bound, f"{label}: the ranks equal one process")
+    check(all(r["digest"] == ranks[0]["digest"] for r in ranks),
+          f"{label}: every rank holds the same parameter bits")
+    return worst
+
+
+def path_dp(tmp: str, card: str) -> dict:
+    """Path 9 (see the module docstring). Returns the ranks' summed launch
+    counts of (a)."""
+    from gppvae_tpu_torch.data import build_rotated_digits
+    from gppvae_tpu_torch.eval import serving
+    from gppvae_tpu_torch.models import VAE
+    from gppvae_tpu_torch.parallel import RankPool, dryrun
+    from gppvae_tpu_torch.train import train_vae
+
+    say(f"== 9 data parallelism: {DP_WORLD} gloo ranks on {DP_DEVICE}; (a) GPPVAE-joint "
+        "2 epochs at the slice's width, (b) train_vae 1 epoch, (c) DP serving")
+    t_path = time.perf_counter()
+    config = {**DP_GPPVAE, "vae_weights": f"{tmp}/vae/{train_vae.WEIGHTS_FILE}"}
+    with RankPool(DP_WORLD, backend="gloo", device=DP_DEVICE) as pool:
+        say(f"9 {DP_WORLD} ranks joined in {time.perf_counter() - t_path:.2f} s")
+        # (a)
+        singles = [dryrun.train_gppvae(DP_DATA, config, "cuda") for _ in range(2)]
+        t0 = time.perf_counter()
+        ranks = pool.run(dryrun.train_gppvae_rank, DP_DATA, config)
+        wall = time.perf_counter() - t0
+        keys = ("loss", "recon_term", "gp_term", "pen_term", "mse", "gp_nll_full", "v_sig",
+                "v_noise", "oos_mse")
+        dp_against_one("9a GPPVAE-joint", ranks, singles, keys)
+        epochs = DP_GPPVAE["epochs"]
+        for rank, r in enumerate(ranks):
+            c = r["launches"]
+            say(f"9a rank {rank} launch counts {c}")
+            check(c["launch_factor_prep.launches"] == c["launch_nll_core.launches"] == epochs,
+                  f"9a rank {rank}: each kernel launched once per epoch")
+            check(c["factor_prep_torch.cuda_calls"] == c["nll_core_torch.cuda_calls"] == 0,
+                  f"9a rank {rank}: no plain version on a CUDA tensor")
+        check(all(s["launches"]["factor_prep_torch.cuda_calls"] == 0 for s in singles),
+              "9a one process: no plain version on a CUDA tensor")
+        n_params = sum(a.size for part in singles[0]["params"].values() for a in part.values())
+        budget = 4 * (n_params + 6)
+        for h, hs in zip(ranks[0]["history"], singles[0]["history"]):
+            coll = h["collectives"]["all_reduce"]
+            say(f"9a epoch {h['epoch']}: collectives {json.dumps(h['collectives'])} "
+                f"(budget per call {budget} bytes: {n_params} parameters and 6 sums); "
+                f"sec_epoch 2 ranks {h['sec_epoch']:.4f} (A {h['sec_A_encode']:.4f}, B "
+                f"{h['sec_B_solve']:.4f}, C {h['sec_C_minibatch']:.4f}, eval "
+                f"{h['sec_eval_oos']:.4f}), one process {hs['sec_epoch']:.4f} (C "
+                f"{hs['sec_C_minibatch']:.4f}) on {card}")
+            check(coll["max_bytes"] <= budget and set(h["collectives"]) == {"all_reduce"},
+                  "9a: no collective larger than the gradient all-reduce")
+        say(f"9a 2-rank run: {wall:.2f} s wall for {epochs} epochs and the set-up")
+        dr = dryrun.dryrun(DP_WORLD, device=DP_DEVICE, pool=pool)
+        say(f"9a dryrun: {json.dumps(dr)}")
+
+        # (b)
+        vae_singles = [dryrun.train_vae(DP_DATA, DP_VAE, "cuda") for _ in range(2)]
+        vae_ranks = pool.run(dryrun.train_vae_rank, DP_DATA, DP_VAE)
+        dp_against_one("9b train_vae", vae_ranks, vae_singles,
+                       ("loss", "recon_term", "kl_term", "mse", "val_loss", "val_mse"))
+        say(f"9b sec_epoch 2 ranks {vae_ranks[0]['history'][0]['sec_epoch']:.4f}, one process "
+            f"{vae_singles[0]['history'][0]['sec_epoch']:.4f}")
+
+        # (c)
+        ds = build_rotated_digits(**DP_DATA)
+        tr, ho = ds.train_idx, ds.heldout_idx
+        params = singles[0]["params"]
+        model_kw = dict(zdim=16, image_shape=tuple(ds.image_shape),
+                        enc_features=(32, 64, 128), dec_features=(128, 64, 32))
+        served = pool.run(dryrun.serving_rank, model_kw, params, None, ds.images[tr],
+                          ds.object_ids[tr], ds.view_ids[tr], ds.object_ids[ho],
+                          ds.view_ids[ho], ds.images[ho])
+        model = VAE(**model_kw).to("cuda")
+        on = {"vae": {k: torch.as_tensor(v, device="cuda") for k, v in params["vae"].items()},
+              "gp": {k: torch.as_tensor(v, device="cuda") for k, v in params["gp"].items()}}
+
+        def idx(a):
+            return torch.as_tensor(a, dtype=torch.int64, device="cuda")
+
+        state = serving.build_server_state(model, on, None, torch.as_tensor(ds.images[tr],
+                                           device="cuda"), idx(ds.object_ids[tr]),
+                                           idx(ds.view_ids[tr]))
+        y, var = serving.predict_images(model, state, idx(ds.object_ids[ho]),
+                                        idx(ds.view_ids[ho]), return_var=True)
+        state2 = serving.observe(model, state, torch.as_tensor(ds.images[ho], device="cuda"),
+                                 idx(ds.object_ids[ho]), idx(ds.view_ids[ho]))
+        y2 = serving.predict_images(model, state2, idx(ds.object_ids[ho]),
+                                    idx(ds.view_ids[ho]))
+        one = dict(M=state.core.M, y=y, var=var, M2=state2.core.M, y2=y2)
+        errs = {k: max(max_err([torch.from_numpy(r[k])], [v.cpu()])[1] for r in served)
+                for k, v in one.items()}
+        say(f"9c DP fold + predict_images + observe vs one process, max abs err / max |·|: "
+            f"{json.dumps(errs)} (bound {DP_SERVE_REL_BOUND:.0e}); collectives "
+            f"{json.dumps(served[0]['collectives'])}")
+        check(all(e <= DP_SERVE_REL_BOUND for e in errs.values()),
+              "9c: data-parallel serving equals one process")
+    say(f"9 path: {time.perf_counter() - t_path:.1f} s")
+    return {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     kind, card = phase_environment()
     phase_build()
     stats = phase_kernels()
@@ -1039,7 +1180,7 @@ def main() -> None:
         c5b, r5b = path_faces(tmp)
         paths = [c4, c5a, c5b, path_nystrom(), path_large_rank()]
         path_serving({"4 slice": r4, "5a headline": r5a, "5b faces": r5b})
-        paths += [*path_resume(tmp), path_protocol(tmp)]
+        paths += [*path_resume(tmp), path_protocol(tmp), path_dp(tmp, card)]
     sources = {
         "factor_prep": ("gppvae_tpu_torch/csrc/factor_prep.cu",
                         "gppvae_tpu/ops/pallas_gemm.py:162", "launch_factor_prep.launches"),
@@ -1057,6 +1198,7 @@ def main() -> None:
     for name, rows in stats.items():
         say(f"{name} at every shape: " + json.dumps(
             [{"shape": row["shape"], **{k: row[k] for k in KERNEL_KEYS}} for row in rows]))
+    say(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all, the build included")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -36,6 +36,14 @@ the export, so the sample entries take ε where the JAX entries take a seed;
 an exported graph records the device of its constants, so an artifact is
 exported once per device named in `platforms` and refused by name on any
 other.
+
+Data parallelism (`group=`, a parallel.DataGroup per rank, as the JAX
+functions take `batch_sharding=`): the fold and observe take the rank's rows
+(any split) and all-reduce only the R-sized sums (gp.factorize,
+gp.posterior_core, gp.extend_posterior_core), so every rank holds the same
+state; predict_images takes the whole request on every rank, computes the
+rank's block of its rows against that state and assembles the reply with one
+all-reduce of the zero-filled blocks.
 """
 
 from __future__ import annotations
@@ -55,6 +63,7 @@ from gppvae_tpu_torch import gp
 from gppvae_tpu_torch.checkpoint import load_tree, save_tree
 from gppvae_tpu_torch.eval.panels import save_panel
 from gppvae_tpu_torch.models import VAE
+from gppvae_tpu_torch.parallel import all_reduce, row_block
 from gppvae_tpu_torch.train.device import compute_dtype, resolve_device, set_float32_precision
 
 
@@ -81,7 +90,7 @@ def _encode_all(model, vae_params: dict, images: torch.Tensor, chunk: int | None
     enc = _part(vae_params, "encoder")
     if chunk is None:
         return functional_call(model.encoder, enc, (images,))[0]
-    chunk = min(chunk, images.shape[0])
+    chunk = max(1, min(chunk, images.shape[0]))  # a rank may hold no rows
     return torch.cat([functional_call(model.encoder, enc, (images[s:s + chunk],))[0]
                       for s in range(0, images.shape[0], chunk)])
 
@@ -108,20 +117,24 @@ def _effect_rows(state: ServerState, d, q, *, x_map, extra_effects) -> tuple[lis
 @torch.no_grad()
 def build_server_state(model, params: dict, fixed_W, images_tr: torch.Tensor,
                        d_tr: torch.Tensor, q_tr: torch.Tensor, *, x_map=None,
-                       extra_effects: tuple = (), encode_chunk: int = 1024) -> ServerState:
+                       extra_effects: tuple = (), encode_chunk: int = 1024,
+                       group=None) -> ServerState:
     """Fold the training set into the R-sized posterior core: the
     grad-free full encode, the factorization of K = Σ_r v_r V_r V_rᵀ + v_n I
     and the K⁻¹Z core, once. params: {'vae': state_dict, 'gp': {'X', ['W'],
-    'log_vs', 'log_vn', ...}}; fixed_W is the 'dis'-mode view matrix."""
+    'log_vs', 'log_vn', ...}}; fixed_W is the 'dis'-mode view matrix. With a
+    group, images_tr, d_tr, q_tr are the rank's rows and the state is every
+    rank's alike."""
     W = params["gp"]["W"] if "W" in params["gp"] else fixed_W
     X = params["gp"]["X"]
     Z0 = _encode_all(model, params["vae"], images_tr, encode_chunk)
     V_tr = gp.build_effect_rows(X, W, d_tr, q_tr, extra_effects=extra_effects, x_map=x_map)
     v_sig, v_noise = gp.variances_from_log(params["gp"]["log_vs"], params["gp"]["log_vn"])
     v_sig = v_sig.reshape(-1)
-    factors = gp.factorize(V_tr, [v_sig[i] for i in range(len(V_tr))], v_noise)
+    factors = gp.factorize(V_tr, [v_sig[i] for i in range(len(V_tr))], v_noise, group=group)
     # the encoder returns float32 latents whatever the GP's dtype
-    return ServerState(core=gp.posterior_core(factors, Z0.to(factors.U.dtype)), X=X, W=W,
+    core = gp.posterior_core(factors, Z0.to(factors.U.dtype), group=group)
+    return ServerState(core=core, X=X, W=W,
                        v_sig=v_sig,
                        vae_params=params["vae"])
 
@@ -142,15 +155,33 @@ def decode_images(model, vae_params: dict, z: torch.Tensor, chunk: int | None = 
 
 @torch.no_grad()
 def predict_images(model, state: ServerState, d: torch.Tensor, q: torch.Tensor, *,
-                   x_map=None, extra_effects: tuple = (), return_var: bool = False):
+                   x_map=None, extra_effects: tuple = (), return_var: bool = False,
+                   group=None):
     """Serve one request batch: images (n, H, W, C) for the (object, view)
     index vectors, O(R) GP work per row and one decoder forward; with
-    return_var=True also the (n,) GP-predictive latent variance."""
+    return_var=True also the (n,) GP-predictive latent variance. With a
+    group (the state alike on every rank), each rank computes its block of
+    the rows and every rank returns the whole reply."""
+    n = d.shape[0]
+    if group is not None:
+        block = row_block(n, group)
+        d, q = d[block], q[block]
     V_star, v_sigs = _effect_rows(state, d, q, x_map=x_map, extra_effects=extra_effects)
     out = gp.predict_from_core(V_star, state.core, v_sigs, return_var=return_var)
     z_star, var = out if return_var else (out, None)
     y = decode_images(model, state.vae_params, z_star, chunk=None)
+    if group is not None:
+        y = _assemble(group, y, n, block)
+        var = None if var is None else _assemble(group, var, n, block)
     return (y, var) if return_var else y
+
+
+def _assemble(group, part: torch.Tensor, n: int, block: slice) -> torch.Tensor:
+    """The n rows whose block `part` is on this rank, from every rank's
+    block: one all-reduce of the blocks placed in zeros (x + 0 is exact)."""
+    whole = torch.zeros((n, *part.shape[1:]), dtype=part.dtype, device=part.device)
+    whole[block] = part
+    return all_reduce(group, whole)
 
 
 def stable_cholesky(cov: torch.Tensor, jitter: float = 1e-6) -> torch.Tensor:
@@ -207,20 +238,22 @@ def sample_images(model, state: ServerState, d: torch.Tensor, q: torch.Tensor,
 def observe(model, state: ServerState, images: torch.Tensor, d: torch.Tensor,
             q: torch.Tensor, *, x_map=None, extra_effects: tuple = (),
             encode_chunk: int | None = 1024,
-            row_mask: torch.Tensor | None = None) -> ServerState:
+            row_mask: torch.Tensor | None = None, group=None) -> ServerState:
     """Fold new observed images into the serving posterior (streaming
     conditioning): encode them, build their feature rows from the state's
     X, W and extend the core (gp.extend_posterior_core), O(n·R² + R³). The
     same state build_server_state gives with these rows in the training
     set; the GP and VAE parameters stay fixed. row_mask (n,) ∈ {0, 1}:
     weight-0 rows contribute nothing (their feature rows are zeroed).
-    encode_chunk=None encodes in one forward."""
+    encode_chunk=None encodes in one forward. With a group, the new rows
+    are the rank's and the extended state is every rank's alike."""
     V_new, v_sigs = _effect_rows(state, d, q, x_map=x_map, extra_effects=extra_effects)
     if row_mask is not None:
         m = row_mask.to(V_new[0].dtype)[:, None]
         V_new = [v * m for v in V_new]
     Z_new = _encode_all(model, state.vae_params, images, encode_chunk)
-    return state._replace(core=gp.extend_posterior_core(state.core, V_new, v_sigs, Z_new))
+    return state._replace(core=gp.extend_posterior_core(state.core, V_new, v_sigs, Z_new,
+                                                        group=group))
 
 
 def _meta_path(path: str) -> str:

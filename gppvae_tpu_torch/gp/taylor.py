@@ -9,6 +9,14 @@ minibatch then carries
 
 so that the gradients accumulated over one epoch equal the exact
 full-dataset gradient at the expansion point.
+
+Under a data group (parallel/) Z₀ and V₀ are the rank's rows and nll_fn's
+value is every rank's alike (its N-sized sums are all-reduced, gp/woodbury.py).
+Each rank differentiates value / world: the all-reduce's backward sums
+those shares, so dZ and dV come out whole for the rank's rows; a variance
+parameter's gradient comes out as the rank's part (log_vs through the
+rank's rows of U, log_vn as a 1/world share of the replicated core), and
+one all-reduce of daux makes it whole on every rank.
 """
 
 from __future__ import annotations
@@ -16,6 +24,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
+
+from gppvae_tpu_torch.parallel.collectives import all_reduce_sum
 
 
 class TaylorCoefficients(NamedTuple):
@@ -37,9 +47,12 @@ def taylor_expand(
     Z0: torch.Tensor,
     V0,
     aux0: dict,
+    *,
+    group=None,
 ) -> TaylorCoefficients:
     """nll_fn(Z, V, aux) and its gradients at (Z0, V0, aux0), each taken as
-    a fresh leaf. V0 is one (N, R) tensor or a list of them."""
+    a fresh leaf. V0 is one (N, R) tensor or a list of them (with a group:
+    the rank's rows, and nll_fn reduces over the same group)."""
     Z = _leaf(Z0)
     is_list = isinstance(V0, (list, tuple))
     Vs = [_leaf(v) for v in (V0 if is_list else [V0])]
@@ -47,8 +60,11 @@ def taylor_expand(
     aux = {k: _leaf(aux0[k]) for k in keys}
     with torch.enable_grad():
         value = nll_fn(Z, Vs if is_list else Vs[0], aux)
-        grads = torch.autograd.grad(value, [Z, *Vs, *(aux[k] for k in keys)])
+        share = value if group is None else value / group.world
+        grads = torch.autograd.grad(share, [Z, *Vs, *(aux[k] for k in keys)])
     dZ, dVs, daux = grads[0], list(grads[1:1 + len(Vs)]), grads[1 + len(Vs):]
+    if keys:
+        daux = all_reduce_sum(group, *daux)
     return TaylorCoefficients(
         value=value.detach(), dZ=dZ, dV=dVs if is_list else dVs[0],
         daux=dict(zip(keys, daux)),

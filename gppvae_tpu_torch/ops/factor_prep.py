@@ -13,6 +13,10 @@ Which version runs is decided by the tensor's device alone: a CPU tensor
 takes the plain PyTorch version, a CUDA float32 tensor launches the kernel,
 anything else raises. Both sit inside one autograd.Function whose backward
 is the closed form of `_fp_bwd` (pallas_gemm.py:197-204) in torch.matmul.
+
+Under a data group (`group=`, parallel/) the kernel runs on the rank's rows
+and one differentiable all-reduce sums (G, UᵀZ, ‖Z‖²) over the ranks: the
+counterpart of `_factor_prep_shard_map` (gppvae_tpu/ops/dispatch.py:179-201).
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from gppvae_tpu_torch.ops import _build
+from gppvae_tpu_torch.parallel.collectives import all_reduce_sum
 
 
 def factor_prep_torch(U: torch.Tensor, Z: torch.Tensor):
@@ -105,11 +110,13 @@ class FactorPrep(torch.autograd.Function):
         return dU, dZ
 
 
-def factor_prep(U: torch.Tensor, Z: torch.Tensor):
+def factor_prep(U: torch.Tensor, Z: torch.Tensor, group=None):
     """(UᵀU, UᵀZ, ‖Z‖²) for U (N, R), Z (N, L): the plain version for CPU
-    tensors, the CUDA kernel for float32 CUDA tensors; raises otherwise."""
+    tensors, the CUDA kernel for float32 CUDA tensors; raises otherwise.
+    With a DataGroup, U and Z are the rank's rows and the three are summed
+    over the ranks."""
     _check_device(U, Z)
-    return FactorPrep.apply(U, Z)
+    return all_reduce_sum(group, *FactorPrep.apply(U, Z))
 
 
 def _check_device(*ts: torch.Tensor) -> None:

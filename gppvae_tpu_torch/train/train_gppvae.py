@@ -33,10 +33,27 @@ state (`_train_state`) as state_NNNN every checkpoint_every epochs and as
 final_state at the end, either of which `resume` continues from: the
 interrupted and resumed run equals the uninterrupted one epoch by epoch.
 `profile_dir` wraps the epochs in a torch.profiler trace.
+
+With `group` (a parallel.DataGroup, one per rank of `world` processes) the
+run is data-parallel, as the JAX trainer runs under a 1-D mesh: the training
+rows are padded by wrap-around to a multiple of the world size (weight-0
+rows, zeroed after Phase A) and each rank holds its contiguous block;
+parameters, optimizer states and the random stream are the same on every
+rank. Phase A encodes the rank's rows; Phase B reduces the R-sized sums of
+the NLL (ops.factor_prep) and the Taylor coefficients' parameter part
+(gp.taylor_expand); in Phase C each rank computes the batch rows that lie in
+its block ("owner computes": no image crosses ranks) and one all-reduce sums
+the gradients of both Adams' parameters with the step's metric sums, so the
+guarded Adams decide alike everywhere; eval reduces the posterior core. The
+result equals the single-process run up to the order of the sums. Each
+epoch's record adds the rank's collective calls and bytes, and after each
+epoch the parameters are checked bit-equal across ranks. Rank 0 alone writes
+the artifacts and logs; a state written by either run resumes in the other.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
@@ -54,6 +71,14 @@ from gppvae_tpu_torch.data import GridDataset
 from gppvae_tpu_torch.eval.oos import predict_heldout
 from gppvae_tpu_torch.eval.panels import save_panel
 from gppvae_tpu_torch.models import UPSAMPLES, VAE, encode_all, sample_reconstruction
+from gppvae_tpu_torch.parallel import (
+    all_reduce_grads,
+    check_replicated,
+    padded_rows,
+    replicate,
+    row_block,
+    summary,
+)
 from gppvae_tpu_torch.train.batching import epoch_batches, masked_means, num_batches
 from gppvae_tpu_torch.train.device import (
     COMPUTE_DTYPES,
@@ -68,7 +93,7 @@ from gppvae_tpu_torch.train.losses import (
     neg_entropy,
 )
 from gppvae_tpu_torch.train.optim import GuardedAdam, resolve_grad_accum
-from gppvae_tpu_torch.utils import MetricsLogger
+from gppvae_tpu_torch.utils import MetricsLogger, NullLogger
 from gppvae_tpu_torch.utils.profiling import maybe_trace
 
 _METRIC_KEYS = (
@@ -134,6 +159,7 @@ class GPPVAETrainResult:
     config: GPPVAETrainConfig
     history: list[dict]
     data: dict  # the tensors trained on, on the device: images_tr, d_tr, q_tr, *_ho
+    # (with a group: the rank's block of the padded training rows, and row_mask)
     x_map: Callable | None = None  # the object-kernel feature map (gp.make_x_map)
     optimizers: dict | None = None  # {'vae', 'gp'}: the GuardedAdams at the end
 
@@ -171,13 +197,23 @@ def _init_view_features(config: GPPVAETrainConfig, dataset: GridDataset) -> torc
         (dataset.num_views, Mw), generator=torch.Generator().manual_seed(_RANDOM_W_KEY)))
 
 
-def _data_tensors(dataset: GridDataset, device: torch.device) -> dict:
-    """The train and held-out rows as tensors on the device."""
+def _data_tensors(dataset: GridDataset, device: torch.device, group=None) -> dict:
+    """The train and held-out rows as tensors on the device, and the first 8
+    training images (a panel's). With a group: the rank's block of the
+    training rows padded to a multiple of the world size, and their 0/1
+    `row_mask`; the held-out rows whole."""
     def rows(idx):
         return torch.from_numpy(np.asarray(idx, np.int64)).to(device)
 
     tr, ho = dataset.train_idx, dataset.heldout_idx
+    out = {"images_panel": torch.from_numpy(dataset.images[tr[:8]]).to(device)}
+    if group is not None:
+        pos, weights = padded_rows(len(tr), group.world)
+        block = row_block(len(pos), group)
+        tr = tr[pos[block]]
+        out["row_mask"] = torch.from_numpy(weights[block]).to(device)
     return {
+        **out,
         "images_tr": torch.from_numpy(dataset.images[tr]).to(device),
         "d_tr": rows(dataset.object_ids[tr]),
         "q_tr": rows(dataset.view_ids[tr]),
@@ -188,10 +224,11 @@ def _data_tensors(dataset: GridDataset, device: torch.device) -> dict:
 
 
 def _setup(dataset: GridDataset, config: GPPVAETrainConfig, device: torch.device,
-           generator: torch.Generator, init_params: dict | None = None):
+           generator: torch.Generator, init_params: dict | None = None, group=None):
     """(model, gp_params, fixed_W, data, num_train). init_params may give
     {'vae': state_dict, 'gp': {name: array}}, each replacing the fresh
-    init (and --vae_weights)."""
+    init (and --vae_weights). With a group, the parameters are rank 0's on
+    every rank and the data the rank's rows."""
     init_params = init_params or {}
     model = VAE(config.zdim, dataset.image_shape, config.enc_features,
                 config.dec_features, config.dec_upsample, generator=generator,
@@ -224,7 +261,9 @@ def _setup(dataset: GridDataset, config: GPPVAETrainConfig, device: torch.device
         gp_init[k] = v
     gp_params = {k: torch.nn.Parameter(v.to(device=device, dtype=torch.float32))
                  for k, v in gp_init.items()}
-    return model, gp_params, fixed_W, _data_tensors(dataset, device), len(dataset.train_idx)
+    replicate(group, [*model.parameters(), *gp_params.values()])
+    return (model, gp_params, fixed_W, _data_tensors(dataset, device, group),
+            len(dataset.train_idx))
 
 
 def _select_nystrom_landmarks(X0: torch.Tensor, draws, config: GPPVAETrainConfig) -> np.ndarray:
@@ -281,14 +320,18 @@ def _polish_epochs(config: GPPVAETrainConfig) -> int:
 
 
 class _Loop:
-    """The epoch's building blocks over one model, its GP params and data."""
+    """The epoch's building blocks over one model, its GP params and data.
+    With a group, `data` holds the rank's block of the padded training rows
+    (`_data_tensors`) and num_train is the whole training set's size."""
 
     def __init__(self, model: VAE, gp_params: dict, fixed_W, data: dict,
                  num_train: int, config: GPPVAETrainConfig, *, x_map=None,
-                 accum_steps: int = 1):
+                 accum_steps: int = 1, group=None):
         self.model, self.gp, self.fixed_W = model, gp_params, fixed_W
         self.data, self.num_train, self.config = data, num_train, config
-        self.x_map, self.accum_steps = x_map, accum_steps
+        self.x_map, self.accum_steps, self.group = x_map, accum_steps, group
+        if group is not None:  # the global positions of the rank's rows
+            self.block = row_block(data["images_tr"].shape[0] * group.world, group)
         if config.batch_size > num_train:
             raise ValueError(f"batch_size {config.batch_size} exceeds train set {num_train}")
         self.nb = num_batches(num_train, config.batch_size)
@@ -320,7 +363,7 @@ class _Loop:
         v_sig, v_noise = gp.variances_from_log(aux["log_vs"], aux["log_vn"])
         return gp.gp_nll_from_features(
             Z, Vs, [v_sig[i] for i in range(len(Vs))], v_noise,
-            num_rows=self.num_train,
+            num_rows=self.num_train, group=self.group,
         )
 
     # -- Phase A
@@ -332,13 +375,19 @@ class _Loop:
         d = self.data
         with torch.no_grad():
             V0 = self.build_effects(self.gp["X"], self.view_W(), d["d_tr"], d["q_tr"])
+            if self.group is not None:
+                # the rows that pad the split: zero, so they add nothing to
+                # any sum (train_gppvae.py:420-433's _mask_rows)
+                mask = d["row_mask"][:, None]
+                Z0, V0 = Z0 * mask, [v * mask for v in V0]
         return gp.taylor_expand(self.nll_fn, Z0, V0,
-                                {k: v.detach() for k, v in self.aux().items()})
+                                {k: v.detach() for k, v in self.aux().items()},
+                                group=self.group)
 
     # -- Phase C
-    def minibatch_step(self, coeffs, pos, w, eps) -> torch.Tensor:
-        """One guarded-Adam call on both groups; returns the (5,) metrics
-        [loss, recon, gp_term, pen, mse] (masked means; gp_term per bs)."""
+    def batch_terms(self, coeffs, pos, w, eps):
+        """The loss of the batch rows `pos` and their per-row recon, pen and
+        mse; gp_term per bs."""
         config, d, bs = self.config, self.data, self.config.batch_size
         sy = torch.exp(self.gp["log_sy"]) if config.learn_sigma_y else config.sigma_y
         y = d["images_tr"][pos]
@@ -354,26 +403,67 @@ class _Loop:
         pen_rows = neg_entropy(logvar)
         # sum over VALID rows / constant bs (batching.py convention)
         loss = (torch.sum(w * recon) + torch.sum(w * pen_rows)) / bs + gp_term
-        recon_m, pen_m, mse_m = masked_means(w, recon, pen_rows, mse)
+        return loss, recon, gp_term, pen_rows, mse
+
+    def minibatch_step(self, coeffs, pos, w, eps) -> torch.Tensor:
+        """One guarded-Adam call on both groups; returns the (5,) metrics
+        [loss, recon, gp_term, pen, mse] (masked means; gp_term per bs).
+
+        With a group, pos / w / eps are the batch rows this rank owns (pos
+        local to its block; there may be none): its share of the loss is
+        differentiated, and one all-reduce sums the gradients of both Adams'
+        parameters with the metric sums, so that both Adams see the whole
+        batch's gradient on every rank."""
         self.opt_vae.zero_grad()
         self.opt_gp.zero_grad()
-        loss.backward()
+        if self.group is None:
+            loss, recon, gp_term, pen_rows, mse = self.batch_terms(coeffs, pos, w, eps)
+            recon_m, pen_m, mse_m = masked_means(w, recon, pen_rows, mse)
+            metrics = torch.stack([loss, recon_m, gp_term, pen_m, mse_m]).detach()
+            loss.backward()
+        else:
+            sums = torch.zeros(6, device=w.device)  # loss, Σw·recon, gp_term, Σw·pen, Σw·mse, Σw
+            if pos.numel():
+                loss, recon, gp_term, pen_rows, mse = self.batch_terms(coeffs, pos, w, eps)
+                loss.backward()
+                sums = torch.stack([loss, torch.sum(w * recon), gp_term, torch.sum(w * pen_rows),
+                                    torch.sum(w * mse), torch.sum(w)]).detach()
+            sums = all_reduce_grads(self.group, [*self.opt_vae.params, *self.opt_gp.params],
+                                    sums)
+            metrics = sums[:5].clone()
+            metrics[[1, 3, 4]] /= sums[5]  # the masked means
         self.opt_vae.step()
         self.opt_gp.step()
-        return torch.stack([loss, recon_m, gp_term, pen_m, mse_m]).detach()
+        return metrics
 
-    def minibatch_epoch(self, coeffs, batches, weights, eps) -> torch.Tensor:
-        """All steps of one plan; the (5,) metrics averaged over steps. With
-        refresh_every_steps = k < nb, Phase A+B re-run at the current params
-        before each segment of k steps but the first, which uses `coeffs`."""
-        nb, k = batches.shape[0], self.config.refresh_every_steps
+    def epoch_steps(self, batches, weights, eps) -> list[tuple]:
+        """The epoch's (pos, w, eps) per step on the device, from the plan's
+        host tensors: each whole batch, or with a group the rows of it whose
+        position lies in this rank's block ("owner computes": no image
+        crosses ranks), pos local to the block."""
+        device = self.data["images_tr"].device
+        if self.group is None:
+            b, w, e = batches.to(device), weights.to(device), eps.to(device)
+            return [(b[i], w[i], e[i]) for i in range(b.shape[0])]
+        start, stop = self.block.start, self.block.stop
+        own = (batches >= start) & (batches < stop)
+        counts = own.sum(dim=1).tolist()
+        return list(zip((batches[own] - start).to(device).split(counts),
+                        weights[own].to(device).split(counts),
+                        eps[own].to(device).split(counts)))
+
+    def minibatch_epoch(self, coeffs, steps: list[tuple]) -> torch.Tensor:
+        """All steps of one plan (`epoch_steps`); the (5,) metrics averaged
+        over steps. With refresh_every_steps = k < nb, Phase A+B re-run at
+        the current params before each segment of k steps but the first,
+        which uses `coeffs`."""
+        nb, k = len(steps), self.config.refresh_every_steps
         seg = k if 0 < k < nb else nb
         rows = []
         for s in range(0, nb, seg):
             if s > 0:
                 coeffs = self.solve(self.encode())
-            rows += [self.minibatch_step(coeffs, batches[b], weights[b], eps[b])
-                     for b in range(s, min(s + seg, nb))]
+            rows += [self.minibatch_step(coeffs, *steps[b]) for b in range(s, min(s + seg, nb))]
         return torch.stack(rows).mean(dim=0)
 
     # -- eval
@@ -381,7 +471,8 @@ class _Loop:
         d = self.data
         return predict_heldout(self.model, self.gp, self.fixed_W, Z, d["d_tr"],
                                d["q_tr"], d["d_ho"], d["q_ho"], d["y_ho"],
-                               x_map=self.x_map, extra_effects=self.config.extra_effects)
+                               x_map=self.x_map, extra_effects=self.config.extra_effects,
+                               row_weights=d.get("row_mask"), group=self.group)
 
     def run_epoch(self, draws: Callable, epoch: int) -> tuple[dict, dict, torch.Tensor]:
         """One epoch: Phase A, B, C, then eval, each timed to a device sync.
@@ -394,9 +485,7 @@ class _Loop:
         with timer.phase("B_solve"):
             coeffs = self.solve(Z0)
         with timer.phase("C_minibatch"):
-            batches, weights, eps = draws(epoch)
-            cm = self.minibatch_epoch(coeffs, batches.to(device),
-                                      weights.to(device), eps.to(device))
+            cm = self.minibatch_epoch(coeffs, self.epoch_steps(*draws(epoch)))
         with timer.phase("eval_oos"):
             y_pred, oos_mse = self.oos(self.encode())
         row = [*cm.tolist(), float(coeffs.value) / self.num_train,
@@ -482,7 +571,7 @@ def _save_panel(loop: _Loop, y_pred: torch.Tensor, epoch: int) -> None:
     """panel_NNNN.png: 8 training images, their reconstructions, 8 held-out
     images, their predictions (train_gppvae.py:979-991)."""
     config, d = loop.config, loop.data
-    y = d["images_tr"][:8]
+    y = d["images_panel"]
     recon = sample_reconstruction(loop.model, y, config.seed, epoch)
     save_panel(os.path.join(config.outdir, f"panel_{epoch:04d}.png"),
                [t.cpu().numpy() for t in (y, recon, d["y_ho"][:8], y_pred[:8])])
@@ -496,11 +585,14 @@ def train_gppvae(
     init_params: dict | None = None,
     draws: Callable | None = None,
     log: MetricsLogger | None = None,
+    group=None,
 ) -> GPPVAETrainResult:
     """Train; init_params may give 'vae', 'gp', 'rff' = (Ω, b) and
     'nystrom_idx' in place of the fresh ones (see _setup, _object_kernel).
     With config.resume, everything comes from that state instead and the
-    run continues at its epoch."""
+    run continues at its epoch. group: this rank's parallel.DataGroup, every
+    rank calling with the same arguments (see the module docstring); rank 0
+    alone writes outdir and logs, the other ranks' log defaults to none."""
     if config.mode not in ("joint", "dis"):
         raise ValueError(f"unknown mode {config.mode!r}; want 'joint' or 'dis'")
     init_params = dict(init_params or {})
@@ -514,17 +606,19 @@ def train_gppvae(
         init_params.update(
             rff=(ok["omega"].cpu(), ok["phase"].cpu()),
             nystrom_idx=None if ok["nystrom_idx"] is None else ok["nystrom_idx"].cpu())
+    writer = group is None or group.rank == 0
     own_log = log is None
-    log = log or MetricsLogger(config.outdir)
-    if config.outdir:
+    log = log or (MetricsLogger(config.outdir) if writer else NullLogger())
+    outdir = config.outdir if writer else None
+    if outdir:
         _write_sidecar(config, dataset, device)
     gen = torch.Generator().manual_seed(config.seed)
     model, gp_params, fixed_W, data, num_train = _setup(
-        dataset, config, device, gen, init_params)
+        dataset, config, device, gen, init_params, group)
     x_map, x_draws = _object_kernel(config, gp_params["X"], init_params, device)
     accum = resolve_grad_accum(config.grad_accum_steps, num_train, config.batch_size)
     loop = _Loop(model, gp_params, fixed_W, data, num_train, config,
-                 x_map=x_map, accum_steps=accum)
+                 x_map=x_map, accum_steps=accum, group=group)
     start_epoch = 0
     if resumed:
         model.load_state_dict(resumed["vae"])
@@ -551,12 +645,13 @@ def train_gppvae(
     if polish and start_epoch > bulk_end:
         model.dtype = torch.float32
     history: list[dict] = []
-    with maybe_trace(config.profile_dir, device):
+    with maybe_trace(config.profile_dir if writer else None, device):
         for epoch in range(start_epoch, config.epochs):
             if polish and epoch == bulk_end:
                 model.dtype = torch.float32
                 if bulk_end > 0:
                     loop.restart_optimizers()
+            counts = None if group is None else collections.Counter(group.counts)
             metrics, seconds, y_pred = loop.run_epoch(draws, epoch)
             rec = {
                 "driver": f"train_gppvae[{config.mode}]",
@@ -565,9 +660,15 @@ def train_gppvae(
                 "sec_epoch": sum(seconds.values()),
                 **{f"sec_{k}": v for k, v in seconds.items()},
             }
+            if group is not None:
+                # a guarded step that one rank skipped alone would part the
+                # replicas silently from here on
+                check_replicated(group, [*loop.opt_vae.params, *loop.opt_gp.params],
+                                 f"the parameters after epoch {epoch}")
+                rec["collectives"] = summary(group.counts - counts)
             log.log(rec)
             history.append(rec)
-            if config.outdir:
+            if outdir:
                 # one epoch per iteration, so the JAX trainer's dispatch
                 # window (train_gppvae.py:970-975) is the plain epoch % every
                 last = epoch == config.epochs - 1
@@ -578,7 +679,7 @@ def train_gppvae(
                     save_tree(os.path.join(config.outdir, f"state_{epoch + 1:04d}"),
                               _train_state(loop, x_draws, gen, epoch + 1, shape))
 
-    if config.outdir:
+    if outdir:
         torch.save(
             {"vae": {k: v.cpu() for k, v in model.state_dict().items()},
              "gp": {k: v.detach().cpu() for k, v in gp_params.items()},

@@ -7,6 +7,16 @@ state and epoch, the checkpoint format), `panel_NNNN.png` every
 --panel_every epochs (8 validation images over their reconstructions) and
 `vae_weights_NNNN.pt` every --checkpoint_every epochs.
 
+With `group` (a parallel.DataGroup per rank) the run is data-parallel, as
+the JAX driver runs under a 1-D mesh (train_vae.py:183-222): the image array
+is split into `world` contiguous blocks (parallel.row_block: the rows that
+would pad it to a multiple of the world size are never indexed, so they are
+not stored), the parameters and the random stream are the same on every
+rank, each rank computes the rows of each batch whose image lies in its
+block, and one all-reduce sums the gradients with the step's metric sums
+before Adam; the validation rows are split and reduced the same way. Rank 0
+alone writes outdir and logs.
+
     python -m gppvae_tpu_torch.train.train_vae --data synthetic \
         --outdir out/vae --device cuda
 """
@@ -16,7 +26,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 
@@ -25,6 +35,7 @@ from gppvae_tpu_torch.config import build_dataset_from_flag
 from gppvae_tpu_torch.data import GridDataset
 from gppvae_tpu_torch.eval.panels import save_panel
 from gppvae_tpu_torch.models import UPSAMPLES, VAE, sample_reconstruction
+from gppvae_tpu_torch.parallel import all_reduce, all_reduce_grads, replicate, row_block
 from gppvae_tpu_torch.train.batching import epoch_batches, masked_means, num_batches
 from gppvae_tpu_torch.train.device import (
     COMPUTE_DTYPES,
@@ -37,7 +48,7 @@ from gppvae_tpu_torch.train.losses import (
     kl_standard_normal,
     logit_saturation_penalty,
 )
-from gppvae_tpu_torch.utils import MetricsLogger
+from gppvae_tpu_torch.utils import MetricsLogger, NullLogger
 
 WEIGHTS_FILE = "vae_weights.pt"
 
@@ -68,17 +79,47 @@ class VAETrainResult:
     history: list[dict]
 
 
-def vae_loss(model: VAE, y, eps, w, config: VAETrainConfig):
-    """(loss, (recon, kl, mse) masked means): Σ over valid rows / bs."""
+def vae_rows(model: VAE, y, eps, config: VAETrainConfig):
+    """Per-row (recon, kl, mse) of the rows y with noise eps."""
     mu, logvar = model.encode(y)
     z = mu + torch.exp(0.5 * logvar) * eps
     logits = model.decode(z)
     recon, mse = gaussian_recon_nll(y, torch.sigmoid(logits), config.sigma_y)
     if config.sat_penalty > 0:
         recon = recon + config.sat_penalty * logit_saturation_penalty(logits)
-    kl = kl_standard_normal(mu, logvar)
+    return recon, kl_standard_normal(mu, logvar), mse
+
+
+def vae_loss(model: VAE, y, eps, w, config: VAETrainConfig):
+    """(loss, (recon, kl, mse) masked means): Σ over valid rows / bs."""
+    recon, kl, mse = vae_rows(model, y, eps, config)
     loss = torch.sum(w * (recon + config.beta_kl * kl)) / y.shape[0]
     return loss, masked_means(w, recon, kl, mse)
+
+
+def _owned_rows(rows: torch.Tensor, block: slice) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mask, local index) of the image rows `rows` that lie in `block`."""
+    own = (rows >= block.start) & (rows < block.stop)
+    return own, rows[own] - block.start
+
+
+def _reduced_sums(model: VAE, y, eps, w, config: VAETrainConfig, group, *,
+                  backward: bool) -> torch.Tensor:
+    """One rank's share of a batch (the rows it owns, maybe none): Σ w·(recon
+    + β·KL) over bs, and Σ w·recon, Σ w·KL, Σ w·mse, Σ w, summed over the
+    ranks; with backward, the share is differentiated first and the
+    parameters' gradients are summed in the same all-reduce."""
+    sums = torch.zeros(5, device=w.device)
+    if w.numel():
+        recon, kl, mse = vae_rows(model, y, eps, config)
+        loss = torch.sum(w * (recon + config.beta_kl * kl)) / config.batch_size
+        if backward:
+            loss.backward()
+        sums = torch.stack([loss, *(torch.sum(w * t) for t in (recon, kl, mse)),
+                            torch.sum(w)]).detach()
+    if backward:
+        return all_reduce_grads(group, list(model.parameters()), sums)
+    return all_reduce(group, sums)
 
 
 def train_vae(
@@ -87,64 +128,112 @@ def train_vae(
     *,
     device: torch.device | str,
     log: MetricsLogger | None = None,
+    init_params: dict | None = None,
+    draws: Callable | None = None,
+    group=None,
 ) -> VAETrainResult:
+    """Train. init_params: a VAE state_dict in place of the fresh init.
+    draws(epoch) → (batches (nb, bs) positions into the training rows,
+    weights (nb, bs), ε (nb, bs, zdim), the validation rows' ε (n_val,
+    zdim)) in place of the run's own (a test feeds the JAX driver's). group:
+    this rank's parallel.DataGroup (see the module docstring)."""
     device = resolve_device(str(device))
     set_float32_precision(config.compute_dtype)
+    writer = group is None or group.rank == 0
     own_log = log is None
-    log = log or MetricsLogger(config.outdir)
+    log = log or (MetricsLogger(config.outdir) if writer else NullLogger())
+    outdir = config.outdir if writer else None
     gen = torch.Generator().manual_seed(config.seed)
     model = VAE(config.zdim, dataset.image_shape, config.enc_features,
                 config.dec_features, config.dec_upsample, generator=gen,
-                dtype=compute_dtype(config.compute_dtype)).to(device)
+                dtype=compute_dtype(config.compute_dtype))
+    if init_params is not None:
+        model.load_state_dict({k: torch.as_tensor(v) for k, v in init_params.items()})
+    model.to(device)
+    replicate(group, model.parameters())
     opt = torch.optim.Adam(model.parameters(), lr=config.lr, betas=(0.9, 0.999), eps=1e-8)
 
-    images = torch.from_numpy(dataset.images).to(device)
-    train_idx = torch.from_numpy(dataset.train_idx.astype("int64")).to(device)
-    val_idx = torch.from_numpy(dataset.val_idx.astype("int64")).to(device)
+    train_idx = torch.from_numpy(dataset.train_idx.astype("int64"))
+    val_idx = torch.from_numpy(dataset.val_idx.astype("int64"))
     n, bs = len(train_idx), config.batch_size
     nb = num_batches(n, bs)
+    draws = draws or _make_draws(gen, n, bs, config.zdim, len(val_idx))
+    if group is None:
+        images = torch.from_numpy(dataset.images).to(device)
+        train_idx, val_idx = train_idx.to(device), val_idx.to(device)
+    else:
+        block = row_block(len(dataset.images), group)
+        images = torch.from_numpy(dataset.images[block]).to(device)
+    val_config = dataclasses.replace(config, sat_penalty=0.0)
+    panel_rows = torch.from_numpy(dataset.images[
+        (dataset.val_idx if len(dataset.val_idx) else dataset.train_idx)[:8]]).to(device)
 
     history: list[dict] = []
     for epoch in range(config.epochs):
         t0 = time.perf_counter()
-        batches, weights = epoch_batches(gen, n, bs)
-        eps = torch.randn((nb, bs, config.zdim), generator=gen)
-        batches, weights, eps = batches.to(device), weights.to(device), eps.to(device)
+        batches, weights, eps, eps_v = draws(epoch)
         rows = []
-        for b in range(nb):
-            y = images[train_idx[batches[b]]]
-            loss, aux = vae_loss(model, y, eps[b], weights[b], config)
-            opt.zero_grad(set_to_none=True)
-            loss.backward()
-            opt.step()
-            rows.append(torch.stack([loss.detach(), *aux]))
+        if group is None:
+            batches, weights, eps = batches.to(device), weights.to(device), eps.to(device)
+            for b in range(nb):
+                y = images[train_idx[batches[b]]]
+                loss, aux = vae_loss(model, y, eps[b], weights[b], config)
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+                opt.step()
+                rows.append(torch.stack([loss.detach(), *aux]))
+        else:
+            for b in range(nb):
+                own, local = _owned_rows(train_idx[batches[b]], block)
+                opt.zero_grad(set_to_none=True)
+                s = _reduced_sums(model, images[local.to(device)], eps[b][own].to(device),
+                                  weights[b][own].to(device), config, group, backward=True)
+                opt.step()
+                rows.append(torch.cat([s[:1], s[1:4] / s[4]]))
         row = torch.stack(rows).mean(dim=0).tolist()
         rec = {"driver": "train_vae", "epoch": epoch,
                **dict(zip(("loss", "recon_term", "kl_term", "mse"), row))}
         if len(val_idx):
-            eps_v = torch.randn((len(val_idx), config.zdim), generator=gen).to(device)
             with torch.no_grad():
-                yv = images[val_idx]
                 # the val mean of recon + β·KL, without the saturation barrier
                 # (as the JAX driver reports it)
-                loss_v, (_, _, mse_v) = vae_loss(
-                    model, yv, eps_v, torch.ones(len(val_idx), device=device),
-                    dataclasses.replace(config, sat_penalty=0.0))
+                if group is None:
+                    loss_v, (_, _, mse_v) = vae_loss(
+                        model, images[val_idx], eps_v.to(device),
+                        torch.ones(len(val_idx), device=device), val_config)
+                else:
+                    own, local = _owned_rows(val_idx, block)
+                    s = _reduced_sums(model, images[local.to(device)], eps_v[own].to(device),
+                                      torch.ones(int(own.sum()), device=device), val_config,
+                                      group, backward=False)
+                    loss_v, mse_v = (s[1] + config.beta_kl * s[2]) / s[4], s[3] / s[4]
             rec["val_loss"], rec["val_mse"] = float(loss_v), float(mse_v)
         rec["sec_epoch"] = time.perf_counter() - t0
         log.log(rec)
         history.append(rec)
-        if config.outdir:
-            _epoch_artifacts(model, images[(val_idx if len(val_idx) else train_idx)[:8]],
-                             config, epoch)
+        if outdir:
+            _epoch_artifacts(model, panel_rows, config, epoch)
 
-    if config.outdir:
+    if outdir:
         _save_weights(model, os.path.join(config.outdir, WEIGHTS_FILE))
         save_tree(os.path.join(config.outdir, "final_state"),
                   {"vae": model.state_dict(), "opt": opt.state_dict(), "epoch": config.epochs})
     if own_log:
         log.close()
     return VAETrainResult(model=model, config=config, history=history)
+
+
+def _make_draws(generator: torch.Generator, n: int, bs: int, zdim: int, n_val: int) -> Callable:
+    """draws(epoch) → (batches, weights, ε, the validation rows' ε), in epoch
+    order from `generator`."""
+    nb = num_batches(n, bs)
+
+    def draws(epoch: int):
+        batches, weights = epoch_batches(generator, n, bs)
+        eps = torch.randn((nb, bs, zdim), generator=generator)
+        return batches, weights, eps, torch.randn((n_val, zdim), generator=generator)
+
+    return draws
 
 
 def _save_weights(model: VAE, path: str) -> None:

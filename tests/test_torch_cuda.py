@@ -16,6 +16,7 @@ in a fixed order, so reruns are bit-identical.
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -299,3 +300,29 @@ def test_exported_program_round_trip_on_card(gen, tmp_path, dtype):
     # two devices' convolutions round differently, in bfloat16 at its 8 bits
     tol = 1e-4 if dtype == "float32" else 2e-2
     assert not on_cpu.is_cuda and float((on_card.cpu() - on_cpu).abs().max()) <= tol
+
+
+def test_factor_prep_per_shard_on_two_gloo_ranks(gen):
+    """factor_prep with a group: 2 gloo ranks on cuda:0 (NCCL takes one rank
+    per card), each launching the kernel on its half of N = 5701 rows (2851
+    and 2850) before the all-reduce, against the single-process kernel over
+    all rows; values and gradients of sum(G²) + sum(UᵀZ) + ‖Z‖² ≤ 1e-5 of
+    the largest |entry| (fp32 partial sums in another order)."""
+    from gppvae_tpu_torch.parallel import run_ranks
+    from gppvae_tpu_torch.parallel.dryrun import factor_prep_rank
+
+    U = torch.randn(5701, 56, device="cuda", generator=gen) / math.sqrt(56)
+    Z = torch.randn(5701, 16, device="cuda", generator=gen)
+    ranks = run_ranks(factor_prep_rank, 2, backend="gloo", device="cuda:0",
+                      args=(U.cpu().numpy(), Z.cpu().numpy()))
+    u, z = U.clone().requires_grad_(), Z.clone().requires_grad_()
+    G, UtZ, zn = ops.factor_prep(u, z)
+    dU, dZ = torch.autograd.grad(torch.sum(G * G) + torch.sum(UtZ) + zn, (u, z))
+    for r in ranks:
+        assert r["launches"]["launch_factor_prep.launches"] == 1
+        assert r["launches"]["factor_prep_torch.cuda_calls"] == 0
+        for name, want in (("G", G), ("UtZ", UtZ), ("zn", zn)):
+            assert _rel_err(torch.from_numpy(r[name]), want.detach().cpu()) <= 1e-5, name
+    for name, want in (("dU", dU), ("dZ", dZ)):
+        got = torch.from_numpy(np.concatenate([r[name] for r in ranks]))
+        assert _rel_err(got, want.cpu()) <= 1e-5, name
