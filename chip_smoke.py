@@ -92,13 +92,27 @@ Phases, one per printed line group; any failure ends the run non-zero:
      parallel fold, predict_images (with variances) and observe of (a)'s
      trained params against the single-process serving calls, max abs err /
      max |·| ≤ 1e-5;
- 10. the `kernels` line (each kernel at the main path's shape, launches
-     summed over the training paths 4, 5a-d, 7, 8 and 9a's ranks), then the
-     last line: {"ok": true, "device": ...}.
+ 10. tensor parallelism (parallel/tensor.py): one RankPool of 4 gloo ranks
+     on cuda:0 as a 2 × 2 data × model mesh. (a) GPPVAE-joint as 9a (the
+     slice's width, 2 epochs from path 4's vae_weights) at the default
+     threshold, so that seven weights split over the model axis, held to
+     path 9's two single-process runs (not trained again) within the same
+     bound; one digest of the whole parameters on every rank, each rank's
+     blocks its rows of them; each rank launches each kernel once per epoch
+     and no plain version on a CUDA tensor; each epoch's collectives per axis
+     (calls, bytes, the largest) and sec/epoch with its phases beside one
+     process's; the split weights and their blocks' shapes; (c) parallel.
+     dryrun(4) on the same ranks, the 2-D branch; (d) a split conv in
+     bfloat16 against the unsplit one on the card (gloo's all-reduce of
+     bfloat16 CUDA tensors);
+ 11. the `kernels` line (each kernel at the main path's shape, launches
+     summed over the training paths 4, 5a-d, 7, 8, 9a's and 10a's ranks),
+     then the last line: {"ok": true, "device": ...}.
 
 Every path (4, 5a-d, 6 per run, each run of 7, 8) sets the kernels' counts
-to 0 just before it and reads them just after; in path 9 each rank does so
-around its own run (parallel/dryrun.py), and its counts come back with it.
+to 0 just before it and reads them just after; in paths 9 and 10 each rank
+does so around its own run (parallel/dryrun.py), and its counts come back
+with it.
 """
 
 from __future__ import annotations
@@ -186,6 +200,15 @@ DP_VAE = dict(epochs=1, seed=0)
 # ranks vs one process: at least this, or 10× the spread of two single runs
 DP_REL_FLOOR = 1e-4
 DP_SERVE_REL_BOUND = 1e-5  # serving: max abs err / max |·|, fp32 sums in another order
+# path 10: the 2 × 2 mesh on the same card, and the weights that split at the
+# published widths (the JAX package's shard_params_model_axis splits the same)
+TP_MESH = (2, 2)
+TP_SPLIT = {"encoder.convs.1.weight", "encoder.convs.2.weight", "encoder.dense.weight",
+            "decoder.dense.weight", "decoder.convs.0.weight", "decoder.convs.1.weight",
+            "decoder.convs.2.weight"}
+# a split bfloat16 conv against the unsplit one: max abs err / max |y|, a few
+# bfloat16 ulps (2^-8 each) where the two convolutions round apart
+TP_BF16_REL_BOUND = 2e-2
 
 
 def say(*parts) -> None:
@@ -1075,9 +1098,9 @@ def dp_against_one(label: str, ranks: list[dict], singles: list[dict], keys) -> 
     return worst
 
 
-def path_dp(tmp: str, card: str) -> dict:
+def path_dp(tmp: str, card: str) -> tuple[dict, list[dict]]:
     """Path 9 (see the module docstring). Returns the ranks' summed launch
-    counts of (a)."""
+    counts of (a) and (a)'s two single-process runs."""
     from gppvae_tpu_torch.data import build_rotated_digits
     from gppvae_tpu_torch.eval import serving
     from gppvae_tpu_torch.models import VAE
@@ -1166,6 +1189,90 @@ def path_dp(tmp: str, card: str) -> dict:
         check(all(e <= DP_SERVE_REL_BOUND for e in errs.values()),
               "9c: data-parallel serving equals one process")
     say(f"9 path: {time.perf_counter() - t_path:.1f} s")
+    return {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}, singles
+
+
+def per_axis(collectives: dict) -> dict:
+    """{axis: {'calls', 'bytes', 'max_bytes'}} of one epoch's collectives
+    (parallel.summary's kinds: unprefixed on the data axis)."""
+    out: dict = {}
+    for kind, row in collectives.items():
+        axis = kind.split(".")[0] if "." in kind else "data"
+        a = out.setdefault(axis, {"calls": 0, "bytes": 0, "max_bytes": 0})
+        a["calls"] += row["calls"]
+        a["bytes"] += row["bytes"]
+        a["max_bytes"] = max(a["max_bytes"], row["max_bytes"])
+    return out
+
+
+def path_tp(tmp: str, card: str, singles: list[dict]) -> dict:
+    """Path 10 (see the module docstring); `singles` are path 9's two
+    single-process runs. Returns the ranks' summed launch counts of (a)."""
+    from gppvae_tpu_torch.parallel import RankPool, dryrun
+    from gppvae_tpu_torch.train import train_vae
+
+    world = TP_MESH[0] * TP_MESH[1]
+    say(f"== 10 tensor parallelism: {world} gloo ranks on {DP_DEVICE} as a {TP_MESH[0]} × "
+        f"{TP_MESH[1]} data × model mesh; (a) GPPVAE-joint 2 epochs at the slice's width, "
+        "(c) the 2-D dryrun, (d) a bfloat16 split conv")
+    t_path = time.perf_counter()
+    config = {**DP_GPPVAE, "vae_weights": f"{tmp}/vae/{train_vae.WEIGHTS_FILE}"}
+    with RankPool(world, backend="gloo", device=DP_DEVICE, mesh=TP_MESH) as pool:
+        say(f"10 {world} ranks joined in {time.perf_counter() - t_path:.2f} s")
+        # (a)
+        t0 = time.perf_counter()
+        ranks = pool.run(dryrun.train_gppvae_rank, DP_DATA, config)
+        wall = time.perf_counter() - t0
+        keys = ("loss", "recon_term", "gp_term", "pen_term", "mse", "gp_nll_full", "v_sig",
+                "v_noise", "oos_mse")
+        dp_against_one("10a GPPVAE-joint on the 2 × 2 mesh", ranks, singles, keys)
+        split = dryrun.check_blocks(ranks, TP_MESH[1])
+        whole = ranks[0]["params"]["vae"]
+        say("10a split weights, whole → each rank's block: " + json.dumps(
+            {k: [list(whole[k].shape), list(ranks[0]["blocks"][k].shape)] for k in split}))
+        check(set(split) == TP_SPLIT, f"10a: the seven weights split, got {split}")
+        epochs = DP_GPPVAE["epochs"]
+        for rank, r in enumerate(ranks):
+            c = r["launches"]
+            say(f"10a rank {rank} launch counts {c}")
+            check(c["launch_factor_prep.launches"] == c["launch_nll_core.launches"] == epochs,
+                  f"10a rank {rank}: each kernel launched once per epoch")
+            check(c["factor_prep_torch.cuda_calls"] == c["nll_core_torch.cuda_calls"] == 0,
+                  f"10a rank {rank}: no plain version on a CUDA tensor")
+        for h, hs in zip(ranks[0]["history"], singles[0]["history"]):
+            say(f"10a epoch {h['epoch']}: collectives per axis "
+                f"{json.dumps(per_axis(h['collectives']))}; by kind "
+                f"{json.dumps(h['collectives'])}")
+            say(f"10a epoch {h['epoch']}: sec_epoch 2 × 2 mesh {h['sec_epoch']:.4f} (A "
+                f"{h['sec_A_encode']:.4f}, B {h['sec_B_solve']:.4f}, C "
+                f"{h['sec_C_minibatch']:.4f}, eval {h['sec_eval_oos']:.4f}), one process "
+                f"{hs['sec_epoch']:.4f} (A {hs['sec_A_encode']:.4f}, B {hs['sec_B_solve']:.4f}, "
+                f"C {hs['sec_C_minibatch']:.4f}, eval {hs['sec_eval_oos']:.4f}) on {card}")
+            check({"data", "model", "world"} <= set(per_axis(h["collectives"])),
+                  "10a: collectives on every axis")
+        say(f"10a mesh run: {wall:.2f} s wall for {epochs} epochs and the set-up")
+
+        # (c)
+        dr = dryrun.dryrun(world, device=DP_DEVICE, pool=pool)
+        say(f"10c dryrun: {json.dumps(dr)}")
+
+        # (d)
+        rng = np.random.default_rng(0)
+        w = (rng.standard_normal((64, 32, 3, 3)) / 17).astype(np.float32)
+        b = rng.standard_normal(64).astype(np.float32)
+        x = rng.standard_normal((128, 32, 16, 16)).astype(np.float32)
+        dy = rng.standard_normal((128, 64, 16, 16)).astype(np.float32)
+        got = pool.run(dryrun.column_parallel_rank, "conv", w, b, x, dy, "bfloat16")
+        with torch.no_grad():
+            want = torch.nn.functional.conv2d(
+                *(torch.as_tensor(a, device="cuda").bfloat16() for a in (x, w, b)),
+                padding=1).float().cpu()
+        err = max(max_err([torch.from_numpy(r["y"])], [want])[1] for r in got)
+        say(f"10d bfloat16 conv split over the model axis vs unsplit on the card: max abs err "
+            f"/ max |y| {err:.3e} (bound {TP_BF16_REL_BOUND:.0e}); collectives "
+            f"{json.dumps(got[0]['collectives'])}")
+        check(err <= TP_BF16_REL_BOUND, "10d: the bfloat16 split conv equals the unsplit one")
+    say(f"10 path: {time.perf_counter() - t_path:.1f} s")
     return {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
 
 
@@ -1180,7 +1287,9 @@ def main() -> None:
         c5b, r5b = path_faces(tmp)
         paths = [c4, c5a, c5b, path_nystrom(), path_large_rank()]
         path_serving({"4 slice": r4, "5a headline": r5a, "5b faces": r5b})
-        paths += [*path_resume(tmp), path_protocol(tmp), path_dp(tmp, card)]
+        paths += [*path_resume(tmp), path_protocol(tmp)]
+        c9, singles = path_dp(tmp, card)
+        paths += [c9, path_tp(tmp, card, singles)]
     sources = {
         "factor_prep": ("gppvae_tpu_torch/csrc/factor_prep.cu",
                         "gppvae_tpu/ops/pallas_gemm.py:162", "launch_factor_prep.launches"),

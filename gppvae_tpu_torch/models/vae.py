@@ -26,6 +26,15 @@ exists there to feed the TPU's matrix unit. The port accepts the name, so
 configs and checkpoints interchange, and runs the resize forward for it:
 on an H100 the tap-merged transposed conv was no faster per epoch in
 either dtype and slower in float32 (PERF.md, Findings).
+
+A layer whose weight tensor parallelism split (parallel/tensor.py: the
+layer's `tp_group` is set, its weight is this rank's block of output
+features) runs column-parallel: copy_to_model → the product with the block,
+without the bias → gather_columns (the channel dimension of NCHW, the last
+of a dense output) → + the whole bias. Adding the bias after the gather
+keeps its gradient whole and alike on every rank of the model row. The
+decoder reshapes its dense output as (h, w, c) after the gather, so the
+feature order is the unsplit one.
 """
 
 from __future__ import annotations
@@ -36,6 +45,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from gppvae_tpu_torch.parallel.collectives import copy_to_model, gather_columns
 
 UPSAMPLES = ("resize", "subpixel")
 
@@ -58,12 +69,21 @@ def _flax_init_(module: nn.Module, generator: torch.Generator | None) -> None:
 
 
 def _dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+    group = getattr(layer, "tp_group", None)
+    if group is None:
+        return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+    y = F.linear(copy_to_model(group, x.to(dtype)), layer.weight.to(dtype))
+    return gather_columns(group, y, -1) + layer.bias.to(dtype)
 
 
 def _conv(layer: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    return F.conv2d(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype),
-                    layer.stride, layer.padding)
+    group = getattr(layer, "tp_group", None)
+    if group is None:
+        return F.conv2d(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype),
+                        layer.stride, layer.padding)
+    y = F.conv2d(copy_to_model(group, x.to(dtype)), layer.weight.to(dtype), None,
+                 layer.stride, layer.padding)
+    return gather_columns(group, y, 1) + layer.bias.to(dtype)[:, None, None]
 
 
 class ConvEncoder(nn.Module):

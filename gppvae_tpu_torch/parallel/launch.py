@@ -5,10 +5,12 @@ this is the port's counterpart of `make_mesh`: `world` processes started with
 the `spawn` method (CUDA cannot be forked), each joined to one process group
 through a torch.distributed FileStore in a fresh temporary directory (no TCP
 port, so any number of groups can start side by side), each holding a
-`DataGroup`.
+`DataGroup`, or with `mesh=(data, model)` a `MeshGroup` of the 2-D mesh
+(the counterpart of `make_mesh_2d`; mesh.py).
 
     from gppvae_tpu_torch.parallel import run_ranks
     results = run_ranks(fn, 2, backend="gloo", device="cpu", args=(a, b))
+    results = run_ranks(fn, 4, backend="gloo", device="cpu", mesh=(2, 2))
 
 `fn(group, *args)` runs on every rank and its return values come back as a
 list by rank; `fn` and `args` are pickled, so `fn` is a module-level function
@@ -50,8 +52,24 @@ def rank_device(device: str, rank: int) -> torch.device:
     return dev
 
 
+def _mesh_group(rank: int, mesh: tuple[int, int], dev: torch.device):
+    """The rank's MeshGroup. torch.distributed.new_group is collective over
+    the world: every rank creates every axis group, in one fixed order
+    (each model row, then each data column), and keeps its own two."""
+    import torch.distributed as dist
+
+    from gppvae_tpu_torch.parallel.mesh import MeshGroup
+
+    data, model = mesh
+    i, j = divmod(rank, model)  # row-major, as make_mesh_2d's reshape
+    rows = [dist.new_group([r * model + c for c in range(model)]) for r in range(data)]
+    cols = [dist.new_group([r * model + c for r in range(data)]) for c in range(model)]
+    return MeshGroup(rank=i, world=data, device=dev, model_rank=j, model_size=model,
+                     data_pg=cols[j], model_pg=rows[i])
+
+
 def _rank_main(rank: int, world: int, backend: str, device: str, store_path: str,
-               conn) -> None:
+               mesh, conn) -> None:
     """A rank's process: join the group and say so, then run (fn, args)
     messages until None; each answer is ("ok", result) or ("err",
     traceback)."""
@@ -68,7 +86,8 @@ def _rank_main(rank: int, world: int, backend: str, device: str, store_path: str
         dist.init_process_group(backend, store=dist.FileStore(store_path, world), rank=rank,
                                 world_size=world,
                                 timeout=datetime.timedelta(seconds=TIMEOUT_S))
-        group = DataGroup(rank=rank, world=world, device=dev)
+        group = (DataGroup(rank=rank, world=world, device=dev) if mesh is None
+                 else _mesh_group(rank, mesh, dev))
     except Exception:  # reported to the launcher, which fails with it
         conn.send(("err", traceback.format_exc()))
         return
@@ -87,12 +106,18 @@ def _rank_main(rank: int, world: int, backend: str, device: str, store_path: str
 
 class RankPool:
     """`world` rank processes that run one call after another (`run`, or
-    `submit` then `result`); close them with `close` or a `with` block."""
+    `submit` then `result`); close them with `close` or a `with` block.
+    `mesh` (data, model) with data × model = world makes them a 2-D mesh."""
 
-    def __init__(self, world: int, *, backend: str, device: str):
+    def __init__(self, world: int, *, backend: str, device: str,
+                 mesh: tuple[int, int] | None = None):
         if world < 1:
             raise ValueError(f"world must be >= 1, got {world}")
-        self.world = world
+        if mesh is not None:
+            mesh = tuple(int(a) for a in mesh)
+            if len(mesh) != 2 or min(mesh) < 1 or mesh[0] * mesh[1] != world:
+                raise ValueError(f"mesh {mesh} is not (data, model) of {world} ranks")
+        self.world, self.mesh = world, mesh
         ctx = multiprocessing.get_context("spawn")
         self._tmp = tempfile.TemporaryDirectory(prefix="gppvae_ranks_")
         store = os.path.join(self._tmp.name, "store")
@@ -101,7 +126,7 @@ class RankPool:
         for rank in range(world):
             parent, child = ctx.Pipe()
             proc = ctx.Process(target=_rank_main, daemon=True,
-                               args=(rank, world, backend, device, store, child))
+                               args=(rank, world, backend, device, store, mesh, child))
             proc.start()
             child.close()
             self._conns.append(parent)
@@ -176,7 +201,8 @@ class RankPool:
         self.close()
 
 
-def run_ranks(fn, world: int, *, backend: str, device: str, args: tuple = ()) -> list:
+def run_ranks(fn, world: int, *, backend: str, device: str, args: tuple = (),
+              mesh: tuple[int, int] | None = None) -> list:
     """fn(group, *args) on `world` fresh ranks; its return values by rank."""
-    with RankPool(world, backend=backend, device=device) as pool:
+    with RankPool(world, backend=backend, device=device, mesh=mesh) as pool:
         return pool.run(fn, *args)

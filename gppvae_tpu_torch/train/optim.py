@@ -16,6 +16,17 @@ The count carries across epochs. A non-finite mini-step makes the mean, and
 so the k-th step, non-finite: that step skips. optax then resets the mean
 by multiplying it by 0, which keeps a NaN, so every later k-th step skips
 too; the port does the same (ROADMAP Queue 3).
+
+Under tensor parallelism (`shards`: the rank's MeshGroup and which
+parameters are blocks of split weights, parallel/tensor.py) Σg² is the whole
+model's, as the JAX spike_guard computes it on sharded arrays
+(gppvae_tpu/train/train_gppvae.py:233): the blocks' Σg² summed over the
+model axis, plus the replicated tensors' Σg² counted once, so every rank
+takes the same finite / clip decision. Adam is elementwise and runs on the
+blocks as they are. `state_dict` gathers the blocks' moments and running
+means whole, and `load_state_dict` takes whole ones and keeps the blocks:
+a train state is the same whether one process, data ranks or a mesh wrote
+it.
 """
 
 from __future__ import annotations
@@ -24,6 +35,8 @@ from typing import Iterable
 
 import torch
 
+from gppvae_tpu_torch.parallel import all_reduce, gather
+from gppvae_tpu_torch.parallel.tensor import block
 from gppvae_tpu_torch.train.batching import num_batches
 
 
@@ -46,8 +59,10 @@ class GuardedAdam:
     so one per `accum_steps` calls."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], lr: float,
-                 clip_grad_norm: float = 1e5, accum_steps: int = 1):
+                 clip_grad_norm: float = 1e5, accum_steps: int = 1, shards=None):
         self.params = list(params)
+        # (MeshGroup, [is a block per parameter]) under tensor parallelism
+        self.group, self.shards = shards if shards and any(shards[1]) else (None, None)
         self.clip = clip_grad_norm
         self.adam = torch.optim.Adam(self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
         self.accum_steps = accum_steps
@@ -59,14 +74,28 @@ class GuardedAdam:
     def zero_grad(self) -> None:
         self.adam.zero_grad(set_to_none=True)
 
+    def _whole(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        """A parameter-shaped tensor of parameter i, whole."""
+        return gather(self.group, t, 0) if self.shards and self.shards[i] else t
+
+    def _mine(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        """A whole parameter-shaped tensor of parameter i, as this rank holds it."""
+        return block(self.group, t).clone() if self.shards and self.shards[i] else t
+
     def state_dict(self) -> dict:
         """Everything the next call reads: Adam's moments and step counts,
         the position inside an accumulation window with its running mean,
-        and the counters."""
+        and the counters; whole under tensor parallelism (every rank of the
+        model row calls it)."""
+        adam = self.adam.state_dict()
+        if self.group is not None:
+            adam["state"] = {i: {k: self._whole(i, v) if torch.is_tensor(v) and v.dim() else v
+                                 for k, v in st.items()} for i, st in adam["state"].items()}
         return {
-            "adam": self.adam.state_dict(),
+            "adam": adam,
             "mini_step": self.mini_step,
-            "acc": None if self.acc is None else [a.clone() for a in self.acc],
+            "acc": None if self.acc is None else [
+                self._whole(i, a).clone() for i, a in enumerate(self.acc)],
             "notfinite_count": self.notfinite_count,
             "steps": self.steps,
         }
@@ -75,12 +104,18 @@ class GuardedAdam:
         # the learning rate stays this optimizer's own (optax keeps it
         # outside its state)
         lr = self.adam.param_groups[0]["lr"]
-        self.adam.load_state_dict(state["adam"])
+        adam = state["adam"]
+        if self.group is not None:
+            adam = {**adam, "state": {
+                i: {k: self._mine(i, v) if torch.is_tensor(v) and v.dim() else v
+                    for k, v in st.items()} for i, st in adam["state"].items()}}
+        self.adam.load_state_dict(adam)
         for group in self.adam.param_groups:
             group["lr"] = lr
         self.mini_step = int(state["mini_step"])
         self.acc = None if state["acc"] is None else [
-            a.to(device=p.device, dtype=p.dtype) for a, p in zip(state["acc"], self.params)]
+            self._mine(i, a).to(device=p.device, dtype=p.dtype)
+            for i, (a, p) in enumerate(zip(state["acc"], self.params))]
         self.notfinite_count = int(state["notfinite_count"])
         self.steps = int(state["steps"])
 
@@ -105,8 +140,17 @@ class GuardedAdam:
     def _guarded_step(self) -> bool:
         grads = [p.grad for p in self.params if p.grad is not None]
         sumsq = torch.zeros((), dtype=torch.float32, device=grads[0].device)
-        for g in grads:
-            sumsq = sumsq + torch.sum(g * g)
+        if self.group is None:
+            for g in grads:
+                sumsq = sumsq + torch.sum(g * g)
+        else:  # the blocks' share from the whole model row, the rest once
+            blocks = torch.zeros_like(sumsq)
+            for p, is_block in zip(self.params, self.shards):
+                if p.grad is not None and is_block:
+                    blocks = blocks + torch.sum(p.grad * p.grad)
+                elif p.grad is not None:
+                    sumsq = sumsq + torch.sum(p.grad * p.grad)
+            sumsq = sumsq + all_reduce(self.group, blocks, axis="model")
         if not bool(torch.isfinite(sumsq)):
             self.notfinite_count += 1
             return False

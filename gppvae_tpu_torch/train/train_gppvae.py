@@ -49,6 +49,20 @@ result equals the single-process run up to the order of the sums. Each
 epoch's record adds the rank's collective calls and bytes, and after each
 epoch the parameters are checked bit-equal across ranks. Rank 0 alone writes
 the artifacts and logs; a state written by either run resumes in the other.
+
+With a parallel.MeshGroup (a rank of a data × model mesh, as the JAX
+trainer runs under make_mesh_2d) the rows split over the data axis as
+above, and after the parameters are replicated the large conv and dense
+weights split by output features over the model axis (`split_model_axis`,
+parallel/tensor.py; the VAE runs those layers column-parallel). Every
+R-sized sum and the gradient all-reduce go over the data axis only: a
+block's gradient is whole for its columns, and the replicated gradients are
+made alike on the model row by one broadcast; the guarded Adams' Σg² sums
+the blocks' part over the model axis. The replicated parameters are checked
+over the world, the blocks over the data axis. Checkpoints, final_state,
+final_params.pt and the result hold the full weights, gathered, so a mesh
+run is read, generated from, served and resumed like any other, and a
+resume on a mesh splits them again.
 """
 
 from __future__ import annotations
@@ -79,6 +93,8 @@ from gppvae_tpu_torch.parallel import (
     row_block,
     summary,
 )
+from gppvae_tpu_torch.parallel import tensor as tp
+from gppvae_tpu_torch.parallel.tensor import split_model_axis
 from gppvae_tpu_torch.train.batching import epoch_batches, masked_means, num_batches
 from gppvae_tpu_torch.train.device import (
     COMPUTE_DTYPES,
@@ -228,7 +244,8 @@ def _setup(dataset: GridDataset, config: GPPVAETrainConfig, device: torch.device
     """(model, gp_params, fixed_W, data, num_train). init_params may give
     {'vae': state_dict, 'gp': {name: array}}, each replacing the fresh
     init (and --vae_weights). With a group, the parameters are rank 0's on
-    every rank and the data the rank's rows."""
+    every rank and the data the rank's rows; on a mesh with a model axis the
+    large weights then split over it (split_model_axis)."""
     init_params = init_params or {}
     model = VAE(config.zdim, dataset.image_shape, config.enc_features,
                 config.dec_features, config.dec_upsample, generator=generator,
@@ -262,6 +279,7 @@ def _setup(dataset: GridDataset, config: GPPVAETrainConfig, device: torch.device
     gp_params = {k: torch.nn.Parameter(v.to(device=device, dtype=torch.float32))
                  for k, v in gp_init.items()}
     replicate(group, [*model.parameters(), *gp_params.values()])
+    split_model_axis(model, group)
     return (model, gp_params, fixed_W, _data_tensors(dataset, device, group),
             len(dataset.train_idx))
 
@@ -344,8 +362,10 @@ class _Loop:
     def restart_optimizers(self) -> None:
         """Fresh guarded Adams (moments, step counts and accumulators)."""
         config = self.config
-        self.opt_vae = GuardedAdam(self.model.parameters(), config.lr_vae,
-                                   config.clip_grad_norm, self.accum_steps)
+        params = list(self.model.parameters())
+        self.shards = tp.shard_mask(self.model, params)
+        self.opt_vae = GuardedAdam(params, config.lr_vae, config.clip_grad_norm,
+                                   self.accum_steps, shards=(self.group, self.shards))
         self.opt_gp = GuardedAdam([self.gp[k] for k in sorted(self.gp)], config.lr_gp,
                                   config.clip_grad_norm, self.accum_steps)
 
@@ -429,7 +449,7 @@ class _Loop:
                 sums = torch.stack([loss, torch.sum(w * recon), gp_term, torch.sum(w * pen_rows),
                                     torch.sum(w * mse), torch.sum(w)]).detach()
             sums = all_reduce_grads(self.group, [*self.opt_vae.params, *self.opt_gp.params],
-                                    sums)
+                                    sums, [*self.shards, *[False] * len(self.opt_gp.params)])
             metrics = sums[:5].clone()
             metrics[[1, 3, 4]] /= sums[5]  # the masked means
         self.opt_vae.step()
@@ -537,9 +557,10 @@ def _train_state(loop: _Loop, x_draws: dict | None, generator: torch.Generator,
     params, both guarded Adams whole, the 'dis' mode's fixed W, the
     object-kernel draws and landmarks (the run's own, never re-drawn), and
     the state of the generator that the plans and ε are drawn from in
-    sequence."""
+    sequence. Whole under tensor parallelism (every rank calls it: the
+    blocks are gathered over the model axis)."""
     return {
-        "vae": loop.model.state_dict(),
+        "vae": tp.gather_state_dict(loop.model),
         "gp": dict(loop.gp),
         "opt_vae": loop.opt_vae.state_dict(),
         "opt_gp": loop.opt_gp.state_dict(),
@@ -567,14 +588,14 @@ def _load_resume(path: str, shape: dict, device: torch.device) -> dict:
     return state
 
 
-def _save_panel(loop: _Loop, y_pred: torch.Tensor, epoch: int) -> None:
-    """panel_NNNN.png: 8 training images, their reconstructions, 8 held-out
-    images, their predictions (train_gppvae.py:979-991)."""
+def _panel(loop: _Loop, y_pred: torch.Tensor, epoch: int) -> list:
+    """panel_NNNN.png's rows: 8 training images, their reconstructions, 8
+    held-out images, their predictions (train_gppvae.py:979-991). Every rank
+    computes them: a split layer's forward is collective."""
     config, d = loop.config, loop.data
     y = d["images_panel"]
     recon = sample_reconstruction(loop.model, y, config.seed, epoch)
-    save_panel(os.path.join(config.outdir, f"panel_{epoch:04d}.png"),
-               [t.cpu().numpy() for t in (y, recon, d["y_ho"][:8], y_pred[:8])])
+    return [t.cpu().numpy() for t in (y, recon, d["y_ho"][:8], y_pred[:8])]
 
 
 def train_gppvae(
@@ -590,9 +611,11 @@ def train_gppvae(
     """Train; init_params may give 'vae', 'gp', 'rff' = (Ω, b) and
     'nystrom_idx' in place of the fresh ones (see _setup, _object_kernel).
     With config.resume, everything comes from that state instead and the
-    run continues at its epoch. group: this rank's parallel.DataGroup, every
-    rank calling with the same arguments (see the module docstring); rank 0
-    alone writes outdir and logs, the other ranks' log defaults to none."""
+    run continues at its epoch. group: this rank's parallel.DataGroup or
+    MeshGroup, every rank calling with the same arguments (see the module
+    docstring); global rank 0 alone writes outdir and logs, the other ranks'
+    log defaults to none. The result's model holds the full weights; its
+    optimizers, on a mesh, the blocks."""
     if config.mode not in ("joint", "dis"):
         raise ValueError(f"unknown mode {config.mode!r}; want 'joint' or 'dis'")
     init_params = dict(init_params or {})
@@ -606,7 +629,7 @@ def train_gppvae(
         init_params.update(
             rff=(ok["omega"].cpu(), ok["phase"].cpu()),
             nystrom_idx=None if ok["nystrom_idx"] is None else ok["nystrom_idx"].cpu())
-    writer = group is None or group.rank == 0
+    writer = group is None or group.global_rank == 0
     own_log = log is None
     log = log or (MetricsLogger(config.outdir) if writer else NullLogger())
     outdir = config.outdir if writer else None
@@ -621,7 +644,7 @@ def train_gppvae(
                  x_map=x_map, accum_steps=accum, group=group)
     start_epoch = 0
     if resumed:
-        model.load_state_dict(resumed["vae"])
+        tp.load_state_dict(model, resumed["vae"])
         with torch.no_grad():
             for k, v in gp_params.items():
                 v.copy_(resumed["gp"][k])
@@ -663,22 +686,35 @@ def train_gppvae(
             if group is not None:
                 # a guarded step that one rank skipped alone would part the
                 # replicas silently from here on
-                check_replicated(group, [*loop.opt_vae.params, *loop.opt_gp.params],
-                                 f"the parameters after epoch {epoch}")
+                params = [*loop.opt_vae.params, *loop.opt_gp.params]
+                mask = [*loop.shards, *[False] * len(loop.opt_gp.params)]
+                what = f"the parameters after epoch {epoch}"
+                check_replicated(group, [p for p, s in zip(params, mask) if not s], what)
+                if any(mask):
+                    check_replicated(group, [p for p, s in zip(params, mask) if s],
+                                     f"{what} (the blocks of split weights)", axis="data")
                 rec["collectives"] = summary(group.counts - counts)
             log.log(rec)
             history.append(rec)
-            if outdir:
+            if config.outdir:
                 # one epoch per iteration, so the JAX trainer's dispatch
-                # window (train_gppvae.py:970-975) is the plain epoch % every
+                # window (train_gppvae.py:970-975) is the plain epoch % every.
+                # Every rank computes what is due (a mesh gathers); the
+                # writer writes it
                 last = epoch == config.epochs - 1
                 if config.panel_every and (epoch % config.panel_every == 0 or last):
-                    _save_panel(loop, y_pred, epoch)
+                    rows = _panel(loop, y_pred, epoch)
+                    if outdir:
+                        save_panel(os.path.join(outdir, f"panel_{epoch:04d}.png"), rows)
                 if (config.checkpoint_every and epoch % config.checkpoint_every == 0
                         and not last):
-                    save_tree(os.path.join(config.outdir, f"state_{epoch + 1:04d}"),
-                              _train_state(loop, x_draws, gen, epoch + 1, shape))
+                    state = _train_state(loop, x_draws, gen, epoch + 1, shape)
+                    if outdir:
+                        save_tree(os.path.join(outdir, f"state_{epoch + 1:04d}"), state)
 
+    # the result and the files hold the full weights (a mesh gathers them)
+    tp.unsplit(model)
+    final = _train_state(loop, x_draws, gen, config.epochs, shape) if config.outdir else None
     if outdir:
         torch.save(
             {"vae": {k: v.cpu() for k, v in model.state_dict().items()},
@@ -688,8 +724,7 @@ def train_gppvae(
              {k: None if v is None else v.cpu() for k, v in x_draws.items()}},
             os.path.join(config.outdir, FINAL_PARAMS_FILE),
         )
-        save_tree(os.path.join(config.outdir, FINAL_STATE_FILE),
-                  _train_state(loop, x_draws, gen, config.epochs, shape))
+        save_tree(os.path.join(config.outdir, FINAL_STATE_FILE), final)
     if own_log:
         log.close()
     return GPPVAETrainResult(model=model, gp_params=gp_params, fixed_W=fixed_W,

@@ -17,6 +17,13 @@ block, and one all-reduce sums the gradients with the step's metric sums
 before Adam; the validation rows are split and reduced the same way. Rank 0
 alone writes outdir and logs.
 
+With a parallel.MeshGroup (a rank of a data × model mesh) the driver does
+what the JAX driver does under make_mesh_2d (train_vae.py:197-211): no
+tensor parallelism, the parameters replicated on every rank, the rows split
+over the data axis and the gradient all-reduce over the data axis only; the
+ranks of a model row compute the same rows, and the reduced gradients are
+made alike on the row by one broadcast (parallel.all_reduce_grads).
+
     python -m gppvae_tpu_torch.train.train_vae --data synthetic \
         --outdir out/vae --device cuda
 """
@@ -139,7 +146,7 @@ def train_vae(
     this rank's parallel.DataGroup (see the module docstring)."""
     device = resolve_device(str(device))
     set_float32_precision(config.compute_dtype)
-    writer = group is None or group.rank == 0
+    writer = group is None or group.global_rank == 0
     own_log = log is None
     log = log or (MetricsLogger(config.outdir) if writer else NullLogger())
     outdir = config.outdir if writer else None

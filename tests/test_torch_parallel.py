@@ -273,7 +273,7 @@ def test_collectives_do_not_grow_with_n(pools):
     """(v) the collectives of a training epoch (kind, calls, bytes) are the
     same at 53 and 56 training rows, and none is larger than the gradient
     all-reduce of both Adams' parameters: dryrun's checks, on 2 ranks."""
-    out = dryrun.dryrun(2, pool=pools(2))
+    out = dryrun.dryrun(2, device="cpu", pool=pools(2))
     assert out["n_train"] == [53, 56]
     assert 0 < out["max_bytes"] <= out["budget_bytes"]
     assert set(out["collectives"]) == {"all_reduce"}  # nothing is broadcast in an epoch
