@@ -105,11 +105,20 @@ Phases, one per printed line group; any failure ends the run non-zero:
      dryrun(4) on the same ranks, the 2-D branch; (d) a split conv in
      bfloat16 against the unsplit one on the card (gloo's all-reduce of
      bfloat16 CUDA tensors);
- 11. the `kernels` line (each kernel at the main path's shape, launches
-     summed over the training paths 4, 5a-d, 7, 8, 9a's and 10a's ranks),
-     then the last line: {"ok": true, "device": ...}.
+ 11. the bench: bench_torch.main on a cut copy of its table, every config
+     at the published widths (the digits grid 400 × 16 at 32², faces 50 × 8
+     at 128² and 64²), each training config 4 epochs (skip 2), faces 64² 8,
+     the serving rows and the kernels block whole (both kernels at
+     tools/kernel_ab.py's shapes and the main path's, each held to its plain
+     version), no accuracy block (path 8 runs the protocol); checks that no
+     config holds an error, each kernel launched once per epoch in every
+     GPPVAE config and in none of the others, the kernels rows within their
+     bounds, and a last line that parses under 2,000 characters;
+ 12. the `kernels` line (each kernel at the main path's shape, launches
+     summed over the training paths 4, 5a-d, 7, 8, 9a's and 10a's ranks,
+     11), then the last line: {"ok": true, "device": ...}.
 
-Every path (4, 5a-d, 6 per run, each run of 7, 8) sets the kernels' counts
+Every path (4, 5a-d, 6 per run, each run of 7, 8, 11) sets the kernels' counts
 to 0 just before it and reads them just after; in paths 9 and 10 each rank
 does so around its own run (parallel/dryrun.py), and its counts come back
 with it.
@@ -133,6 +142,16 @@ import time
 import numpy as np
 import torch
 
+from gppvae_tpu_torch.utils.kernel_timing import (
+    FACTOR_PREP_REL_BOUND,
+    FP32_FLOPS,
+    NLL_GRAD_REL_BOUND,
+    NLL_VALUE_REL_BOUND,
+    max_err,
+    time_factor_prep,
+    timings,
+)
+
 # (N, R, L); the first of each is the main path's (phase 4), (332, 232, 32)
 # path (b)'s, (5700, 560, 16) path (d)'s, (2850, 56, 16) one rank's shard in
 # path 9; from R = 560 past the TPU kernel's 512
@@ -140,13 +159,8 @@ SHAPES_FACTOR_PREP = [(5700, 56, 16), (5701, 56, 16), (6401, 256, 16), (256, 204
                       (332, 232, 32), (5700, 560, 16), (2850, 56, 16)]
 SHAPES_NLL_CORE = [(5700, 56, 16), (332, 232, 32), (5700, 560, 16), (6400, 600, 16),
                    (6400, 1024, 16), (6400, 2048, 8)]
-FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores (NVIDIA's data sheet)
-HBM_BYTES_PER_S = 3.35e12
 KERNEL_KEYS = ("max_abs_err", "ms", "device_ms", "device_ms_method", "plain_ms", "bound_ms",
                "bound_by", "library_ms")
-FACTOR_PREP_REL_BOUND = 1e-5  # max abs err / max |plain|, fp32 sums of N terms
-NLL_VALUE_REL_BOUND = 1e-5
-NLL_GRAD_REL_BOUND = 1e-4  # per gradient, err / max |plain grad|
 SLICE_NLL_REL_BOUND = 1e-4  # card (fp32, kernels) vs CPU float64, N = 5700
 # bf16 vs f32 latents of the same trained weights, max abs err / max |Z|:
 # 4.8e-3 measured on an H100; the CPU bound of bf16 against flax's bf16
@@ -209,6 +223,10 @@ TP_SPLIT = {"encoder.convs.1.weight", "encoder.convs.2.weight", "encoder.dense.w
 # a split bfloat16 conv against the unsplit one: max abs err / max |y|, a few
 # bfloat16 ulps (2^-8 each) where the two convolutions round apart
 TP_BF16_REL_BOUND = 2e-2
+# path 11: bench_torch.py's table at the published widths, depth cut; the
+# accuracy block is left out (path 8 runs the protocol)
+BENCH_EPOCHS, BENCH_SKIP, BENCH_FACES64_EPOCHS = 4, 2, 8
+BENCH_GPPVAE_KINDS = ("gppvae", "face_view", "face_accuracy")
 
 
 def say(*parts) -> None:
@@ -218,30 +236,6 @@ def say(*parts) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
-
-
-def time_ms(fn, reps: int = 50) -> float:
-    """Median milliseconds of one call, between CUDA events on the stream."""
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def max_err(got, want) -> tuple[float, float]:
-    """(max abs error, max abs error / max |want|) over paired tensors."""
-    err = max(float((g - w).detach().abs().max()) for g, w in zip(got, want))
-    scale = max(float(w.detach().abs().max()) for w in want)
-    return err, err / max(scale, 1e-30)
 
 
 def phase_environment() -> tuple[str, str]:
@@ -275,52 +269,6 @@ def phase_build() -> None:
             say("  " + line.strip())
 
 
-def device_ms(fn, reps: int = 50) -> tuple[float, str]:
-    """The kernel's own device time per call: its CUDA kernels' time summed
-    in torch.profiler's key_averages() over `reps` calls, over reps. If the
-    profiler shows no device time, CUDA events around `reps` back-to-back
-    calls instead (which then include any launch gaps). Returns (ms, method)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(ev.self_device_time_total for ev in prof.key_averages()
-             if ev.device_type == DeviceType.CUDA and not ev.is_user_annotation)
-    if us > 0:
-        return us / 1e3 / reps, "profiler"
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps, "events"
-
-
-def bound(flop: float, nbytes: float) -> tuple[float, str]:
-    """(least ms the card could take, what bounds it): FLOP over the fp32
-    peak outside the tensor cores, bytes (each input read once, each output
-    written once) over the memory rate."""
-    t_op, t_mem = flop / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    return (t_op, "operations") if t_op >= t_mem else (t_mem, "bytes")
-
-
-def timings(kernel, plain, library, flop: float, nbytes: float) -> dict:
-    """The five numbers of one kernel at one shape; the event timings come
-    first, so that no profiler session of this shape precedes them."""
-    b_ms, b_by = bound(flop, nbytes)
-    t = {"ms": time_ms(kernel), "plain_ms": time_ms(plain), "library_ms": time_ms(library)}
-    d_ms, method = device_ms(kernel)
-    return {**t, "device_ms": d_ms, "device_ms_method": method, "bound_ms": b_ms,
-            "bound_by": b_by}
-
-
 def say_timings(label: str, t: dict) -> None:
     say(f"  {label}: ms {t['ms']:.4f}, device_ms {t['device_ms']:.4f} ({t['device_ms_method']}), "
         f"plain_ms {t['plain_ms']:.4f}, library_ms {t['library_ms']:.4f}, "
@@ -329,8 +277,7 @@ def say_timings(label: str, t: dict) -> None:
 
 def check_factor_prep(gen, n: int, r: int, l: int) -> dict:
     """factor_prep at (N, R, L): values, gradients and a rerun against the
-    plain version, then the five timings. The library call is one cuBLAS
-    GEMM giving [G | UᵀZ] (‖Z‖² left out)."""
+    plain version, then the five timings (kernel_timing.time_factor_prep)."""
     from gppvae_tpu_torch import ops
 
     U = torch.randn(n, r, device="cuda", generator=gen) / math.sqrt(r)
@@ -361,10 +308,7 @@ def check_factor_prep(gen, n: int, r: int, l: int) -> dict:
     check(grel <= FACTOR_PREP_REL_BOUND, f"factor_prep {n, r, l} gradients")
     check(got[2].dim() == 0, "factor_prep zn is 0-d")
     check(same, f"factor_prep {n, r, l} is deterministic")
-    UZ = torch.cat([U, Z], 1)
-    t = timings(lambda: ops.launch_factor_prep(U, Z), lambda: ops.factor_prep_torch(U, Z),
-                lambda: torch.mm(U.T, UZ), flop=n * r * (r + 1) + 2.0 * n * r * l,
-                nbytes=4.0 * (n * (r + l) + r * (r + l) + 1))
+    t = time_factor_prep(U, Z)
     say_timings(f"factor_prep N={n} R={r} L={l}", t)
     return {"shape": [n, r, l], "max_abs_err": err, **t}
 
@@ -1276,6 +1220,58 @@ def path_tp(tmp: str, card: str, singles: list[dict]) -> dict:
     return {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
 
 
+def path_bench() -> dict:
+    """Path 11: bench_torch.main on a cut table (see BENCH_*). Returns its
+    launch counts (the kernels block's comparisons leave them as they were)."""
+    import bench_torch
+
+    say(f"== 11 bench_torch.py at the published widths, {BENCH_EPOCHS} epochs per training "
+        f"config (skip {BENCH_SKIP}), faces 64² {BENCH_FACES64_EPOCHS}; the serving rows and "
+        "the kernels block whole; no accuracy block")
+    t_path = time.perf_counter()
+    table = bench_torch.TABLE
+    training = [n for n, spec in table.items() if "train" in spec]
+    table = bench_torch.cut(table, **{n: dict(skip=BENCH_SKIP, train=dict(epochs=BENCH_EPOCHS))
+                                      for n in training}, accuracy=None)
+    table["face_accuracy_64"]["train"]["epochs"] = BENCH_FACES64_EPOCHS
+    buf = io.StringIO()
+
+    def run():
+        with contextlib.redirect_stdout(buf):
+            return bench_torch.main(["--device", "cuda"], table=table)
+
+    art, counts = drive("11 bench", run)
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        say("  " + line)
+    last = json.loads(lines[-1])
+    configs = art["extra"]["configs"]
+    say(f"11 last line: {len(lines[-1])} characters (limit {bench_torch.LAST_LINE_LIMIT}), "
+        f"compacted by {last['extra'].get('compacted', 0)} steps; value {last['value']}")
+    check(last["metric"] == bench_torch.METRIC and len(lines[-1]) < bench_torch.LAST_LINE_LIMIT,
+          "11: the last line parses and is under the limit")
+    check(not [n for n, c in configs.items() if "error" in c],
+          f"11: no config holds an error ({[n for n, c in configs.items() if 'error' in c]})")
+    launched = {n: c["kernel_launches"] for n, c in configs.items() if "kernel_launches" in c}
+    for name, k in launched.items():
+        gppvae = table[name]["kind"] in BENCH_GPPVAE_KINDS
+        want = table[name]["train"]["epochs"] if gppvae else 0
+        check(set(k.values()) == {want},
+              f"11 {name}: kernel launches {k}, each kernel once per epoch in a GPPVAE config "
+              f"({want}), 0 elsewhere")
+    check(counts["launch_factor_prep.launches"] == sum(k["factor_prep"] for k in launched.values())
+          and counts["launch_nll_core.launches"]
+          == sum(k["woodbury_nll_core"] for k in launched.values()),
+          "11: the path's launches are its configs' (the kernels block's not counted)")
+    for kernel, rows in configs["kernels"].items():
+        for row in rows if isinstance(rows, list) else ():
+            check(row["rel_err"] <= row["rel_bound"]
+                  and row.get("grad_rel_err", 0.0) <= row.get("grad_rel_bound", 1.0),
+                  f"11 kernels {kernel} {row['shape']}: within its bound of the plain version")
+    say(f"11 path: {time.perf_counter() - t_path:.1f} s")
+    return counts
+
+
 def main() -> None:
     t_start = time.perf_counter()
     kind, card = phase_environment()
@@ -1289,7 +1285,7 @@ def main() -> None:
         path_serving({"4 slice": r4, "5a headline": r5a, "5b faces": r5b})
         paths += [*path_resume(tmp), path_protocol(tmp)]
         c9, singles = path_dp(tmp, card)
-        paths += [c9, path_tp(tmp, card, singles)]
+        paths += [c9, path_tp(tmp, card, singles), path_bench()]
     sources = {
         "factor_prep": ("gppvae_tpu_torch/csrc/factor_prep.cu",
                         "gppvae_tpu/ops/pallas_gemm.py:162", "launch_factor_prep.launches"),

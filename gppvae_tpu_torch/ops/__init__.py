@@ -9,11 +9,17 @@ There is no fallback from the kernel to the plain version.
 The plain versions are exported under their own names for the tests and
 for chip_smoke.py's kernel-vs-plain comparison; the main path never calls
 them on a CUDA tensor (`cuda_calls` counts it if something does). Each
-kernel wrapper counts its launches (`launches`).
+kernel wrapper counts its launches (`launches`), each plain version its
+calls on any device (`calls`, `plain_calls()`: what the CPU runs in place
+of a launch). `uncounted()` leaves every count as it was after a block that
+compares or times a kernel against its plain version, which is not the
+path's work.
 
 `gram`, `matmul_tn` and `sqnorm` have no kernel (gppvae_tpu/ops/
 pallas_gemm.py:239-241): the GP layer writes them as plain products.
 """
+
+import contextlib
 
 from gppvae_tpu_torch.ops.factor_prep import (
     factor_prep,
@@ -45,8 +51,25 @@ def reset_launch_counts() -> None:
         setattr(fn, attr, 0)
 
 
+def plain_calls() -> dict[str, int]:
+    """Calls of each kernel's plain version so far, on any device."""
+    return {"factor_prep": factor_prep_torch.calls, "woodbury_nll_core": nll_core_torch.calls}
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Every count (launch_counts, plain_calls) after the block as before it."""
+    every = (*_COUNTERS, (factor_prep_torch, "calls"), (nll_core_torch, "calls"))
+    saved = [(fn, attr, getattr(fn, attr)) for fn, attr in every]
+    try:
+        yield
+    finally:
+        for fn, attr, value in saved:
+            setattr(fn, attr, value)
+
+
 __all__ = [
     "factor_prep", "factor_prep_torch", "launch_counts",
-    "launch_factor_prep", "launch_nll_core", "nll_core_torch",
-    "reset_launch_counts", "woodbury_nll_core", "woodbury_nll_core_torch",
+    "launch_factor_prep", "launch_nll_core", "nll_core_torch", "plain_calls",
+    "reset_launch_counts", "uncounted", "woodbury_nll_core", "woodbury_nll_core_torch",
 ]

@@ -28,14 +28,16 @@ from gppvae_tpu_torch.parallel.collectives import all_reduce_sum
 
 
 def factor_prep_torch(U: torch.Tensor, Z: torch.Tensor):
-    """Plain version: (UᵀU, UᵀZ, ‖Z‖²) with ‖Z‖² a 0-d tensor. Counts the
-    calls it gets on a CUDA tensor in `factor_prep_torch.cuda_calls`."""
+    """Plain version: (UᵀU, UᵀZ, ‖Z‖²) with ‖Z‖² a 0-d tensor. Counts its
+    calls in `factor_prep_torch.calls` and those on a CUDA tensor in
+    `factor_prep_torch.cuda_calls`."""
+    factor_prep_torch.calls += 1
     if U.is_cuda:
         factor_prep_torch.cuda_calls += 1
     return U.T @ U, U.T @ Z, torch.sum(Z * Z)
 
 
-factor_prep_torch.cuda_calls = 0
+factor_prep_torch.calls = factor_prep_torch.cuda_calls = 0
 
 
 def launch_factor_prep(U: torch.Tensor, Z: torch.Tensor):

@@ -31,8 +31,10 @@ _LOG2PI = math.log(2.0 * math.pi)
 
 
 def nll_core_torch(G, UtZ, zn, vn, n_rows: int, l_dims: int):
-    """Plain version: (nll, X = L_B⁻¹, W = L_B⁻¹UtZ). Counts the calls it
-    gets on a CUDA tensor in `nll_core_torch.cuda_calls`."""
+    """Plain version: (nll, X = L_B⁻¹, W = L_B⁻¹UtZ). Counts its calls in
+    `nll_core_torch.calls` and those on a CUDA tensor in
+    `nll_core_torch.cuda_calls`."""
+    nll_core_torch.calls += 1
     if G.is_cuda:
         nll_core_torch.cuda_calls += 1
     R = G.shape[0]
@@ -46,7 +48,7 @@ def nll_core_torch(G, UtZ, zn, vn, n_rows: int, l_dims: int):
     return nll, X, W
 
 
-nll_core_torch.cuda_calls = 0
+nll_core_torch.calls = nll_core_torch.cuda_calls = 0
 
 
 def woodbury_nll_core_torch(G, UtZ, zn, vn, n_rows: int, l_dims: int):

@@ -320,6 +320,8 @@ def test_package_imports_no_jax(tmp_path):
         " + ['--outdir', sys.argv[1] + '/cvae'])\n"
         "import validate_torch\n"
         "validate_torch.run_validation(epochs=1, pretrain=1, num_objects=12, device='cpu')\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import bench_torch, torch_bench_diff, torch_observe_throughput\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax', 'optax')))\n"
         "assert not bad, bad\n"
         "ref = sorted(m for m in sys.modules if m == 'gppvae_tpu' or m.startswith('gppvae_tpu.'))\n"
@@ -338,10 +340,13 @@ def test_package_imports_no_jax(tmp_path):
         np.load(tmp_path / "options" / "served_exe" / "served.npz")["images"],
         np.load(tmp_path / "options" / "served" / "served.npz")["images"], rtol=0, atol=1e-2)
 
-    # and no source of the port, nor chip_smoke.py or validate_torch.py,
-    # names the JAX package or a JAX library
+    # and no source of the port, nor chip_smoke.py, validate_torch.py,
+    # bench_torch.py or the bench's two tools, names the JAX package or a
+    # JAX library
     sources = [*sorted((REPO / "gppvae_tpu_torch").rglob("*.py")), REPO / "chip_smoke.py",
-               REPO / "validate_torch.py"]
+               REPO / "validate_torch.py", REPO / "bench_torch.py",
+               REPO / "tools" / "torch_observe_throughput.py",
+               REPO / "tools" / "torch_bench_diff.py"]
     found = []
     for path in sources:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -350,7 +355,8 @@ def test_package_imports_no_jax(tmp_path):
             found += [f"{path.name}:{node.lineno} {n}" for n in names
                       if n.split(".")[0] in ("gppvae_tpu", "jax", "flax", "optax")]
     assert len(sources) > 35 and not found, found
-    assert {"train_cvae.py", "plots.py", "cvae.py", "profiling.py"} <= {p.name for p in sources}
+    assert {"train_cvae.py", "plots.py", "cvae.py", "profiling.py", "kernel_timing.py",
+            "bench_torch.py", "torch_bench_diff.py"} <= {p.name for p in sources}
 
 
 def test_guarded_adam_matches_optax_spike_guard():
