@@ -114,11 +114,20 @@ Phases, one per printed line group; any failure ends the run non-zero:
      config holds an error, each kernel launched once per epoch in every
      GPPVAE config and in none of the others, the kernels rows within their
      bounds, and a last line that parses under 2,000 characters;
- 12. the `kernels` line (each kernel at the main path's shape, launches
+ 12. the JAX package's random stream (utils/prng.py), which every trainer,
+     generate and serve draw from: split(PRNGKey(0), 4) and flax's init of
+     the VAE at the published widths from its init key held to constants
+     that jax.random gave (PRNG_GOLDEN; tests/test_torch_prng.py holds them
+     to jax on the CPU), then train_vae 1 epoch → train_gppvae --mode joint
+     2 epochs at seed 0 on the slice's grid through their main(argv): epoch
+     0's plan (the permutation of 5,700 rows) and all 45 steps' ε as the
+     trainer drew them equal the constants, one launch of each kernel per
+     epoch, finite metrics;
+ 13. the `kernels` line (each kernel at the main path's shape, launches
      summed over the training paths 4, 5a-d, 7, 8, 9a's and 10a's ranks,
-     11), then the last line: {"ok": true, "device": ...}.
+     11, 12), then the last line: {"ok": true, "device": ...}.
 
-Every path (4, 5a-d, 6 per run, each run of 7, 8, 11) sets the kernels' counts
+Every path (4, 5a-d, 6 per run, each run of 7, 8, 11, 12) sets the kernels' counts
 to 0 just before it and reads them just after; in paths 9 and 10 each rank
 does so around its own run (parallel/dryrun.py), and its counts come back
 with it.
@@ -227,6 +236,39 @@ TP_BF16_REL_BOUND = 2e-2
 # accuracy block is left out (path 8 runs the protocol)
 BENCH_EPOCHS, BENCH_SKIP, BENCH_FACES64_EPOCHS = 4, 2, 8
 BENCH_GPPVAE_KINDS = ("gppvae", "face_view", "face_accuracy")
+# path 12: what jax.random (jax 0.9.0: threefry2x32, partitionable, x64 off)
+# gave on the CPU at seed 0: split(PRNGKey(0), 4) (run, init, sample, x
+# keys), epoch 0's plan over the slice's 5,700 rows (its first entries and
+# Σ i·perm[i]), its 45 steps' ε (the first values of step 0, Σε and Σε² in
+# float64) and Σ|w| per weight of flax's VAE.init at the published widths
+# from the init key. The card's machine has no jax; tests/test_torch_prng.py
+# holds these to jax.random
+STREAM_EPOCHS = 2
+PRNG_GOLDEN = {
+    "split": [[1797259609, 2579123966], [928981903, 3453687069],
+              [4146024105, 2718843009], [2467461003, 3840466878]],
+    "perm_head": [4982, 1891, 3918, 311, 121, 2639, 5348, 298],
+    "perm_checksum": 46016636328,
+    "eps_head": [0.03702253848314285, -1.410986304283142, -0.3259766399860382,
+                 1.0439293384552002, 0.2575187087059021, 0.9758078455924988],
+    "eps_sum": 147.09934907594788,
+    "eps_sumsq": 91847.07441675411,
+    "init_abs_sums": {
+        "encoder.convs.0.weight": 78.13123009732226,
+        "encoder.convs.1.weight": 891.7840479440152,
+        "encoder.convs.2.weight": 2528.7881784483743,
+        "encoder.dense.weight": 4760.670080592179,
+        "encoder.head_logvar.weight": 147.22123758382895,
+        "encoder.head_mu.weight": 152.66566330517526,
+        "decoder.convs.0.weight": 3572.8817648552986,
+        "decoder.convs.1.weight": 1787.3444842126014,
+        "decoder.convs.2.weight": 634.8820464978451,
+        "decoder.out.weight": 14.717867502942681,
+        "decoder.dense.weight": 6717.694003274013,
+    },
+}
+# Σ of float32 draws in float64: the same values summed in numpy's order
+PRNG_SUM_REL_BOUND = 1e-12
 
 
 def say(*parts) -> None:
@@ -1272,6 +1314,74 @@ def path_bench() -> dict:
     return counts
 
 
+def stream_fingerprint(batches, eps, n: int) -> dict:
+    """PRNG_GOLDEN's keys of one epoch's plan and ε."""
+    perm = batches.reshape(-1)[:n].numpy().astype(np.int64)
+    e = eps.numpy().astype(np.float64)
+    return {"perm_head": perm[:8].tolist(), "perm_checksum": int(np.sum(np.arange(n) * perm)),
+            "eps_head": [float(x) for x in eps[0, 0, :6]], "eps_sum": float(e.sum()),
+            "eps_sumsq": float((e * e).sum())}
+
+
+def path_stream(tmp: str) -> dict:
+    """Path 12: the JAX package's random stream (see PRNG_GOLDEN)."""
+    from gppvae_tpu_torch.models import VAE
+    from gppvae_tpu_torch.train import train_gppvae, train_vae
+
+    say(f"== 12 the JAX package's stream: train_vae 1 epoch → train_gppvae --mode joint "
+        f"{STREAM_EPOCHS} epochs at seed 0 (P=400, Q=16, zdim 16, R=56, bs 128, f32)")
+    t_path = time.perf_counter()
+    keys = np.stack(train_gppvae.run_keys(0))
+    check(np.array_equal(keys, np.array(PRNG_GOLDEN["split"], np.uint32)),
+          f"12: split(PRNGKey(0), 4) = {keys.tolist()} is jax.random's")
+    init = VAE(16, (32, 32, 1), key=keys[1]).state_dict()
+    sums = {k: float(np.abs(v.numpy()).sum(dtype=np.float64)) for k, v in init.items()
+            if k.endswith("weight")}
+    worst = max(abs(sums[k] / v - 1) for k, v in PRNG_GOLDEN["init_abs_sums"].items())
+    say(f"12 flax init from the init key: Σ|w| of {len(sums)} weights, worst rel err {worst:.3e}")
+    check(set(sums) == set(PRNG_GOLDEN["init_abs_sums"]) and worst <= PRNG_SUM_REL_BOUND,
+          "12: flax's VAE.init from the init key")
+    seen = {}
+    own = train_gppvae.make_draws
+
+    def recording(*args, **kwargs):  # the trainer's own draws, kept as drawn
+        draws = own(*args, **kwargs)
+
+        def rec(epoch):
+            seen[epoch] = draws(epoch)
+            return seen[epoch]
+        return rec
+
+    def run():
+        train_vae.main([*SLICE_ARGS, "--epochs", "1", "--outdir", f"{tmp}/stream_vae"])
+        return train_gppvae.main([
+            *SLICE_ARGS, "--mode", "joint", "--epochs", str(STREAM_EPOCHS),
+            "--vae_weights", f"{tmp}/stream_vae/{train_vae.WEIGHTS_FILE}",
+            "--outdir", f"{tmp}/stream"])
+
+    train_gppvae.make_draws = recording
+    try:
+        result, counts = drive("12 stream", run)
+    finally:
+        train_gppvae.make_draws = own
+    report(result.history)
+    batches, _, eps = seen[0]
+    got = stream_fingerprint(batches, eps, 5700)
+    say(f"12 epoch 0's draws: plan {tuple(batches.shape)}, ε {tuple(eps.shape)}: " + json.dumps(got))
+    check(got["perm_head"] == PRNG_GOLDEN["perm_head"]
+          and got["perm_checksum"] == PRNG_GOLDEN["perm_checksum"],
+          "12: epoch 0's plan is jax.random.permutation's")
+    check(got["eps_head"] == PRNG_GOLDEN["eps_head"]
+          and all(abs(got[k] / PRNG_GOLDEN[k] - 1) <= PRNG_SUM_REL_BOUND
+                  for k in ("eps_sum", "eps_sumsq")),
+          "12: epoch 0's ε of all 45 steps is jax.random.normal's")
+    check(sorted(seen) == list(range(STREAM_EPOCHS)), f"12: one draw per epoch ({sorted(seen)})")
+    for kernel in ("launch_factor_prep.launches", "launch_nll_core.launches"):
+        check(counts[kernel] == STREAM_EPOCHS, f"12: {kernel} once per epoch")
+    say(f"12 path: {time.perf_counter() - t_path:.1f} s")
+    return counts
+
+
 def main() -> None:
     t_start = time.perf_counter()
     kind, card = phase_environment()
@@ -1285,7 +1395,7 @@ def main() -> None:
         path_serving({"4 slice": r4, "5a headline": r5a, "5b faces": r5b})
         paths += [*path_resume(tmp), path_protocol(tmp)]
         c9, singles = path_dp(tmp, card)
-        paths += [c9, path_tp(tmp, card, singles), path_bench()]
+        paths += [c9, path_tp(tmp, card, singles), path_bench(), path_stream(tmp)]
     sources = {
         "factor_prep": ("gppvae_tpu_torch/csrc/factor_prep.cu",
                         "gppvae_tpu/ops/pallas_gemm.py:162", "launch_factor_prep.launches"),

@@ -126,7 +126,7 @@ def train_state_from_jax(params: Mapping, ov_state: Mapping, og_state: Mapping, 
     `train_gppvae._train_state` gives for a freshly set-up run): it supplies
     the parameter order (the VAE's named_parameters, the sorted GP names),
     the Adams' hyperparameters and what the JAX state does not carry (the
-    generator's state, the shape record, the object kernel's draws).
+    stream's name, the shape record, the object kernel's draws).
     Returns a new tree; `checkpoint.save_tree` writes it, `--resume` reads it."""
     def adam(template_sd: Mapping, moments: Mapping, names, convert) -> dict:
         mu, nu, count = convert(moments["mu"]), convert(moments["nu"]), float(moments["count"])

@@ -20,8 +20,9 @@ Other modes:
 
 The model is built in the run's compute dtype (bfloat16 for a bfloat16 run,
 with or without a float32 polish tail) and decoder, as the JAX package
-builds it. Random draws come from a CPU torch.Generator seeded by
---draw_seed, else the run's seed; each function also takes injected draws.
+builds it. Random draws are the JAX package's (utils/prng.py) from
+PRNGKey(--draw_seed), else PRNGKey(the run's seed); each function also
+takes injected draws.
 The object kernel's RFF draws and landmarks come from final_params.pt, not
 from the seed.
 """
@@ -48,6 +49,7 @@ from gppvae_tpu_torch.eval.serving import (
 from gppvae_tpu_torch.models import VAE, encode_all
 from gppvae_tpu_torch.train.device import compute_dtype as _dtype
 from gppvae_tpu_torch.train.device import resolve_device, set_float32_precision
+from gppvae_tpu_torch.utils import prng
 
 
 def _params(state: dict) -> dict:
@@ -73,8 +75,8 @@ def _rows(dataset: GridDataset, idx, device) -> tuple:
             ids(dataset.view_ids))
 
 
-def _generator(seed: int, draw_seed: int | None) -> torch.Generator:
-    return torch.Generator().manual_seed(seed if draw_seed is None else draw_seed)
+def _key(seed: int, draw_seed: int | None):
+    return prng.PRNGKey(seed if draw_seed is None else draw_seed)
 
 
 def _check_grid_matches(params, fixed_W, dataset: GridDataset) -> None:
@@ -153,13 +155,14 @@ def sample_prior(state: dict, dataset: GridDataset, num_samples: int, *, zdim: i
 
     draw_seed seeds the draws alone (default: `seed`). draws: {'d', 'q'
     (num_samples,), 'eps_r' (R, zdim), 'eps_n' (num_samples, zdim)} in place
-    of the generator's."""
+    of the JAX package's (generate.py:216-230: four keys split from the
+    seed's, for d, q, ε_r and ε_n)."""
     model, x_map = _model_and_xmap(state, dataset, zdim=zdim, **arch)
     device = _device(state)
-    g = _generator(seed, draw_seed)
+    kd, kq, kr, kn = prng.split(_key(seed, draw_seed), 4)
     if draws is None:
-        draws = {"d": torch.randint(dataset.num_objects, (num_samples,), generator=g),
-                 "q": torch.randint(dataset.num_views, (num_samples,), generator=g)}
+        draws = {"d": prng.randint(kd, (num_samples,), 0, dataset.num_objects),
+                 "q": prng.randint(kq, (num_samples,), 0, dataset.num_views)}
     d = torch.as_tensor(np.asarray(draws["d"]), dtype=torch.int64, device=device)
     q = torch.as_tensor(np.asarray(draws["q"]), dtype=torch.int64, device=device)
     p = state["gp"]
@@ -169,9 +172,9 @@ def sample_prior(state: dict, dataset: GridDataset, num_samples: int, *, zdim: i
     v_sig = v_sig.reshape(-1)
     U = gp.scaled_features(Vs, [v_sig[i] for i in range(len(Vs))])
     eps_r = draws.get("eps_r")
-    eps_r = torch.randn((U.shape[1], zdim), generator=g) if eps_r is None else eps_r
+    eps_r = prng.normal(kr, (U.shape[1], zdim)) if eps_r is None else eps_r
     eps_n = draws.get("eps_n")
-    eps_n = torch.randn((num_samples, zdim), generator=g) if eps_n is None else eps_n
+    eps_n = prng.normal(kn, (num_samples, zdim)) if eps_n is None else eps_n
     z = (U @ torch.as_tensor(eps_r, dtype=U.dtype).to(device)
          + torch.sqrt(v_noise) * torch.as_tensor(eps_n, dtype=U.dtype).to(device))
     return torch.sigmoid(model.decode(z)).cpu().numpy()
@@ -204,7 +207,8 @@ def sample_posterior(state: dict, dataset: GridDataset, object_id: int, view_id:
                      num_samples: int, *, seed: int = 0, draw_seed: int | None = None,
                      eps=None, **arch) -> tuple[np.ndarray, float]:
     """K decoded draws z* ~ N(μ*, σ*² I_L) from the GP-predictive posterior
-    of one (object, view) cell. eps (K, L) replaces the generator's draws.
+    of one (object, view) cell. eps (K, L) replaces the draws from the
+    seed's key.
     Returns (images (K, H, W, C), posterior variance σ*²)."""
     if not 0 <= object_id < dataset.num_objects:
         raise ValueError(f"object {object_id} out of range [0, {dataset.num_objects})")
@@ -214,7 +218,7 @@ def sample_posterior(state: dict, dataset: GridDataset, object_id: int, view_id:
         state, dataset, torch.tensor([object_id]), torch.tensor([view_id]), seed=seed, **arch)
     mean, var = gp.predict_latents(V_star, factors, Z0, v_sigs, return_var=True)
     if eps is None:
-        eps = torch.randn((num_samples, mean.shape[1]), generator=_generator(seed, draw_seed))
+        eps = prng.normal(_key(seed, draw_seed), (num_samples, mean.shape[1]))
     z = mean + torch.sqrt(torch.clamp(var[:, None], min=0.0)) * torch.as_tensor(
         eps, dtype=mean.dtype).to(mean.device)
     return torch.sigmoid(model.decode(z)).cpu().numpy(), float(var[0])
@@ -227,7 +231,7 @@ def sample_posterior_sweep(state: dict, dataset: GridDataset, object_id: int,
     """K joint draws of one object's whole view sweep from the exact Q×Q
     posterior covariance (gp.predict_cov_from_core), so that each draw is
     one coherent object seen from every view. eps (Q, K, L) replaces the
-    generator's draws. Returns (images (K, Q, H, W, C), per-view posterior
+    draws from the seed's key. Returns (images (K, Q, H, W, C), per-view posterior
     variance (Q,))."""
     if not 0 <= object_id < dataset.num_objects:
         raise ValueError(f"object {object_id} out of range [0, {dataset.num_objects})")
@@ -237,7 +241,7 @@ def sample_posterior_sweep(state: dict, dataset: GridDataset, object_id: int,
     mean, cov = gp.predict_cov_from_core(V_star, gp.posterior_core(factors, Z0), v_sigs)
     L = mean.shape[1]
     if eps is None:
-        eps = torch.randn((Q, num_samples, L), generator=_generator(seed, draw_seed))
+        eps = prng.normal(_key(seed, draw_seed), (Q, num_samples, L))
     z = mean[:, None, :] + torch.einsum(
         "ij,jkl->ikl", stable_cholesky(cov, jitter),
         torch.as_tensor(eps, dtype=mean.dtype).to(mean.device))

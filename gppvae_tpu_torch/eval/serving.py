@@ -17,22 +17,24 @@ core once (gp.posterior_core):
 `vae_params` in the state is the VAE's state_dict; the model passed to each
 function gives the architecture and compute dtype, and its halves run on the
 state's tensors (torch.func.functional_call), as the JAX functions apply
-`model` to `state.vae_params`. Random draws come from an explicit
-torch.Generator on the CPU (the same draws on every device), or are
-injected (`eps`). The device is the state's: nothing here moves a tensor to
-the CPU except where a reply is written.
+`model` to `state.vae_params`. Random draws are the JAX package's from an
+explicit key (utils/prng.py: `serve --sample K --seed s` draws
+normal(PRNGKey(s), (n, K, L)) on the host, as serving.py:209-219 does), or
+are injected (`eps`). The device is the state's: nothing here moves a
+tensor to the CPU except where a reply is written.
 
 The artifact (`save_server_state`) also carries the object kernel's RFF
-draws Ω, b: the JAX package rebuilds them from the training seed through
-threefry (serving.py:617-624), which torch cannot reproduce, so an rbf
-model served without them would get another kernel.
+draws Ω, b, which the JAX package rebuilds from the training seed
+(serving.py:617-624; gp.rff_draws gives the same), so that the artifact
+alone fixes the kernel.
 
 The compiled-program surface (`serve --state m.srv --export_exe m.exe`,
 then `serve --exe m.exe`) goes through torch.export: one program per entry
 of _EXE_ENTRIES, the state's tensors baked in as buffers, the batch and the
 sample count symbolic, answered at serve time by the loaded graph alone
-(no VAE, no feature map, no gp function). A torch.Generator cannot cross
-the export, so the sample entries take ε where the JAX entries take a seed;
+(no VAE, no feature map, no gp function). The sample entries take ε where
+the JAX entries take a seed, and `serve --exe` draws it on the host from
+PRNGKey(--seed), so that --exe and --state answer a seed alike;
 an exported graph records the device of its constants, so an artifact is
 exported once per device named in `platforms` and refused by name on any
 other.
@@ -65,6 +67,7 @@ from gppvae_tpu_torch.eval.panels import save_panel
 from gppvae_tpu_torch.models import VAE
 from gppvae_tpu_torch.parallel import all_reduce, row_block
 from gppvae_tpu_torch.train.device import compute_dtype, resolve_device, set_float32_precision
+from gppvae_tpu_torch.utils import prng
 
 
 class ServerState(NamedTuple):
@@ -195,11 +198,11 @@ def stable_cholesky(cov: torch.Tensor, jitter: float = 1e-6) -> torch.Tensor:
     return torch.linalg.cholesky(cov + (jitter * scale) * eye)
 
 
-def _normal(generator, shape, like: torch.Tensor, eps=None) -> torch.Tensor:
-    """Standard normal draws of `shape` from the CPU `generator`, or the
-    injected `eps`, on like's device and dtype."""
+def _normal(key, shape, like: torch.Tensor, eps=None) -> torch.Tensor:
+    """Standard normal draws of `shape` from the prng `key` (drawn on the
+    host), or the injected `eps`, on like's device and dtype."""
     if eps is None:
-        eps = torch.randn(shape, generator=generator, dtype=torch.float32)
+        eps = torch.from_numpy(prng.normal(key, shape))
     elif not torch.is_tensor(eps):
         eps = torch.tensor(np.asarray(eps))
     if tuple(eps.shape) != tuple(shape):
@@ -209,7 +212,7 @@ def _normal(generator, shape, like: torch.Tensor, eps=None) -> torch.Tensor:
 
 @torch.no_grad()
 def sample_images(model, state: ServerState, d: torch.Tensor, q: torch.Tensor,
-                  generator: torch.Generator | None, num_samples: int, *, x_map=None,
+                  key, num_samples: int, *, x_map=None,
                   extra_effects: tuple = (), joint: bool = False, jitter: float = 1e-6,
                   decode_chunk: int | None = 512, eps=None) -> torch.Tensor:
     """K decoded posterior draws per requested row, (n, K, H, W, C).
@@ -218,17 +221,18 @@ def sample_images(model, state: ServerState, d: torch.Tensor, q: torch.Tensor,
     joint=True: coherent draws over the whole request batch from the full
     n×n posterior covariance (gp.predict_cov_from_core), z[:, k, l] =
     μ[:, l] + L_c ε[:, k, l], so rows of one object vary together.
-    eps (n, K, L) replaces the draws from `generator`."""
+    ε is normal(key, (n, K, L)), the JAX function's draw from the same key;
+    eps (n, K, L) replaces it (key None)."""
     V_star, v_sigs = _effect_rows(state, d, q, x_map=x_map, extra_effects=extra_effects)
     if joint:
         mean, cov = gp.predict_cov_from_core(V_star, state.core, v_sigs)
         n, L = mean.shape
-        e = _normal(generator, (n, num_samples, L), mean, eps)
+        e = _normal(key, (n, num_samples, L), mean, eps)
         z = mean[:, None, :] + torch.einsum("ij,jkl->ikl", stable_cholesky(cov, jitter), e)
     else:
         mean, var = gp.predict_from_core(V_star, state.core, v_sigs, return_var=True)
         n, L = mean.shape
-        e = _normal(generator, (n, num_samples, L), mean, eps)
+        e = _normal(key, (n, num_samples, L), mean, eps)
         z = mean[:, None, :] + torch.sqrt(torch.clamp(var, min=0.0))[:, None, None] * e
     y = decode_images(model, state.vae_params, z.reshape(n * num_samples, L), decode_chunk)
     return y.reshape(n, num_samples, *y.shape[1:])
@@ -333,8 +337,8 @@ def x_map_from_meta(meta: dict, in_dim: int):
 # exported-program entry points: the names and file suffixes of
 # gppvae_tpu/eval/serving.py:360-390. Two differences from the JAX entries,
 # both in the `sig` strings: the indices are int64, and the sample entries
-# take eps f32[b,k,L] where the JAX entries take `seed` and `k_dummy` (a
-# torch.Generator cannot cross the export; k is eps's second dimension).
+# take eps f32[b,k,L] where the JAX entries take `seed` and `k_dummy` (the
+# caller draws it from PRNGKey(seed); k is eps's second dimension).
 # The core is passed and returned as its four tensors.
 _CORE_SIG = "M:f32[R,L], G:f32[R,R], Lb:f32[R,R], v_noise:f32[]"
 _EXE_ENTRIES = {
@@ -836,8 +840,8 @@ def _serve_exe(args) -> None:
     the loaded graph is the whole serving path. --var, --sample K [--joint]
     pick the uncertainty entries; --observe folds an npz into the core and
     --save_core keeps it; --core serves from such a core. ε of --sample is
-    drawn here from torch.Generator().manual_seed(--seed) as sample_images
-    draws it, so the draws are those of `serve --state` with the same
+    drawn here from PRNGKey(--seed) as sample_images draws it, so the draws
+    are those of `serve --state` (and of the JAX package) with the same
     flags."""
     device = resolve_device(args.device)
     set_float32_precision("float32")
@@ -883,8 +887,8 @@ def _serve_exe(args) -> None:
     lead = tuple(core) if core is not None else ()
     t0 = time.perf_counter()
     if args.sample:
-        eps = torch.randn((len(pairs), args.sample, int(meta["zdim"])),
-                          generator=torch.Generator().manual_seed(args.seed)).to(device)
+        eps = torch.from_numpy(prng.normal(prng.PRNGKey(args.seed),
+                                           (len(pairs), args.sample, int(meta["zdim"])))).to(device)
         y = program(*lead, d, q, eps).cpu().numpy()
         rows = [y[i] for i in range(len(pairs))]  # one panel row per cell
         out["samples_per_request"] = args.sample
@@ -1119,7 +1123,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     out = {"n_requests": len(pairs), "state": args.state}
     if args.sample:
-        y = sample_images(model, state, d, q, torch.Generator().manual_seed(args.seed),
+        y = sample_images(model, state, d, q, prng.PRNGKey(args.seed),
                           args.sample, x_map=x_map, extra_effects=extra,
                           joint=args.joint).cpu().numpy()
         rows = [y[i] for i in range(len(pairs))]  # one panel row per cell

@@ -18,6 +18,7 @@ import math
 import torch
 
 from gppvae_tpu_torch.gp.nystrom import nystrom_features
+from gppvae_tpu_torch.utils import prng
 
 OBJECT_KERNELS = ("linear", "rbf", "rbf-nystrom")
 
@@ -60,14 +61,13 @@ def polynomial_view_features(positions: torch.Tensor, degree: int = 3) -> torch.
 
 
 def rff_draws(in_dim: int, num_features: int, seed: int = 0):
-    """(Ω (in_dim, m), b (m,)) float32 for `make_rff_map`: Ω ~ N(0, I),
-    b ~ U[0, 2π), from a torch.Generator seeded by `seed`. The JAX package
-    draws them from threefry (features.py:155-159), which torch cannot
-    reproduce; convert.rff_draws_from_map carries the JAX draws over."""
-    g = torch.Generator().manual_seed(seed)
-    omega = torch.randn((in_dim, num_features), generator=g)
-    phase = torch.rand((num_features,), generator=g) * (2.0 * math.pi)
-    return omega, phase
+    """(Ω (in_dim, m), b (m,)) float32 for `make_rff_map`: the JAX
+    package's draws (features.py:155-159), Ω ~ N(0, I) and b ~ U[0, 2π)
+    from the two halves of split(PRNGKey(seed))."""
+    k1, k2 = prng.split(prng.PRNGKey(seed))
+    omega = prng.normal(k1, (in_dim, num_features))
+    phase = prng.uniform(k2, (num_features,), 0.0, 2.0 * math.pi)
+    return torch.from_numpy(omega), torch.from_numpy(phase)
 
 
 def make_rff_map(draws, lengthscale: float = 1.0):

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gppvae_tpu_torch.models.vae import ConvDecoder, ConvEncoder, _flax_init_
+from gppvae_tpu_torch.models.vae import ConvDecoder, ConvEncoder, flax_init_
 
 
 class CVAE(nn.Module):
@@ -28,7 +28,7 @@ class CVAE(nn.Module):
                  enc_features: Sequence[int] = (32, 64, 128),
                  dec_features: Sequence[int] = (128, 64, 32),
                  upsample: str = "resize",
-                 generator: torch.Generator | None = None,
+                 key=None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         H, W, C = image_shape
@@ -36,9 +36,8 @@ class CVAE(nn.Module):
         self.image_shape = tuple(image_shape)
         self.encoder = ConvEncoder(zdim, (H, W, C + num_views), enc_features, dtype)
         self.decoder = ConvDecoder(zdim + num_views, image_shape, dec_features, upsample, dtype)
-        for m in self.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
-                _flax_init_(m, generator)
+        if key is not None:  # flax's CVAE.init(key, ...), as the VAE's
+            flax_init_(self, key)
 
     def encode(self, y: torch.Tensor, q: torch.Tensor):
         onehot = F.one_hot(q, self.num_views).to(y.dtype)

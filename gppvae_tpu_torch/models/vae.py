@@ -42,11 +42,13 @@ from __future__ import annotations
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from gppvae_tpu_torch.parallel.collectives import copy_to_model, gather_columns
+from gppvae_tpu_torch.utils import prng
 
 UPSAMPLES = ("resize", "subpixel")
 
@@ -58,14 +60,38 @@ def _same_pad(size: int, k: int = 3, s: int = 2) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def _flax_init_(module: nn.Module, generator: torch.Generator | None) -> None:
-    """flax's default init: truncated-normal lecun kernels, zero biases."""
-    w = module.weight
-    fan_in = w.shape[1] * math.prod(w.shape[2:])
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+def _flax_layer(name: str, n_dec_convs: int) -> tuple[str, str]:
+    """The flax (module, layer) of one of the port's Conv2d / Linear."""
+    part, rest = name.split(".", 1)
+    if rest == "out":
+        return part, f"Conv_{n_dec_convs}"
+    if rest.startswith("convs."):
+        return part, f"Conv_{rest.split('.')[1]}"
+    return part, "Dense_0" if rest == "dense" else rest
+
+
+def flax_init_(model: nn.Module, key) -> None:
+    """flax's init of the VAE / CVAE tree from one key, in place: zero
+    biases, and each kernel lecun_normal (truncated normal on (−2, 2) over
+    0.8796…, variance 1/fan_in) drawn in flax's layout (HWIO, (in, out))
+    from fold_in_str(key, module, layer, 1), the key flax derives for a
+    layer's first parameter. `model.init(key, ...)` of the JAX package's
+    module gives the same values."""
+    key = prng.PRNGKey(key) if np.ndim(key) == 0 else np.asarray(key)
+    n_dec_convs = len(model.decoder.convs)
     with torch.no_grad():
-        nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
-        nn.init.zeros_(module.bias)
+        for name, m in model.named_modules():
+            if not isinstance(m, (nn.Conv2d, nn.Linear)):
+                continue
+            w = m.weight
+            shape = (*w.shape[2:], w.shape[1], w.shape[0])  # HWIO / (in, out)
+            fan_in = math.prod(shape[:-1])
+            std = np.sqrt(np.float32(1.0 / fan_in)) / np.float32(0.87962566103423978)
+            k = prng.truncated_normal(prng.fold_in_str(key, *_flax_layer(name, n_dec_convs), 1),
+                                      -2.0, 2.0, shape) * std
+            k = k.transpose(3, 2, 0, 1) if k.ndim == 4 else k.T
+            w.copy_(torch.from_numpy(np.ascontiguousarray(k)))
+            m.bias.zero_()
 
 
 def _dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -153,22 +179,25 @@ class ConvDecoder(nn.Module):
 
 
 class VAE(nn.Module):
-    """Encoder + decoder; one state_dict for the vae_weights handoff."""
+    """Encoder + decoder; one state_dict for the vae_weights handoff.
+    `key` (a prng key or an int seed) gives flax's init of the JAX
+    package's `VAE.init(key, ...)` (`flax_init_`); without it the layers
+    keep torch's construction values, for a caller that loads a state_dict
+    next."""
 
     def __init__(self, zdim: int, image_shape: Sequence[int],
                  enc_features: Sequence[int] = (32, 64, 128),
                  dec_features: Sequence[int] = (128, 64, 32),
                  upsample: str = "resize",
-                 generator: torch.Generator | None = None,
+                 key=None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.zdim = zdim
         self.image_shape = tuple(image_shape)
         self.encoder = ConvEncoder(zdim, image_shape, enc_features, dtype)
         self.decoder = ConvDecoder(zdim, image_shape, dec_features, upsample, dtype)
-        for m in self.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
-                _flax_init_(m, generator)
+        if key is not None:
+            flax_init_(self, key)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -194,11 +223,10 @@ def encode_all(model: VAE, images: torch.Tensor, chunk: int) -> torch.Tensor:
 
 
 @torch.no_grad()
-def sample_reconstruction(model: VAE, y: torch.Tensor, seed: int, epoch: int) -> torch.Tensor:
-    """sigmoid(decode(z)) of z ~ q(z | y), for a trainer's image panel. ε
-    comes from a generator of its own keyed by (seed, epoch), so that a
-    panel never advances the stream the training draws come from."""
-    generator = torch.Generator().manual_seed(seed * 1_000_003 + epoch + 1)
+def sample_reconstruction(model: VAE, y: torch.Tensor, key) -> torch.Tensor:
+    """sigmoid(decode(z)) of z ~ q(z | y), for a trainer's image panel: the
+    JAX package's `model.apply(params, y, key)`, ε = normal(key, μ.shape)
+    (models/vae.py:28-31)."""
     mu, logvar = model.encode(y)
-    eps = torch.randn(mu.shape, generator=generator).to(mu.device)
+    eps = torch.from_numpy(prng.normal(key, tuple(mu.shape))).to(mu.device)
     return torch.sigmoid(model.decode(mu + torch.exp(0.5 * logvar) * eps))

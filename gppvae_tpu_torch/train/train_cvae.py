@@ -11,9 +11,11 @@ validate_torch.py runs it for the paper's GPPVAE-vs-CVAE comparison.
 
 `outdir` receives metrics.jsonl, cvae_weights.pt (the state_dict),
 final_state (weights, Adam state and epoch, the checkpoint format) and
-oos_panel.png (held-out images over their predictions). `train_cvae` also
-takes an injected initial state_dict and a `draws(epoch)` callable, so that
-a test can feed it the JAX trainer's own.
+oos_panel.png (held-out images over their predictions). Its draws are the
+JAX trainer's at the same --seed: split(PRNGKey(seed), 3) for the run key
+and flax's init key, then the epochs' plans and ε (train/batching.py).
+`train_cvae` also takes an injected initial state_dict and a
+`draws(epoch)` callable, so that a test can feed it draws of its own.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from gppvae_tpu_torch.data import GridDataset
 from gppvae_tpu_torch.eval.oos import pixel_mse
 from gppvae_tpu_torch.eval.panels import save_panel
 from gppvae_tpu_torch.models import CVAE, UPSAMPLES
-from gppvae_tpu_torch.train.batching import masked_means
+from gppvae_tpu_torch.train.batching import make_draws, masked_means
 from gppvae_tpu_torch.train.device import (
     COMPUTE_DTYPES,
     compute_dtype,
@@ -43,8 +45,8 @@ from gppvae_tpu_torch.train.losses import (
     kl_standard_normal,
     logit_saturation_penalty,
 )
-from gppvae_tpu_torch.train.train_gppvae import _data_tensors, make_draws
-from gppvae_tpu_torch.utils import MetricsLogger
+from gppvae_tpu_torch.train.train_gppvae import _data_tensors
+from gppvae_tpu_torch.utils import MetricsLogger, prng
 
 WEIGHTS_FILE = "cvae_weights.pt"
 
@@ -115,9 +117,9 @@ def train_cvae(
     set_float32_precision(config.compute_dtype)
     own_log = log is None
     log = log or MetricsLogger(config.outdir)
-    gen = torch.Generator().manual_seed(config.seed)
+    run_key, init_key, _ = prng.split(prng.PRNGKey(config.seed), 3)
     model = CVAE(config.zdim, dataset.image_shape, dataset.num_views, config.enc_features,
-                 config.dec_features, config.dec_upsample, generator=gen,
+                 config.dec_features, config.dec_upsample, key=init_key,
                  dtype=compute_dtype(config.compute_dtype))
     if init_params is not None:
         model.load_state_dict({k: torch.as_tensor(v) for k, v in init_params.items()})
@@ -128,7 +130,7 @@ def train_cvae(
     num_train, bs = len(dataset.train_idx), config.batch_size
     if bs > num_train:
         raise ValueError(f"batch_size {bs} exceeds train set {num_train}")
-    draws = draws or make_draws(gen, num_train, bs, config.zdim)
+    draws = draws or make_draws(run_key, num_train, bs, config.zdim)
 
     history: list[dict] = []
     for epoch in range(config.epochs):

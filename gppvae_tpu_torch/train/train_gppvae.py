@@ -23,10 +23,14 @@ on the same parameters, and both Adams restart at the switch.
     python -m gppvae_tpu_torch.train.train_gppvae --data synthetic \
         --mode joint --vae_weights out/vae/vae_weights.pt --device cuda
 
-Random draws come from a torch.Generator seeded by --seed; `train_gppvae`
-also takes injected initial params (with the RFF draws and Nyström
-landmarks) and a `draws(epoch)` callable, so that a test can feed it the
-JAX trainer's own draws. `outdir` receives config.json (the config and the
+Every random draw is the JAX trainer's at the same --seed (utils/prng.py):
+split(PRNGKey(seed), 4) gives the run key, the VAE's init key (flax's
+init, models/vae.py), a sample key and the key of X₀; epoch e's plan and ε
+come from fold_in(run key, e) (train/batching.py), the panels' ε from
+fold_in(epoch key, 2). `train_gppvae` also takes injected initial params
+(with the RFF draws and Nyström landmarks) and a `draws(epoch)` callable,
+so that a test can feed it draws of its own. `outdir` receives
+config.json (the config and the
 dataset it ran on), metrics.jsonl and final_params.pt, which `load_final`
 reads back; panel_NNNN.png every panel_every epochs; and the whole train
 state (`_train_state`) as state_NNNN every checkpoint_every epochs and as
@@ -95,7 +99,7 @@ from gppvae_tpu_torch.parallel import (
 )
 from gppvae_tpu_torch.parallel import tensor as tp
 from gppvae_tpu_torch.parallel.tensor import split_model_axis
-from gppvae_tpu_torch.train.batching import epoch_batches, masked_means, num_batches
+from gppvae_tpu_torch.train.batching import make_draws, masked_means, num_batches
 from gppvae_tpu_torch.train.device import (
     COMPUTE_DTYPES,
     PhaseTimer,
@@ -109,7 +113,7 @@ from gppvae_tpu_torch.train.losses import (
     neg_entropy,
 )
 from gppvae_tpu_torch.train.optim import GuardedAdam, resolve_grad_accum
-from gppvae_tpu_torch.utils import MetricsLogger, NullLogger
+from gppvae_tpu_torch.utils import MetricsLogger, NullLogger, prng
 from gppvae_tpu_torch.utils.profiling import maybe_trace
 
 _METRIC_KEYS = (
@@ -181,17 +185,21 @@ class GPPVAETrainResult:
 
 
 _RANDOM_W_KEY = 7  # the JAX trainer's PRNGKey(7) for the same fallback
+# what a train state's `stream` names: the draws depend on the seed and the
+# epoch alone (train/batching.py), so a state carries no generator
+STREAM = "threefry2x32"
+
+
+def run_keys(seed: int):
+    """(run, init, sample, x) = split(PRNGKey(seed), 4), train_gppvae.py:632-633."""
+    return tuple(prng.split(prng.PRNGKey(seed), 4))
 
 
 def _init_view_features(config: GPPVAETrainConfig, dataset: GridDataset) -> torch.Tensor:
     """Fixed view features (Q, M_w) float32 from the view auxiliary:
     Fourier features of rotation angles, polynomial features of a linear
-    axis, else random unit rows. The random rows come from a generator of
-    their own with a fixed key, as the JAX trainer draws them from
-    PRNGKey(7) (train_gppvae.py:229): they do not move with config.seed and
-    take nothing from the run's generator, so the epoch plans and ε that
-    follow are those of a dataset with a view aux. The values are not the
-    JAX package's: threefry's stream cannot be reproduced here."""
+    axis, else random unit rows: the JAX trainer's normal(PRNGKey(7)) rows
+    (train_gppvae.py:229), the same at every config.seed."""
     aux = dataset.view_aux
     if aux.shape[1] == 1 and dataset.periodic_views:
         freqs = config.view_num_freqs
@@ -209,8 +217,8 @@ def _init_view_features(config: GPPVAETrainConfig, dataset: GridDataset) -> torc
         pos = torch.from_numpy(np.asarray(aux[:, 0], np.float32))
         return gp.polynomial_view_features(pos, degree=degree)
     Mw = config.view_feature_dim or (2 * config.view_num_freqs + 1)
-    return gp.normalize_rows(torch.randn(
-        (dataset.num_views, Mw), generator=torch.Generator().manual_seed(_RANDOM_W_KEY)))
+    return gp.normalize_rows(torch.from_numpy(
+        prng.normal(prng.PRNGKey(_RANDOM_W_KEY), (dataset.num_views, Mw))))
 
 
 def _data_tensors(dataset: GridDataset, device: torch.device, group=None) -> dict:
@@ -240,15 +248,17 @@ def _data_tensors(dataset: GridDataset, device: torch.device, group=None) -> dic
 
 
 def _setup(dataset: GridDataset, config: GPPVAETrainConfig, device: torch.device,
-           generator: torch.Generator, init_params: dict | None = None, group=None):
-    """(model, gp_params, fixed_W, data, num_train). init_params may give
+           init_params: dict | None = None, group=None):
+    """(model, gp_params, fixed_W, data, num_train), the fresh ones drawn
+    from config.seed's keys (`run_keys`). init_params may give
     {'vae': state_dict, 'gp': {name: array}}, each replacing the fresh
     init (and --vae_weights). With a group, the parameters are rank 0's on
     every rank and the data the rank's rows; on a mesh with a model axis the
     large weights then split over it (split_model_axis)."""
     init_params = init_params or {}
+    _, init_key, _, x_key = run_keys(config.seed)
     model = VAE(config.zdim, dataset.image_shape, config.enc_features,
-                config.dec_features, config.dec_upsample, generator=generator,
+                config.dec_features, config.dec_upsample, key=init_key,
                 dtype=compute_dtype(config.compute_dtype))
     if "vae" in init_params:
         model.load_state_dict({k: torch.as_tensor(v) for k, v in init_params["vae"].items()})
@@ -260,7 +270,7 @@ def _setup(dataset: GridDataset, config: GPPVAETrainConfig, device: torch.device
     W0 = _init_view_features(config, dataset)
     M = config.obj_feature_dim
     gp_init = {
-        "X": torch.randn((dataset.num_objects, M), generator=generator) / math.sqrt(M),
+        "X": torch.from_numpy(prng.normal(x_key, (dataset.num_objects, M))) / math.sqrt(M),
         # one signal variance per random effect
         "log_vs": torch.full((1 + len(config.extra_effects),), math.log(config.init_v_sig)),
         "log_vn": torch.tensor(math.log(config.init_v_noise)),
@@ -514,18 +524,6 @@ class _Loop:
         return dict(zip(_METRIC_KEYS, row)), timer.reset(), y_pred
 
 
-def make_draws(generator: torch.Generator, num_train: int, bs: int, zdim: int) -> Callable:
-    """draws(epoch) → (batches, weights, eps (nb, bs, zdim)), in epoch
-    order from `generator`."""
-    nb = num_batches(num_train, bs)
-
-    def draws(epoch: int):
-        batches, weights = epoch_batches(generator, num_train, bs)
-        return batches, weights, torch.randn((nb, bs, zdim), generator=generator)
-
-    return draws
-
-
 def _write_sidecar(config: GPPVAETrainConfig, dataset: GridDataset, device) -> None:
     """config.json: the config, the dataset it ran on (so that an
     evaluation rebuilds the same grid) and the device."""
@@ -551,14 +549,13 @@ def _shape_config(config: GPPVAETrainConfig, dataset: GridDataset) -> dict:
             "image_shape": list(dataset.image_shape)}
 
 
-def _train_state(loop: _Loop, x_draws: dict | None, generator: torch.Generator,
-                 epoch: int, shape: dict) -> dict:
+def _train_state(loop: _Loop, x_draws: dict | None, epoch: int, shape: dict) -> dict:
     """Everything the next epoch reads, `epoch` epochs done: the VAE, the GP
-    params, both guarded Adams whole, the 'dis' mode's fixed W, the
-    object-kernel draws and landmarks (the run's own, never re-drawn), and
-    the state of the generator that the plans and ε are drawn from in
-    sequence. Whole under tensor parallelism (every rank calls it: the
-    blocks are gathered over the model axis)."""
+    params, both guarded Adams whole, the 'dis' mode's fixed W and the
+    object-kernel draws and landmarks (the run's own, never re-drawn). The
+    epochs' draws follow from the seed and the epoch; `stream` names them.
+    Whole under tensor parallelism (every rank calls it: the blocks are
+    gathered over the model axis)."""
     return {
         "vae": tp.gather_state_dict(loop.model),
         "gp": dict(loop.gp),
@@ -566,7 +563,7 @@ def _train_state(loop: _Loop, x_draws: dict | None, generator: torch.Generator,
         "opt_gp": loop.opt_gp.state_dict(),
         "fixed_W": loop.fixed_W,
         "object_kernel": x_draws,
-        "generator": generator.get_state(),
+        "stream": STREAM,
         "epoch": epoch,
         "shape": shape,
     }
@@ -574,12 +571,20 @@ def _train_state(loop: _Loop, x_draws: dict | None, generator: torch.Generator,
 
 def _load_resume(path: str, shape: dict, device: torch.device) -> dict:
     """The train state at `path` (format checked by load_tree), refused by
-    field name if it was written under a config of other shapes."""
+    field name if it was written under a config of other shapes, and
+    refused if its run drew from the torch.Generator stream the port had
+    before it drew the JAX package's: that run cannot continue as it
+    began."""
     state = load_tree(path, map_location=device)
-    if not isinstance(state, dict) or not {"shape", "generator", "opt_vae"} <= set(state):
+    if not isinstance(state, dict) or not {"shape", "opt_vae"} <= set(state):
         raise CheckpointFormatError(
             f"{path!r} is a tree of this format but not a train state of train_gppvae "
             "(a state_NNNN or final_state)")
+    if state.get("stream") != STREAM:
+        raise ValueError(
+            f"resume {path!r}: its run drew its plans and ε from a torch.Generator "
+            f"(its 'generator' field), not from the {STREAM} stream of the seed; it "
+            "would continue on other draws than it began with. Train it again")
     differs = [f"{k}: the state has {state['shape'].get(k)!r}, this run {v!r}"
                for k, v in shape.items() if state["shape"].get(k) != v]
     if differs:
@@ -588,13 +593,14 @@ def _load_resume(path: str, shape: dict, device: torch.device) -> dict:
     return state
 
 
-def _panel(loop: _Loop, y_pred: torch.Tensor, epoch: int) -> list:
-    """panel_NNNN.png's rows: 8 training images, their reconstructions, 8
-    held-out images, their predictions (train_gppvae.py:979-991). Every rank
-    computes them: a split layer's forward is collective."""
-    config, d = loop.config, loop.data
+def _panel(loop: _Loop, y_pred: torch.Tensor, key) -> list:
+    """panel_NNNN.png's rows: 8 training images, their reconstructions
+    (ε from `key`), 8 held-out images, their predictions
+    (train_gppvae.py:979-991). Every rank computes them: a split layer's
+    forward is collective."""
+    d = loop.data
     y = d["images_panel"]
-    recon = sample_reconstruction(loop.model, y, config.seed, epoch)
+    recon = sample_reconstruction(loop.model, y, key)
     return [t.cpu().numpy() for t in (y, recon, d["y_ho"][:8], y_pred[:8])]
 
 
@@ -635,9 +641,9 @@ def train_gppvae(
     outdir = config.outdir if writer else None
     if outdir:
         _write_sidecar(config, dataset, device)
-    gen = torch.Generator().manual_seed(config.seed)
+    run_key = run_keys(config.seed)[0]
     model, gp_params, fixed_W, data, num_train = _setup(
-        dataset, config, device, gen, init_params, group)
+        dataset, config, device, init_params, group)
     x_map, x_draws = _object_kernel(config, gp_params["X"], init_params, device)
     accum = resolve_grad_accum(config.grad_accum_steps, num_train, config.batch_size)
     loop = _Loop(model, gp_params, fixed_W, data, num_train, config,
@@ -652,11 +658,8 @@ def train_gppvae(
             loop.fixed_W = fixed_W = resumed["fixed_W"]
         loop.opt_vae.load_state_dict(resumed["opt_vae"])
         loop.opt_gp.load_state_dict(resumed["opt_gp"])
-        # the plans and ε come in sequence from one generator, which _setup
-        # has advanced: continue where the interrupted run's stream stood
-        gen.set_state(resumed["generator"].cpu())
         start_epoch = int(resumed["epoch"])
-    draws = draws or make_draws(gen, num_train, config.batch_size, config.zdim)
+    draws = draws or make_draws(run_key, num_train, config.batch_size, config.zdim)
 
     # the float32 polish tail (train_gppvae.py:799-847). Both Adams restart
     # at the switch when a bulk phase ran and this run crosses it, which
@@ -703,18 +706,19 @@ def train_gppvae(
                 # writer writes it
                 last = epoch == config.epochs - 1
                 if config.panel_every and (epoch % config.panel_every == 0 or last):
-                    rows = _panel(loop, y_pred, epoch)
+                    key = prng.fold_in(prng.fold_in(run_key, epoch), 2)
+                    rows = _panel(loop, y_pred, key)
                     if outdir:
                         save_panel(os.path.join(outdir, f"panel_{epoch:04d}.png"), rows)
                 if (config.checkpoint_every and epoch % config.checkpoint_every == 0
                         and not last):
-                    state = _train_state(loop, x_draws, gen, epoch + 1, shape)
+                    state = _train_state(loop, x_draws, epoch + 1, shape)
                     if outdir:
                         save_tree(os.path.join(outdir, f"state_{epoch + 1:04d}"), state)
 
     # the result and the files hold the full weights (a mesh gathers them)
     tp.unsplit(model)
-    final = _train_state(loop, x_draws, gen, config.epochs, shape) if config.outdir else None
+    final = _train_state(loop, x_draws, config.epochs, shape) if config.outdir else None
     if outdir:
         torch.save(
             {"vae": {k: v.cpu() for k, v in model.state_dict().items()},

@@ -7,6 +7,11 @@ state and epoch, the checkpoint format), `panel_NNNN.png` every
 --panel_every epochs (8 validation images over their reconstructions) and
 `vae_weights_NNNN.pt` every --checkpoint_every epochs.
 
+Every random draw is the JAX trainer's at the same --seed (utils/prng.py):
+split(PRNGKey(seed), 3) gives the run key and the VAE's init key; epoch e
+draws from fold_in(run key, e) its plan and ε (train/batching.py), the
+validation rows' ε from fold_in(·, 2) and a panel's from fold_in(·, 3).
+
 With `group` (a parallel.DataGroup per rank) the run is data-parallel, as
 the JAX driver runs under a 1-D mesh (train_vae.py:183-222): the image array
 is split into `world` contiguous blocks (parallel.row_block: the rows that
@@ -43,7 +48,7 @@ from gppvae_tpu_torch.data import GridDataset
 from gppvae_tpu_torch.eval.panels import save_panel
 from gppvae_tpu_torch.models import UPSAMPLES, VAE, sample_reconstruction
 from gppvae_tpu_torch.parallel import all_reduce, all_reduce_grads, replicate, row_block
-from gppvae_tpu_torch.train.batching import epoch_batches, masked_means, num_batches
+from gppvae_tpu_torch.train.batching import make_draws, masked_means, num_batches
 from gppvae_tpu_torch.train.device import (
     COMPUTE_DTYPES,
     compute_dtype,
@@ -55,7 +60,7 @@ from gppvae_tpu_torch.train.losses import (
     kl_standard_normal,
     logit_saturation_penalty,
 )
-from gppvae_tpu_torch.utils import MetricsLogger, NullLogger
+from gppvae_tpu_torch.utils import MetricsLogger, NullLogger, prng
 
 WEIGHTS_FILE = "vae_weights.pt"
 
@@ -142,7 +147,7 @@ def train_vae(
     """Train. init_params: a VAE state_dict in place of the fresh init.
     draws(epoch) → (batches (nb, bs) positions into the training rows,
     weights (nb, bs), ε (nb, bs, zdim), the validation rows' ε (n_val,
-    zdim)) in place of the run's own (a test feeds the JAX driver's). group:
+    zdim)) in place of the run's own (a test feeds the JAX trainer's). group:
     this rank's parallel.DataGroup (see the module docstring)."""
     device = resolve_device(str(device))
     set_float32_precision(config.compute_dtype)
@@ -150,9 +155,9 @@ def train_vae(
     own_log = log is None
     log = log or (MetricsLogger(config.outdir) if writer else NullLogger())
     outdir = config.outdir if writer else None
-    gen = torch.Generator().manual_seed(config.seed)
+    run_key, init_key, _ = prng.split(prng.PRNGKey(config.seed), 3)
     model = VAE(config.zdim, dataset.image_shape, config.enc_features,
-                config.dec_features, config.dec_upsample, generator=gen,
+                config.dec_features, config.dec_upsample, key=init_key,
                 dtype=compute_dtype(config.compute_dtype))
     if init_params is not None:
         model.load_state_dict({k: torch.as_tensor(v) for k, v in init_params.items()})
@@ -164,7 +169,7 @@ def train_vae(
     val_idx = torch.from_numpy(dataset.val_idx.astype("int64"))
     n, bs = len(train_idx), config.batch_size
     nb = num_batches(n, bs)
-    draws = draws or _make_draws(gen, n, bs, config.zdim, len(val_idx))
+    draws = draws or _make_draws(run_key, n, bs, config.zdim, len(val_idx))
     if group is None:
         images = torch.from_numpy(dataset.images).to(device)
         train_idx, val_idx = train_idx.to(device), val_idx.to(device)
@@ -202,8 +207,8 @@ def train_vae(
                **dict(zip(("loss", "recon_term", "kl_term", "mse"), row))}
         if len(val_idx):
             with torch.no_grad():
-                # the val mean of recon + β·KL, without the saturation barrier
-                # (as the JAX driver reports it)
+                # the val mean of recon + β·KL, without the saturation
+                # barrier (as the JAX trainer reports it)
                 if group is None:
                     loss_v, (_, _, mse_v) = vae_loss(
                         model, images[val_idx], eps_v.to(device),
@@ -219,7 +224,8 @@ def train_vae(
         log.log(rec)
         history.append(rec)
         if outdir:
-            _epoch_artifacts(model, panel_rows, config, epoch)
+            _epoch_artifacts(model, panel_rows, config, epoch,
+                             prng.fold_in(prng.fold_in(run_key, epoch), 3))
 
     if outdir:
         _save_weights(model, os.path.join(config.outdir, WEIGHTS_FILE))
@@ -230,15 +236,14 @@ def train_vae(
     return VAETrainResult(model=model, config=config, history=history)
 
 
-def _make_draws(generator: torch.Generator, n: int, bs: int, zdim: int, n_val: int) -> Callable:
-    """draws(epoch) → (batches, weights, ε, the validation rows' ε), in epoch
-    order from `generator`."""
-    nb = num_batches(n, bs)
+def _make_draws(run_key, n: int, bs: int, zdim: int, n_val: int) -> Callable:
+    """draws(epoch) → (batches, weights, ε, the validation rows' ε) of the
+    JAX trainer's epoch (train_vae.py:115, :146, :157)."""
+    gppvae_draws = make_draws(run_key, n, bs, zdim)
 
     def draws(epoch: int):
-        batches, weights = epoch_batches(generator, n, bs)
-        eps = torch.randn((nb, bs, zdim), generator=generator)
-        return batches, weights, eps, torch.randn((n_val, zdim), generator=generator)
+        eps_v = prng.normal(prng.fold_in(prng.fold_in(run_key, epoch), 2), (n_val, zdim))
+        return (*gppvae_draws(epoch), torch.from_numpy(eps_v))
 
     return draws
 
@@ -248,12 +253,13 @@ def _save_weights(model: VAE, path: str) -> None:
     torch.save({k: v.cpu() for k, v in model.state_dict().items()}, path)
 
 
-def _epoch_artifacts(model: VAE, y: torch.Tensor, config: VAETrainConfig, epoch: int) -> None:
-    """panel_NNNN.png (the rows `y` over their sampled reconstructions) and
-    vae_weights_NNNN.pt (train_vae.py:267-280)."""
+def _epoch_artifacts(model: VAE, y: torch.Tensor, config: VAETrainConfig, epoch: int,
+                     key) -> None:
+    """panel_NNNN.png (the rows `y` over their reconstructions, ε from
+    `key`) and vae_weights_NNNN.pt (train_vae.py:267-280)."""
     last = epoch == config.epochs - 1
     if config.panel_every and (epoch % config.panel_every == 0 or last):
-        recon = sample_reconstruction(model, y, config.seed, epoch)
+        recon = sample_reconstruction(model, y, key)
         save_panel(os.path.join(config.outdir, f"panel_{epoch:04d}.png"),
                    [y.cpu().numpy(), recon.cpu().numpy()])
     if config.checkpoint_every and epoch % config.checkpoint_every == 0 and not last:

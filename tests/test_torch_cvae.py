@@ -11,6 +11,7 @@ trajectory at the golden size (10 objects × 8 views, zdim 6, features
 rebuilt from its keys: every history key rtol 1e-4.
 """
 
+import functools
 import importlib
 import os
 
@@ -29,6 +30,7 @@ from gppvae_tpu_torch.convert import cvae_state_dict_from_flax
 from gppvae_tpu_torch.models import CVAE
 from gppvae_tpu_torch.train import train_cvae as tc
 from gppvae_tpu_torch.utils import NullLogger
+from _one_thread import one_thread  # noqa: F401
 
 jcvae = importlib.import_module("gppvae_tpu.train.train_cvae")
 SHAPE, Q = (32, 32, 1), 8
@@ -105,7 +107,7 @@ def test_cvae_bf16_matches_flax(upsample):
 def test_cvae_view_conditioning_matters():
     """Decoding one latent, and encoding one image, under two views must
     differ: both conditioning paths are live."""
-    model = CVAE(4, SHAPE, Q, (8,), (8,), generator=torch.Generator().manual_seed(0))
+    model = CVAE(4, SHAPE, Q, (8,), (8,), key=0)
     z, y = torch.ones(2, 4), torch.rand(2, *SHAPE, generator=torch.Generator().manual_seed(1))
     q0, q3 = torch.tensor([0, 0]), torch.tensor([3, 3])
     with torch.no_grad():
@@ -126,11 +128,18 @@ def _jax_draws(rng, num_train, bs, zdim):
     return draws
 
 
+@functools.cache
+def _jax_run(case):
+    """(dataset, the JAX trainer's 2-epoch run of a case), once per process."""
+    extra = dict(dec_upsample="subpixel") if case == "subpixel" else {}
+    ds = build_rotated_digits("synthetic", num_objects=10, num_views=8, seed=7)
+    return ds, jcvae.train_cvae(ds, jcvae.CVAETrainConfig(**GOLDEN, **extra), log=NullLogger())
+
+
 @pytest.mark.parametrize("case", ["float32", "subpixel"])
 def test_two_epoch_trajectory_matches_jax(case, tmp_path):
     extra = dict(dec_upsample="subpixel") if case == "subpixel" else {}
-    ds = build_rotated_digits("synthetic", num_objects=10, num_views=8, seed=7)
-    jres = jcvae.train_cvae(ds, jcvae.CVAETrainConfig(**GOLDEN, **extra), log=NullLogger())
+    ds, jres = _jax_run(case)
 
     # the JAX trainer's own init and keys (train_cvae.py:84-85, :97)
     rng, init_key, sample_key = jax.random.split(jax.random.PRNGKey(GOLDEN["seed"]), 3)
@@ -156,6 +165,18 @@ def test_two_epoch_trajectory_matches_jax(case, tmp_path):
     saved = torch.load(tmp_path / tc.WEIGHTS_FILE, weights_only=True)
     for k, v in res.model.state_dict().items():
         assert torch.equal(saved[k], v) and torch.equal(state["cvae"][k], v)
+
+
+def test_two_epoch_trajectory_matches_jax_without_injection():
+    """train_cvae from the seed alone: flax's CVAE.init from the JAX
+    trainer's init key, its plans and ε (the JAX package's stream). No draws
+    injected, no weights converted: every history key rtol 1e-4."""
+    ds, jres = _jax_run("float32")
+    res = tc.train_cvae(ds, tc.CVAETrainConfig(**GOLDEN), device="cpu", log=NullLogger())
+    assert len(res.history) == len(jres.history) == 2
+    for ours, theirs in zip(res.history, jres.history):
+        for k in ("loss", "recon_term", "kl_term", "mse", "oos_mse"):
+            np.testing.assert_allclose(ours[k], theirs[k], rtol=1e-4, err_msg=k)
 
 
 def test_cvae_trains_seeded_and_oos_improves(tmp_path):

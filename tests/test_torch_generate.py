@@ -34,6 +34,7 @@ from gppvae_tpu_torch.data import GridDataset
 from gppvae_tpu_torch.eval import generate, serving
 from gppvae_tpu_torch.eval.panels import save_panel
 from gppvae_tpu_torch.train import train_gppvae
+from _one_thread import one_thread  # noqa: F401
 
 GOLDEN_CLI = ["--data", "synthetic", "--num_objects", "10", "--num_views", "8",
               "--zdim", "6", "--bs", "16", "--enc_features", "8,16",

@@ -17,6 +17,7 @@ import torch
 from gppvae_tpu import gp as jgp
 from gppvae_tpu_torch import gp
 from gppvae_tpu_torch.convert import rff_draws_from_map
+from _one_thread import one_thread  # noqa: F401
 
 RTOL = 1e-10
 
@@ -245,12 +246,13 @@ def test_surrogate_epoch_gradient_equals_full_gradient(bs, weighted):
     bs does not divide N (masked wrap-around plan); tests/test_gp_math.py's
     identity, ported."""
     from gppvae_tpu_torch.train.batching import epoch_batches
+    from gppvae_tpu_torch.utils import prng
 
     _, (nll, Z0, V0, aux0) = _taylor_setup(12 if not weighted else 13)
     coeffs = gp.taylor_expand(nll, Z0, V0, aux0)
     N = Z0.shape[0]
     if weighted:
-        batches, weights = epoch_batches(torch.Generator().manual_seed(14), N, bs)
+        batches, weights = epoch_batches(prng.PRNGKey(14), N, bs)
         assert batches.shape == (7, bs)
         flat = batches.reshape(-1)[weights.reshape(-1) > 0]
         assert sorted(flat.tolist()) == list(range(N))

@@ -22,6 +22,7 @@ from gppvae_tpu.models.vae import ConvDecoder as FlaxDecoder
 from gppvae_tpu_torch.convert import flax_to_state_dict, state_dict_to_flax
 from gppvae_tpu_torch.models import VAE, ConvDecoder, encode_all
 from gppvae_tpu_torch.models.vae import _same_pad
+from _one_thread import one_thread  # noqa: F401
 
 WIDTHS = {
     "full": dict(zdim=16, enc=(32, 64, 128), dec=(128, 64, 32)),  # BASELINE joint

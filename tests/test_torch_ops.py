@@ -21,6 +21,7 @@ from gppvae_tpu import ops as jops
 from gppvae_tpu.ops.dispatch import _xla_woodbury_nll_core
 from gppvae_tpu.ops.pallas_chol import nll_core_pallas
 from gppvae_tpu_torch import ops
+from _one_thread import one_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

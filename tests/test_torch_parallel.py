@@ -46,6 +46,7 @@ from gppvae_tpu.utils.metrics import NullLogger
 from gppvae_tpu_torch import parallel
 from gppvae_tpu_torch.convert import flax_to_state_dict
 from gppvae_tpu_torch.parallel import dryrun
+from _one_thread import one_thread  # noqa: F401
 
 jtrain = importlib.import_module("gppvae_tpu.train.train_gppvae")
 jtrain_vae = importlib.import_module("gppvae_tpu.train.train_vae")

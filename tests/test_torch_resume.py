@@ -4,10 +4,11 @@ At the golden size of tests/test_resume.py (12 objects × 8 views, zdim 8,
 features (8, 16)). For the port alone: an interrupted and resumed run equals
 the uninterrupted one epoch by epoch on every history key (rtol 1e-5; the
 CPU runs are in fact bit-equal) at the plain, boundary, mid-polish,
-mid-accumulation, rbf-nystrom and 'dis' cases, with the port's own seeded
-draws, whose generator state travels in the train state. Against the JAX
-trainer: both resumed at epoch 2 of 4 from the same state (the JAX state
-converted, the JAX draws injected), every history key rtol 1e-4.
+mid-accumulation, rbf-nystrom and 'dis' cases, with the port's own draws
+(the JAX package's stream: epoch e's follow from the seed and e, so the
+train state carries no generator). Against the JAX trainer: both resumed
+at epoch 2 of 4 from the same state (the JAX state converted; the JAX
+draws injected, or the port's own), every history key rtol 1e-4.
 """
 
 import importlib
@@ -31,6 +32,7 @@ from gppvae_tpu_torch.train import train_vae
 from gppvae_tpu_torch.train.optim import GuardedAdam
 from gppvae_tpu_torch.utils import NullLogger
 from gppvae_tpu_torch.utils.profiling import TRACE_FILE
+from _one_thread import one_thread  # noqa: F401
 
 jtrain = importlib.import_module("gppvae_tpu.train.train_gppvae")
 BASE = dict(mode="joint", zdim=8, epochs=4, batch_size=16, lr_gp=5e-3, obj_feature_dim=4,
@@ -90,21 +92,23 @@ def test_resume_is_trajectory_preserving(ds, tmp_path, case):
 
 
 def test_generator_state_round_trip(ds, tmp_path):
-    """The plans and ε come in sequence from one generator: its state is in
-    the train state, and a resume that re-seeded instead would run other
-    epochs."""
+    """No generator state travels: the train state names its stream, and
+    epoch 3 of a resume draws what the uninterrupted run drew. A state
+    written before the port drew the JAX package's stream (it holds the
+    torch.Generator's state) is refused by name before any work, rather
+    than continued on other draws."""
     out = str(tmp_path / "run")
     full = _train(ds, outdir=out, checkpoint_every=2)
     state = load_tree(f"{out}/state_0003")
-    assert state["generator"].dtype == torch.uint8
+    assert state["stream"] == tg.STREAM and "generator" not in state
     res = _train(ds, resume=f"{out}/state_0003")
     assert res.history[0]["loss"] == full.history[3]["loss"]
-    # the same state with a fresh generator's stream: another epoch 3
-    gen = torch.Generator().manual_seed(BASE.get("seed", 0))
-    state["generator"] = gen.get_state()
-    save_tree(str(tmp_path / "reseeded"), state)
-    other = _train(ds, resume=str(tmp_path / "reseeded"))
-    assert other.history[0]["loss"] != full.history[3]["loss"]
+    old = {k: v for k, v in state.items() if k != "stream"}
+    old["generator"] = torch.Generator().manual_seed(0).get_state()
+    save_tree(str(tmp_path / "old"), old)
+    with pytest.raises(ValueError, match="torch.Generator"):
+        _train(ds, resume=str(tmp_path / "old"), outdir=str(tmp_path / "never"))
+    assert not os.path.exists(tmp_path / "never")
 
 
 def test_guarded_adam_state_dict_round_trip():
@@ -284,8 +288,7 @@ def jax_interrupted(ds, tmp_path_factory):
     assert int(jstate["epoch"]) == 2
 
     cfg = tg.GPPVAETrainConfig(**BASE)
-    gen = torch.Generator().manual_seed(0)
-    model, gp_params, fixed_W, data, n = tg._setup(ds, cfg, torch.device("cpu"), gen)
+    model, gp_params, fixed_W, data, n = tg._setup(ds, cfg, torch.device("cpu"))
     loop = tg._Loop(model, gp_params, fixed_W, data, n, cfg)
 
     def adam_np(jopt_state):
@@ -296,30 +299,32 @@ def jax_interrupted(ds, tmp_path_factory):
     state = train_state_from_jax(
         jax.tree.map(np.asarray, jstate["params"]), adam_np(jstate["ov_state"]),
         adam_np(jstate["og_state"]), int(jstate["epoch"]),
-        template=tg._train_state(loop, None, gen, 0, tg._shape_config(cfg, ds)))
+        template=tg._train_state(loop, None, 0, tg._shape_config(cfg, ds)))
     assert state["epoch"] == 2 and state["opt_vae"]["steps"] == state["opt_gp"]["steps"] > 0
-    return dict(jout=jout, jstate=jstate, rng=rng, state=state, n=n)
+    jres = jtrain.train_gppvae(
+        ds, jtrain.GPPVAETrainConfig(**BASE, resume=jout + "/final_state"), log=NullLogger())
+    assert [h["epoch"] for h in jres.history] == [2, 3]
+    return dict(jout=jout, jstate=jstate, rng=rng, state=state, n=n, jres=jres)
 
 
-def test_resumed_run_matches_jax_resumed_run(ds, tmp_path, jax_interrupted):
+@pytest.mark.parametrize("draws", ["injected", "own"])
+def test_resumed_run_matches_jax_resumed_run(ds, tmp_path, jax_interrupted, draws):
     """The JAX trainer interrupted at epoch 2 and resumed to 4, against the
     port resumed at epoch 2 from that same state (params and both Adams'
-    moments converted) with the JAX draws injected: every history key of
-    epochs 2 and 3, rtol 1e-4."""
+    moments converted), with the JAX draws injected or drawing its own:
+    every history key of epochs 2 and 3, rtol 1e-4."""
     ji = jax_interrupted
-    jres = jtrain.train_gppvae(
-        ds, jtrain.GPPVAETrainConfig(**BASE, resume=ji["jout"] + "/final_state"),
-        log=NullLogger())
-    assert [h["epoch"] for h in jres.history] == [2, 3]
     save_tree(str(tmp_path / "converted"), ji["state"])
-
+    injected = None
+    if draws == "injected":
+        def injected(epoch):
+            return [t.long() if i == 0 else t
+                    for i, t in enumerate(_jax_plan(ji["rng"], epoch, ji["n"], 16, 8))]
     res = tg.train_gppvae(
         ds, tg.GPPVAETrainConfig(**BASE, resume=str(tmp_path / "converted")), device="cpu",
-        draws=lambda epoch: [t.long() if i == 0 else t
-                             for i, t in enumerate(_jax_plan(ji["rng"], epoch, ji["n"], 16, 8))],
-        log=NullLogger())
+        draws=injected, log=NullLogger())
     assert [h["epoch"] for h in res.history] == [2, 3]
-    for ours, theirs in zip(res.history, jres.history):
+    for ours, theirs in zip(res.history, ji["jres"].history):
         for k in tg._METRIC_KEYS:
             np.testing.assert_allclose(ours[k], theirs[k], rtol=1e-4, err_msg=k)
 

@@ -42,6 +42,8 @@ from gppvae_tpu_torch.convert import (
 from gppvae_tpu_torch.eval import generate, serving
 from gppvae_tpu_torch.eval.oos import oos_predict_images, predict_heldout
 from gppvae_tpu_torch.models import VAE, encode_all
+from gppvae_tpu_torch.utils import prng
+from _one_thread import one_thread  # noqa: F401
 
 ARCH = dict(zdim=8, enc_features=(8, 16), dec_features=(16, 8), object_kernel="linear",
             rff_features=32, rff_lengthscale=1.0, extra_effects=(), seed=0,
@@ -261,7 +263,7 @@ def test_sample_images_matches_jax(trained, joint):
 
 
 def test_joint_draws_keep_the_duplicate_cell_correlated(trained):
-    """The port's own draws (a seeded generator): deterministic, diverse,
+    """The port's own draws (from a key): deterministic, diverse,
     and for a cell requested twice the joint draws of the two rows differ
     less than independent draws (tests/test_serving.py:922-953)."""
     t = trained
@@ -270,7 +272,7 @@ def test_joint_draws_keep_the_duplicate_cell_correlated(trained):
 
     def draw(joint):
         return serving.sample_images(t["model"], t["state"], d, q,
-                                     torch.Generator().manual_seed(3), 48, joint=joint).numpy()
+                                     prng.PRNGKey(3), 48, joint=joint).numpy()
 
     yj, yi = draw(True), draw(False)
     np.testing.assert_array_equal(yj, draw(True))
@@ -473,10 +475,43 @@ def test_generate_modes_match_jax(trained, mode):
     _close(y, jy, **F32)
 
 
+@pytest.mark.parametrize("mode", ["sample_prior", "sample_posterior", "sample_posterior_sweep",
+                                  "serve_sample"])
+def test_draws_match_jax_without_injection(trained, tmp_path, mode):
+    """generate's sampling modes and one `serve --state --sample 3 --seed 5`
+    reply with the port's own draws from the seed: the JAX package's stream
+    (utils/prng.py: its randint cells and normal ε), so the images equal
+    the JAX functions' at the same seed (its production stream: x64 off)."""
+    t, ds = trained, trained["ds"]
+    js, ts = _jax_state(t), _port_run_state(t)
+    with jax.enable_x64(False):
+        if mode == "sample_prior":
+            jy = jgenerate.sample_prior(js, ds, 6, draw_seed=4, **ARCH)
+            y = generate.sample_prior(ts, ds, 6, draw_seed=4, **ARCH)
+        elif mode == "sample_posterior":
+            jy, jvar = jgenerate.sample_posterior(js, ds, 2, 5, 5, **ARCH)
+            y, var = generate.sample_posterior(ts, ds, 2, 5, 5, **ARCH)
+        elif mode == "sample_posterior_sweep":
+            jy, jvar = jgenerate.sample_posterior_sweep(js, ds, 2, 4, draw_seed=9, **ARCH)
+            y, var = generate.sample_posterior_sweep(ts, ds, 2, 4, draw_seed=9, **ARCH)
+        else:
+            d, q = t["ho"]["d"][:4], t["ho"]["q"][:4]
+            jy = jserving.sample_images(t["jres"].model, t["jstate"], jnp.asarray(d),
+                                        jnp.asarray(q), jax.random.PRNGKey(5), 3)
+            path = str(tmp_path / "m.srv")
+            serving.save_server_state(path, t["state"], meta={**ARCH, "image_shape": [32, 32, 1]})
+            serving.main(["--state", path, "--device", "cpu", "--sample", "3", "--seed", "5",
+                          "--requests", ",".join(f"{a}:{b}" for a, b in zip(d, q)),
+                          "--outdir", str(tmp_path / "cli")])
+            y = np.load(tmp_path / "cli" / "served.npz")["images"]
+    assert y.shape == np.asarray(jy).shape and np.isfinite(y).all()
+    _close(y, jy, **F32)
+
+
 def test_generate_draws_are_seeded(trained):
-    """Without injected draws each mode draws from a CPU generator seeded by
-    draw_seed, else seed: the same seed gives the same images, another
-    draw_seed other ones."""
+    """Without injected draws each mode draws from PRNGKey(draw_seed), else
+    PRNGKey(seed): the same seed gives the same images, another draw_seed
+    other ones."""
     t, ds = trained, trained["ds"]
     ts = _port_run_state(t)
     a = generate.sample_prior(ts, ds, 4, **ARCH)

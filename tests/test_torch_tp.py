@@ -49,6 +49,7 @@ from gppvae_tpu_torch.data import build_rotated_digits
 from gppvae_tpu_torch.models import VAE
 from gppvae_tpu_torch.parallel import MeshGroup, dryrun, tensor
 from gppvae_tpu_torch.train import train_gppvae as tg
+from _one_thread import one_thread  # noqa: F401
 
 jtrain = importlib.import_module("gppvae_tpu.train.train_gppvae")
 

@@ -12,6 +12,10 @@ then ε from split(fold_in(epoch_key, 1), nb)). Tolerances (float32):
     draws and landmarks injected, extra effects, learn_sigma_y, gradient
     accumulation, sub-epoch refresh, the subpixel decoder): every history
     key rtol 1e-4.
+The same trajectories with NO injection and NO converted weights (the
+port's own init and draws at the JAX trainer's seed, the JAX package's
+stream: utils/prng.py), 'joint' and 'dis', and train_vae's: every history
+key rtol 1e-4.
 The optimizer tests run in float64 and hold the port to optax at 1e-12.
 """
 
@@ -42,6 +46,8 @@ from gppvae_tpu_torch.eval import predict_heldout
 from gppvae_tpu_torch.models import encode_all
 from gppvae_tpu_torch.train import train_gppvae, train_vae
 from gppvae_tpu_torch.train.optim import GuardedAdam, resolve_grad_accum
+from gppvae_tpu_torch.utils import prng
+from _one_thread import one_thread  # noqa: F401
 
 # the module (gppvae_tpu.train re-exports a function of the same name)
 jtrain = importlib.import_module("gppvae_tpu.train.train_gppvae")
@@ -91,6 +97,13 @@ def golden():
     return _golden("joint")
 
 
+@functools.cache
+def _jax_run(case):
+    """The JAX trainer's 2-epoch run of a case, once per test process."""
+    g = _golden(case)
+    return jtrain.train_gppvae(g["ds"], g["jcfg"], log=_Quiet())
+
+
 def _jax_plan(rng, epoch, num_train, bs, zdim, nb=None):
     """The JAX trainer's draws for one epoch (train_gppvae.py:456,507-508)."""
     key = epoch_keys(rng, epoch, 1)[0]
@@ -108,8 +121,7 @@ def _to_torch(*arrays):
 def _port(golden, **overrides):
     cfg = train_gppvae.GPPVAETrainConfig(**{**GOLDEN, **overrides})
     model, gp_params, fixed_W, data, n = train_gppvae._setup(
-        golden["ds"], cfg, torch.device("cpu"), torch.Generator().manual_seed(0),
-        golden["init"])
+        golden["ds"], cfg, torch.device("cpu"), golden["init"])
     return train_gppvae._Loop(model, gp_params, fixed_W, data, n, cfg)
 
 
@@ -152,7 +164,7 @@ def test_one_phase_c_step_matches_jax(golden, monkeypatch):
 @pytest.mark.parametrize("mode", list(CASES))
 def test_two_epoch_trajectory_matches_jax(mode):
     g = _golden(mode)
-    jres = jtrain.train_gppvae(g["ds"], g["jcfg"], log=_Quiet())
+    jres = _jax_run(mode)
     nb = -(-g["num_train"] // 16)
 
     def draws(epoch):
@@ -179,6 +191,52 @@ def test_two_epoch_trajectory_matches_jax(mode):
 class _Quiet:
     def log(self, rec):
         pass
+
+
+@pytest.mark.parametrize("mode", ["joint", "dis"])
+def test_two_epoch_trajectory_matches_jax_without_injection(mode):
+    """The port trains from config.seed alone: flax's init of the VAE from
+    the JAX trainer's init key, X₀, the plans and every step's ε from its
+    keys. No draws injected and no weights converted: the JAX trainer's
+    2-epoch history, every key rtol 1e-4."""
+    g = _golden(mode)
+    cfg = train_gppvae.GPPVAETrainConfig(**{**GOLDEN, **CASES[mode]})
+    res = train_gppvae.train_gppvae(g["ds"], cfg, device="cpu", log=_Quiet())
+    assert len(res.history) == len(_jax_run(mode).history) == 2
+    for ours, theirs in zip(res.history, _jax_run(mode).history):
+        for k in train_gppvae._METRIC_KEYS:
+            np.testing.assert_allclose(ours[k], theirs[k], rtol=1e-4, err_msg=k)
+
+
+def test_setup_draws_the_jax_trainers_init():
+    """_setup's fresh VAE, X₀ and W₀ from the seed equal jtrain._setup's
+    (flax's model.init and the normal draws), to 1e-7."""
+    g = _golden("joint")
+    cfg = train_gppvae.GPPVAETrainConfig(**GOLDEN)
+    model, gp_params, *_ = train_gppvae._setup(g["ds"], cfg, torch.device("cpu"))
+    for k, v in model.state_dict().items():
+        np.testing.assert_allclose(v.numpy(), g["init"]["vae"][k].numpy(), rtol=0, atol=1e-7,
+                                   err_msg=k)
+    for k, v in gp_params.items():
+        np.testing.assert_allclose(v.detach().numpy(), g["init"]["gp"][k], rtol=0, atol=1e-7,
+                                   err_msg=k)
+
+
+def test_train_vae_matches_jax_without_injection():
+    """train_vae from the seed alone (flax init, plans, ε and the
+    validation rows' ε from the JAX trainer's keys) against the JAX
+    trainer's 2-epoch history, every key rtol 1e-4."""
+    jvae = importlib.import_module("gppvae_tpu.train.train_vae")
+    ds = _golden("joint")["ds"]
+    kw = dict(zdim=6, epochs=2, batch_size=16, lr=5e-4, seed=7, enc_features=(8, 16),
+              dec_features=(16, 8))
+    jres = jvae.train_vae(ds, jvae.VAETrainConfig(**kw), log=_Quiet())
+    res = train_vae.train_vae(ds, train_vae.VAETrainConfig(**kw), device="cpu", log=_Quiet())
+    assert len(res.history) == len(jres.history) == 2
+    for ours, theirs in zip(res.history, jres.history):
+        assert set(ours) == set(theirs)
+        for k in set(ours) - {"driver", "epoch", "sec_epoch"}:
+            np.testing.assert_allclose(ours[k], theirs[k], rtol=1e-4, err_msg=k)
 
 
 @pytest.mark.parametrize("mode", ["dis", "joint"])
@@ -211,31 +269,33 @@ def test_twelve_epoch_trajectory_matches_jax_at_dispatch_10(mode):
 
 
 def test_random_view_features_come_from_a_fixed_key():
-    """With no one-column view aux the view features are random unit rows,
-    drawn from a generator of their own with a fixed key, as the JAX trainer
-    draws them from PRNGKey(7): W0 is the same at two training seeds, and
-    the run's generator gives the plans and ε of a dataset that has an aux
-    column."""
+    """With no one-column view aux the view features are random unit rows:
+    the JAX trainer's normal(PRNGKey(7)) rows (train_gppvae.py:229), the
+    same at two training seeds, and X₀ does not move with them. The draws
+    are bit-equal to jax.random's; W₀ equals the JAX trainer's within 2
+    ulp, the row norm's last bit (XLA fuses the squares into its sum as
+    fused multiply-adds) passed on by the division."""
     import dataclasses
 
     ds = _golden("joint")["ds"]
     auxless = dataclasses.replace(ds, view_aux=np.zeros((ds.num_views, 2), np.float32))
+    jW = np.asarray(jtrain._init_view_features(jtrain.GPPVAETrainConfig(**GOLDEN), auxless))
     runs = {}
     for name, data, seed in (("aux", ds, 7), ("auxless", auxless, 7),
                              ("auxless_seed3", auxless, 3)):
         cfg = train_gppvae.GPPVAETrainConfig(**{**GOLDEN, "seed": seed, "epochs": 1})
-        gen = torch.Generator().manual_seed(seed)
-        _, gp_params, _, _, n = train_gppvae._setup(data, cfg, torch.device("cpu"), gen)
-        runs[name] = (gp_params["W"].detach(), gp_params["X"].detach(),
-                      train_gppvae.make_draws(gen, n, cfg.batch_size, cfg.zdim)(0))
+        _, gp_params, *_ = train_gppvae._setup(data, cfg, torch.device("cpu"))
+        runs[name] = (gp_params["W"].detach(), gp_params["X"].detach())
     W = runs["auxless"][0]
     assert W.shape == (8, 5) and torch.equal(W, runs["auxless_seed3"][0])
+    np.testing.assert_array_equal(
+        prng.normal(prng.PRNGKey(7), (8, 5)),
+        np.asarray(jax.random.normal(jax.random.PRNGKey(7), (8, 5), jnp.float32)))
+    np.testing.assert_array_max_ulp(W.numpy(), jW, maxulp=2)
     np.testing.assert_allclose(W.norm(dim=1).numpy(), 1.0, rtol=1e-6)
     assert not torch.equal(W, runs["aux"][0])  # Fourier rows there
-    assert torch.equal(runs["auxless"][1], runs["aux"][1])  # X0: the same later draws
+    assert torch.equal(runs["auxless"][1], runs["aux"][1])  # X₀ from its own key
     assert not torch.equal(runs["auxless"][1], runs["auxless_seed3"][1])
-    for a, b in zip(runs["auxless"][2], runs["aux"][2]):
-        assert torch.equal(a, b)
     res = train_gppvae.train_gppvae(auxless, train_gppvae.GPPVAETrainConfig(
         **{**GOLDEN, "epochs": 1}), device="cpu", log=_Quiet())
     assert np.isfinite(res.history[0]["oos_mse"])
@@ -340,13 +400,13 @@ def test_package_imports_no_jax(tmp_path):
         np.load(tmp_path / "options" / "served_exe" / "served.npz")["images"],
         np.load(tmp_path / "options" / "served" / "served.npz")["images"], rtol=0, atol=1e-2)
 
-    # and no source of the port, nor chip_smoke.py, validate_torch.py,
-    # bench_torch.py or the bench's two tools, names the JAX package or a
-    # JAX library
+    # and no source of the port (utils/prng.py included), nor chip_smoke.py,
+    # validate_torch.py, bench_torch.py or the card's tools, names the JAX
+    # package or a JAX library
     sources = [*sorted((REPO / "gppvae_tpu_torch").rglob("*.py")), REPO / "chip_smoke.py",
                REPO / "validate_torch.py", REPO / "bench_torch.py",
                REPO / "tools" / "torch_observe_throughput.py",
-               REPO / "tools" / "torch_bench_diff.py"]
+               REPO / "tools" / "torch_bench_diff.py", REPO / "tools" / "torch_stream_cost.py"]
     found = []
     for path in sources:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -356,7 +416,7 @@ def test_package_imports_no_jax(tmp_path):
                       if n.split(".")[0] in ("gppvae_tpu", "jax", "flax", "optax")]
     assert len(sources) > 35 and not found, found
     assert {"train_cvae.py", "plots.py", "cvae.py", "profiling.py", "kernel_timing.py",
-            "bench_torch.py", "torch_bench_diff.py"} <= {p.name for p in sources}
+            "prng.py", "bench_torch.py", "torch_bench_diff.py"} <= {p.name for p in sources}
 
 
 def test_guarded_adam_matches_optax_spike_guard():

@@ -24,6 +24,7 @@ import gppvae_tpu.train as jax_train_pkg
 from gppvae_tpu.data import build_rotated_digits as jax_build
 from gppvae_tpu_torch.data import build_rotated_digits
 from gppvae_tpu_torch.data.rotated_digits import DIGITS_FILE
+from _one_thread import one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))

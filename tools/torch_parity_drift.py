@@ -26,9 +26,10 @@ optimizer, the accumulation or the surrogate's refresh shows as a difference
 that grows by orders of magnitude with the epoch.
 
 Part 2, own draws: both packages' GPPVAE stages at training seeds --seeds from
-that same pretrained VAE, each with its own random stream (threefry there,
-torch's generator here, which cannot be made equal): the final `oos_mse` of
-dis and joint per seed, and each package's mean and spread, side by side.
+that same pretrained VAE, each drawing for itself from the seed: the final
+`oos_mse` of dis and joint per seed, and each package's mean and spread,
+side by side. The port draws the JAX package's threefry stream
+(gppvae_tpu_torch/utils/prng.py), so part 2 is part 1 without injection.
 
 A tool, not part of the port's package: it imports both packages. Every number
 it prints is a CPU number at a reduced size; none is a device time.

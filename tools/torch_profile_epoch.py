@@ -36,6 +36,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from gppvae_tpu_torch.config import build_dataset_from_flag  # noqa: E402
 from gppvae_tpu_torch.train import train_gppvae as tg  # noqa: E402
+from gppvae_tpu_torch.train.batching import make_draws  # noqa: E402
 from gppvae_tpu_torch.models import UPSAMPLES  # noqa: E402
 from gppvae_tpu_torch.train.device import COMPUTE_DTYPES, set_float32_precision  # noqa: E402
 
@@ -74,10 +75,9 @@ def main() -> None:
     ds = build_dataset_from_flag("synthetic", args.num_objects, args.num_views, 0)
     cfg = tg.GPPVAETrainConfig(mode="joint", compute_dtype=args.dtype,
                                dec_upsample=args.dec_upsample)
-    gen = torch.Generator().manual_seed(0)
-    model, gp_params, fixed_W, data, n = tg._setup(ds, cfg, device, gen)
+    model, gp_params, fixed_W, data, n = tg._setup(ds, cfg, device)
     loop = tg._Loop(model, gp_params, fixed_W, data, n, cfg)
-    draws = tg.make_draws(gen, n, cfg.batch_size, cfg.zdim)
+    draws = make_draws(tg.run_keys(cfg.seed)[0], n, cfg.batch_size, cfg.zdim)
     print(f"device {torch.cuda.get_device_name(0)}; N={n}, steps/epoch={loop.nb}; "
           f"{args.dtype}, {args.dec_upsample} decoder")
 

@@ -60,7 +60,7 @@ def main() -> None:
     else:
         ds = build_dataset_from_flag("synthetic", 400, 16, 0)
         cfg = tg.GPPVAETrainConfig(compute_dtype=args.dtype)
-    model, gp_params, fixed_W, data, _ = tg._setup(ds, cfg, device, torch.Generator().manual_seed(0))
+    model, gp_params, fixed_W, data, _ = tg._setup(ds, cfg, device)
     x_map, _ = tg._object_kernel(cfg, gp_params["X"], {}, device)
     params = {"vae": model.state_dict(), "gp": {k: v.detach() for k, v in gp_params.items()}}
     extra = cfg.extra_effects

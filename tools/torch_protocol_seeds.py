@@ -5,7 +5,8 @@
 validate_torch.py fixes every seed at 0. This runs its VAE pretrain and its
 GPPVAE-dis and GPPVAE-joint stages (the same dataset, split, widths and
 learning rates) with the training seed varied, which moves the initial
-weights, the object features' init, the minibatch plans and ε, and prints
+weights, the object features' init, the minibatch plans and ε (each the
+JAX package's draw at that seed: the port draws its stream), and prints
 one JSON line per (seed, mode): the final out-of-sample MSE, the MSE at
 epoch 100 and the lowest over the run. It says how far the protocol's
 numbers move with the seed alone. Needs CUDA; there is no CPU mode.

@@ -14,7 +14,10 @@ LIVAE, CVAE, GPPVAE-dis, GPPVAE-joint) and a summary line, and exits
 non-zero unless gppvae_joint beats both trivial baselines and each GPPVAE
 variant improves on its own first epoch.
 
-`run_validation` is the library entry.
+`run_validation` is the library entry. Its seed 0 is the JAX package's seed
+0: the port draws that package's random stream (gppvae_tpu_torch/utils/
+prng.py), so in float32 this runs validate.py's protocol as the JAX
+package would.
 """
 
 import argparse
