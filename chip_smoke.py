@@ -31,8 +31,12 @@ Phases, one per printed line group; any failure ends the run non-zero:
      final GP NLL on the card against a float64 CPU evaluation;
   5. (a) the headline (bench.py config 3b): the same slice with --dtype
      bfloat16 --dec_upsample subpixel, and --polish_epochs 1 for the joint
-     run; checks that both Adams restarted at the float32 switch and the
-     bf16 latents against the same weights in f32;
+     run; checks that both Adams restarted at the float32 switch, the
+     bf16 latents against the same weights in f32, and the trained
+     decoder in bf16 (`check_decoder_bf16`): that its forward ran the
+     merged lowering (each upsampling stage one `_upconv`, a transposed
+     conv, no nearest upsample), each stage's merged kernel bit for bit
+     and its output against the merged function in float64 on the CPU;
      (b) the GP options at face-view 128² (config 4 widths): rbf object
      kernel (32 RFF features), an extra object effect, learn_sigma_y,
      grad_accum_steps 2, refresh_every_steps 3, subpixel, 2 epochs (R = 232);
@@ -174,6 +178,19 @@ SLICE_NLL_REL_BOUND = 1e-4  # card (fp32, kernels) vs CPU float64, N = 5700
 # bf16 vs f32 latents of the same trained weights, max abs err / max |Z|:
 # 4.8e-3 measured on an H100; the CPU bound of bf16 against flax's bf16
 LATENT_BF16_REL_BOUND = 2e-2
+# 5a: each upsampling stage of the trained decoder in bfloat16 (the card's own
+# input to the stage) against the merged function in float64 on the CPU: the
+# 4×4 kernel merged from the bf16 weight, each tap sum rounded to bf16, the
+# conv over the input dilated by 2, rounded to bf16, then + the bf16 bias,
+# rounded. The two differ only where the card's float32 sums cross a bf16
+# rounding boundary that the float64 sums do not, by one bf16 ulp: max abs err
+# / max |ref| at most one ulp of the largest value (2⁻⁷ of it), and at most
+# this share of the outputs off. Measured on the CPU at the published widths
+# (digits 32², faces 128²): the merged stage 0.001-0.003 % of outputs off,
+# max 0.95e-3-2.5e-3; the resize forward 53-55 % off, max 3.8e-3-6.4e-3
+DECODER_STAGE_REL_BOUND = 2.0**-7
+DECODER_STAGE_DIFFER_BOUND = 0.05
+DECODER_CHECK_ROWS = 256
 SLICE_ARGS = ["--data", "synthetic", "--num_objects", "400", "--num_views", "16",
               "--seed", "0", "--device", "cuda"]
 HEADLINE = ["--dtype", "bfloat16", "--dec_upsample", "subpixel"]
@@ -509,6 +526,89 @@ def phase_slice(tmp: str, card: str) -> tuple[dict, dict]:
     return counts, {"dir": f"{tmp}/gppvae", "result": result, "data": DIGITS_DATA}
 
 
+def _bf16_f64(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().to("cpu", torch.bfloat16).double()
+
+
+def merged_stage_f64(weight: torch.Tensor, bias: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """nearest-resize ×2 + a 3×3 conv as the JAX package's bfloat16 subpixel
+    decoder computes it, in float64 on the CPU: the bf16 weight's taps merged
+    per axis by T (rows, then columns, each sum rounded to bf16), the 4×4
+    kernel over x dilated by 2 with padding 2, rounded to bf16, + the bf16
+    bias, rounded. Returns (the bf16-rounded kernel, the stage's output)."""
+    import torch.nn.functional as F
+
+    T = torch.tensor([[1.0, 0, 0], [1, 1, 0], [0, 1, 1], [0, 0, 1]], dtype=torch.float64)
+    k4 = torch.einsum("up,oipq->oiuq", T, _bf16_f64(weight)).bfloat16().double()
+    k4 = torch.einsum("vq,oiuq->oiuv", T, k4).bfloat16().double()
+    x = _bf16_f64(x)
+    n, c, h, w = x.shape
+    u = x.new_zeros((n, c, 2 * h - 1, 2 * w - 1))
+    u[:, :, ::2, ::2] = x
+    y = F.conv2d(u, k4, padding=2).bfloat16().double()
+    return k4, (y + _bf16_f64(bias)[:, None, None]).bfloat16().double()
+
+
+def check_decoder_bf16(label: str, decoder, z: torch.Tensor) -> None:
+    """The trained decoder in bfloat16 on the card: the upsampling stages
+    its forward ran (each `_upconv` call recorded with its input and output;
+    torch.profiler's ATen ops: a transposed conv per stage and no nearest
+    upsample), each stage's merged kernel against the CPU's bit for bit, and
+    its output against merged_stage_f64 of the same input. The resize
+    forward on the same inputs is printed beside it."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from gppvae_tpu_torch.models import vae
+
+    stages, own = [], vae._upconv
+
+    def recorded(layer, x, dtype):
+        y = own(layer, x, dtype)
+        stages.append((layer, x.detach(), y.detach()))
+        return y
+
+    vae._upconv = recorded
+    try:
+        with torch.no_grad(), profile(activities=[ProfilerActivity.CPU]) as prof:
+            logits = decoder(z)
+        torch.cuda.synchronize()
+    finally:
+        vae._upconv = own
+    ops = {e.key: e.count for e in prof.key_averages()}
+    ran = {k: ops.get(k, 0) for k in ("aten::conv_transpose2d", "aten::upsample_nearest2d")}
+    depth = len(decoder.convs)
+    say(f"{label} bf16 decoder on the card: {len(stages)} _upconv stages of {depth}, "
+        f"ATen ops {ran}; logits {tuple(logits.shape)} {logits.dtype}")
+    check(decoder.upsample == "subpixel" and decoder.dtype == torch.bfloat16
+          and len(stages) == depth and ran["aten::conv_transpose2d"] == depth
+          and ran["aten::upsample_nearest2d"] == 0,
+          f"{label}: the card ran the merged lowering, one transposed conv per stage")
+    check(bool(torch.isfinite(logits).all()), f"{label}: finite bf16 logits")
+    for i, (layer, x, y) in enumerate(stages):
+        k4, ref = merged_stage_f64(layer.weight, layer.bias, x)
+        card_k4 = vae._merge_taps(layer.weight.to(torch.bfloat16)).double().cpu()
+        with torch.no_grad():
+            resize = vae._conv(layer, F.interpolate(x, scale_factor=2, mode="nearest"),
+                               torch.bfloat16)
+        errs = {}
+        for name, out in (("merged", y), ("resize", resize)):
+            out = out.double().cpu()
+            errs[name] = (float((out - ref).abs().max() / ref.abs().max()),
+                          float((out != ref).double().mean()))
+        say(f"{label} stage {i} {tuple(x.shape)} → {tuple(y.shape)} vs float64 merged: "
+            f"max abs err / max |ref| {errs['merged'][0]:.3e} (bound "
+            f"{DECODER_STAGE_REL_BOUND:.3e}), outputs off {errs['merged'][1]:.4%} (bound "
+            f"{DECODER_STAGE_DIFFER_BOUND:.0%}); resize forward {errs['resize'][0]:.3e}, "
+            f"{errs['resize'][1]:.2%} off; 4×4 kernel equal bit for bit "
+            f"{torch.equal(card_k4, k4)}")
+        check(torch.equal(card_k4, k4), f"{label} stage {i}: the card's merged kernel is the "
+              "JAX einsum's rounding")
+        check(errs["merged"][0] <= DECODER_STAGE_REL_BOUND
+              and errs["merged"][1] <= DECODER_STAGE_DIFFER_BOUND,
+              f"{label} stage {i}: the card's bf16 stage is the merged function")
+
+
 def path_headline(tmp: str, card: str) -> tuple[dict, dict]:
     from gppvae_tpu_torch.models import encode_all
     from gppvae_tpu_torch.train import train_gppvae, train_vae
@@ -549,6 +649,9 @@ def path_headline(tmp: str, card: str) -> tuple[dict, dict]:
         f"{rel:.3e} (bound {LATENT_BF16_REL_BOUND:.0e}); dtype {Z_bf16.dtype}")
     check(Z_bf16.dtype == torch.float32 and rel <= LATENT_BF16_REL_BOUND,
           "bf16 latents agree with f32 latents of the same weights")
+    result.model.dtype = torch.bfloat16
+    check_decoder_bf16("5a", result.model.decoder, Z_f32[:DECODER_CHECK_ROWS])
+    result.model.dtype = torch.float32
     return counts, {"dir": f"{tmp}/headline", "result": result, "data": DIGITS_DATA}
 
 

@@ -20,12 +20,21 @@ attribute of the modules, not an autocast region, so nothing outside the
 VAE (the GP path and its kernels) ever sees a bfloat16 tensor. The trainers
 flip it in place (`VAE.dtype = ...`) for the float32 polish tail.
 
-`upsample='subpixel'` is the JAX package's other lowering of the same
-function with the same parameters (gppvae_tpu/models/vae.py:193-254): it
-exists there to feed the TPU's matrix unit. The port accepts the name, so
-configs and checkpoints interchange, and runs the resize forward for it:
-on an H100 the tap-merged transposed conv was no faster per epoch in
-either dtype and slower in float32 (PERF.md, Findings).
+`upsample='subpixel'` is the JAX package's other lowering of the resize
+and the conv (gppvae_tpu/models/vae.py:193-254, its default 'dilated'
+form), with the same parameters and state_dict. In float32 the two
+lowerings are one function to ~1e-6, and the port runs the resize forward
+for it: on an H100 the tap-merged lowering was slower per epoch at digits
+32² (PERF.md, Findings). In bfloat16 they are two functions: flax casts
+the 3×3 kernel to bfloat16 and sums its taps into a 4×4 kernel in
+bfloat16, so the merged kernel's entries are rounded, and the resize
+forward was as far from flax's bfloat16 decoder as that is from float32.
+So in bfloat16 the port runs the JAX package's lowering, `_upconv`: the
+taps summed in bfloat16 in XLA's order (`_merge_taps`, under autograd, so
+the 3×3 weight's gradient flows back through the sums), one stride-2
+transposed conv with that kernel, then the bias added in bfloat16, as
+flax's `y + bias`. One behaviour per dtype, no switch; the float32 polish
+switch changes the lowering with the dtype.
 
 A layer whose weight tensor parallelism split (parallel/tensor.py: the
 layer's `tp_group` is set, its weight is this rank's block of output
@@ -112,6 +121,37 @@ def _conv(layer: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
     return gather_columns(group, y, 1) + layer.bias.to(dtype)[:, None, None]
 
 
+def _merge_taps(w: torch.Tensor) -> torch.Tensor:
+    """The 4×4 kernel (f, cin, 4, 4) of nearest-resize ×2 followed by the
+    3×3 kernel `w` (f, cin, 3, 3), in w's dtype: per axis the taps
+    (w0, w1, w2) become (w0, w0 + w1, w1 + w2, w2), the JAX package's tap
+    map T (gppvae_tpu/models/vae.py:245-248). Rows first, then columns, each
+    sum rounded: XLA evaluates that einsum as two contractions in this
+    order, each rounded to the compute dtype."""
+    for dim in (2, 3):
+        a, b, c = w.unbind(dim)
+        w = torch.stack((a, a + b, b + c, c), dim)
+    return w
+
+
+def _upconv(layer: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """nearest-resize ×2 then `layer` (3×3, padding 1) as the JAX package's
+    'dilated' lowering: the merged 4×4 kernel over the input dilated by 2
+    with padding 2, which is a stride-2 transposed conv with the kernel
+    flipped and padding 1; the bias is added after the conv's rounding.
+    Column-parallel as `_conv` when the layer's weight is split: the merge
+    acts on this rank's block of output features."""
+    group = getattr(layer, "tp_group", None)
+    w = _merge_taps(layer.weight.to(dtype)).flip(2, 3).transpose(0, 1)
+    x = x.to(dtype)
+    if group is not None:
+        x = copy_to_model(group, x)
+    y = F.conv_transpose2d(x, w, None, stride=2, padding=1)
+    if group is not None:
+        y = gather_columns(group, y, 1)
+    return y + layer.bias.to(dtype)[:, None, None]
+
+
 class ConvEncoder(nn.Module):
     """Stride-2 3×3 conv stack → flatten (H, W, C) → dense → (μ, log σ²)."""
 
@@ -145,8 +185,9 @@ class ConvEncoder(nn.Module):
 
 class ConvDecoder(nn.Module):
     """Dense → reshape (h, w, c) → (nearest-resize ×2 + 3×3 conv) stack →
-    3×3 conv to C logit channels, returned NHWC float32. `upsample` is kept
-    for the JAX package's configs; both names run the same forward."""
+    3×3 conv to C logit channels, returned NHWC float32. 'subpixel' in
+    bfloat16 runs each upsampling stage as `_upconv` (the module
+    docstring)."""
 
     def __init__(self, zdim: int, image_shape: Sequence[int],
                  features: Sequence[int] = (128, 64, 32), upsample: str = "resize",
@@ -173,8 +214,12 @@ class ConvDecoder(nn.Module):
         dt = self.dtype
         h = F.elu(_dense(self.dense, z, dt))
         h = h.reshape(z.shape[0], self.h0, self.w0, self.f0).permute(0, 3, 1, 2)
+        merged = self.upsample == "subpixel" and dt == torch.bfloat16
         for conv in self.convs:
-            h = F.elu(_conv(conv, F.interpolate(h, scale_factor=2, mode="nearest"), dt))
+            if merged:
+                h = F.elu(_upconv(conv, h, dt))
+            else:
+                h = F.elu(_conv(conv, F.interpolate(h, scale_factor=2, mode="nearest"), dt))
         return _conv(self.out, h, dt).permute(0, 2, 3, 1).float()  # NCHW → NHWC logits
 
 

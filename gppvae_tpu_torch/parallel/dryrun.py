@@ -224,10 +224,11 @@ def serving_rank(group, model_kw: dict, params: dict, fixed_W, images_tr, d_tr, 
 
 def column_parallel_rank(group, kind: str, weight: np.ndarray, bias: np.ndarray,
                          x: np.ndarray, dy: np.ndarray, dtype: str = "float32") -> dict:
-    """One conv ('conv': OIHW weight, 3×3, padding 1, NCHW x) or dense
-    ('dense': (out, in) weight) layer with its weight split over the model
-    axis (every weight splits: min_size 1), run as models/vae.py runs it in
-    the compute dtype `dtype`: the output, and the gradients of
+    """One conv ('conv': OIHW weight, 3×3, padding 1, NCHW x; 'upconv': the
+    same layer after a nearest-resize ×2, as the subpixel decoder runs it)
+    or dense ('dense': (out, in) weight) layer with its weight split over
+    the model axis (every weight splits: min_size 1), run as models/vae.py
+    runs it in the compute dtype `dtype`: the output, and the gradients of
     sum(output · dy) for x, the weight (gathered whole) and the bias; numpy
     float32, with the collectives issued."""
     from gppvae_tpu_torch.models import vae
@@ -235,14 +236,15 @@ def column_parallel_rank(group, kind: str, weight: np.ndarray, bias: np.ndarray,
     dev = group.device
     w = torch.as_tensor(weight)
     layer = (torch.nn.Conv2d(w.shape[1], w.shape[0], w.shape[2], padding=w.shape[2] // 2)
-             if kind == "conv" else torch.nn.Linear(w.shape[1], w.shape[0])).to(dev)
+             if kind != "dense" else torch.nn.Linear(w.shape[1], w.shape[0])).to(dev)
     with torch.no_grad():
         layer.weight.copy_(w)
         layer.bias.copy_(torch.as_tensor(bias))
     split = tensor.split_model_axis(layer, group, min_size=1)
     counts = collections.Counter(group.counts)
     xt = torch.tensor(x, device=dev, requires_grad=True)
-    y = (vae._conv if kind == "conv" else vae._dense)(layer, xt, getattr(torch, dtype))
+    y = {"conv": vae._conv, "upconv": vae._upconv, "dense": vae._dense}[kind](
+        layer, xt, getattr(torch, dtype))
     torch.sum(y.float() * torch.as_tensor(dy, device=dev)).backward()
     issued = summary(group.counts - counts)
     dw = gather(group, layer.weight.grad, 0)

@@ -64,7 +64,7 @@ class CVAETrainConfig:
     dec_features: Sequence[int] = (128, 64, 32)
     compute_dtype: str = "float32"  # 'float32' | 'bfloat16' (compute; params f32)
     sat_penalty: float = 1.0  # saturation-death barrier weight (<=0 off)
-    dec_upsample: str = "resize"  # 'resize' | 'subpixel' (same forward and params)
+    dec_upsample: str = "resize"  # 'resize' | 'subpixel' (same params: models/vae.py)
     outdir: str | None = None
 
 

@@ -155,7 +155,7 @@ class GPPVAETrainConfig:
     enc_features: Sequence[int] = (32, 64, 128)
     dec_features: Sequence[int] = (128, 64, 32)
     compute_dtype: str = "float32"  # VAE compute: 'float32' | 'bfloat16'
-    dec_upsample: str = "resize"  # 'resize' | 'subpixel' (same forward and params)
+    dec_upsample: str = "resize"  # 'resize' | 'subpixel' (same params: models/vae.py)
     polish_epochs: int = 0  # bfloat16 runs: the last K epochs in float32
     clip_grad_norm: float = 1e5  # global-norm clip in front of Adam (<=0 off)
     sat_penalty: float = 1.0  # saturation-death barrier weight (<=0 off)

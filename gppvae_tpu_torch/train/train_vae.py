@@ -78,7 +78,7 @@ class VAETrainConfig:
     dec_features: Sequence[int] = (128, 64, 32)
     compute_dtype: str = "float32"  # 'float32' | 'bfloat16' (VAE compute; params f32)
     sat_penalty: float = 1.0  # saturation-death barrier weight (<=0 off)
-    dec_upsample: str = "resize"  # 'resize' | 'subpixel' (same forward and params)
+    dec_upsample: str = "resize"  # 'resize' | 'subpixel' (same params: models/vae.py)
     outdir: str | None = None
     panel_every: int = 0  # epochs between image panels (0 = off)
     checkpoint_every: int = 0  # epochs between vae_weights_NNNN.pt (0 = end only)

@@ -3,9 +3,10 @@
 The port's own copy of gppvae_tpu/utils/flops.py (framework-free; held equal
 to the original, function by function, by tests/test_torch_utils.py). The
 formulas follow models/vae.py and the phases of the GPPVAE epoch. They count
-what the algorithm needs, not what a library executes: the port's
-'subpixel' decoder runs the resize forward (models/vae.py), so a subpixel
-price is the JAX lowering's, kept for interchange of configs.
+what the algorithm needs, not what a library executes: a 'subpixel' price
+is the JAX package's 2×2 form of the tap-merged decoder, within
+(h+1)(w+1)/hw of the transposed conv the port runs in bfloat16; in float32
+the port runs the resize forward for it (models/vae.py).
 
 Convention: 1 MAC = 2 FLOPs; elementwise, activation and resize traffic is
 ignored (bandwidth-bound); backward = 2× forward for conv and dense layers

@@ -6,7 +6,8 @@ atol 2e-5 and parameter gradients to rtol 1e-3 / atol 1e-5 of each
 gradient's largest entry (f32 convolutions summed in another order). The
 subpixel decoder agrees with flax's and with the port's resize decoder to
 1e-5 of max |·| (forward and parameter gradients), as tests/test_subpixel.py
-holds the JAX pair. bfloat16 compute: see test_bf16_vae_matches_flax.
+holds the JAX pair. bfloat16 compute: see test_bf16_vae_matches_flax and
+test_bf16_subpixel_decoder_matches_flax.
 """
 
 import jax
@@ -21,7 +22,7 @@ from gppvae_tpu.models import VAE as FlaxVAE
 from gppvae_tpu.models.vae import ConvDecoder as FlaxDecoder
 from gppvae_tpu_torch.convert import flax_to_state_dict, state_dict_to_flax
 from gppvae_tpu_torch.models import VAE, ConvDecoder, encode_all
-from gppvae_tpu_torch.models.vae import _same_pad
+from gppvae_tpu_torch.models.vae import _merge_taps, _same_pad
 from _one_thread import one_thread  # noqa: F401
 
 WIDTHS = {
@@ -36,6 +37,13 @@ SUBPIXEL_CASES = [
     ((16, 16, 2), (32, 16), 4),
 ]
 BF16_REL_BOUND = 2e-2  # bfloat16 VAE vs flax's, max abs err / max |flax|
+# the bfloat16 subpixel decoder's logits vs flax's: one bfloat16 rounding of
+# the largest logit, 2⁻⁸ of it (see test_bf16_subpixel_decoder_matches_flax)
+BF16_SUBPIXEL_REL_BOUND = 2.0**-8
+# its parameter gradients vs flax's bfloat16 ones, in units of flax's own
+# bfloat16-against-float32 gap of the same tensor (Frobenius norms): the
+# kernels, and the biases, whose bfloat16 gradients flax sums far from float32
+BF16_GRAD_KERNEL_RATIO, BF16_GRAD_BIAS_RATIO = 0.9, 1.25
 
 
 def _pair(width, seed=0, shape=SHAPE, dtype="float32", upsample="resize"):
@@ -149,10 +157,11 @@ def _rel(a, b) -> float:
 
 @pytest.mark.parametrize("image_shape,features,zdim", SUBPIXEL_CASES)
 def test_subpixel_decoder_matches_flax_and_resize(image_shape, features, zdim):
-    """upsample='subpixel' (the port runs the resize forward for it) against
-    flax's subpixel decoder (its tap-merged 'dilated' lowering) and the
-    port's own resize decoder, forward and parameter gradients, ≤ 1e-5 of
-    max |·|; the state_dicts are the same (checkpoints interchange)."""
+    """upsample='subpixel' (in float32 the port runs the resize forward for
+    it) against flax's subpixel decoder (its tap-merged 'dilated' lowering)
+    and the port's own resize decoder, forward and parameter gradients,
+    ≤ 1e-5 of max |·|; the state_dicts are the same (checkpoints
+    interchange)."""
     fd, fp, td = _decoders(image_shape, features, zdim, "subpixel")
     tr = ConvDecoder(zdim, image_shape, features, "resize")
     tr.load_state_dict(td.state_dict())
@@ -187,9 +196,11 @@ def test_bf16_vae_matches_flax(width, upsample):
     before rounding the conv's sum, XLA after), so they agree to a bound,
     not bit for bit: max abs err / max |flax| ≤ 2e-2. Measured on the CPU:
     ≤ 3.7e-3 at 32² (both widths) and ≤ 3.8e-3 at the face-view 128²×3
-    width with the resize decoder; the port's subpixel decoder (the resize
-    forward) against flax's tap-merged one, which rounds the merged kernel
-    to bf16, ≤ 6.9e-3 and ≤ 5.7e-3."""
+    width with the resize decoder. The subpixel decoder's logits are held
+    to BF16_SUBPIXEL_REL_BOUND (2⁻⁸): the port's tap-merged lowering,
+    which rounds the merged kernel to bf16 as flax does, 2.3e-3 / 1.5e-3
+    (full / golden); the resize forward, which the port ran for 'subpixel'
+    before, 6.9e-3 / 5.9e-3."""
     fm, fp, tm = _pair(width, seed=2, dtype="bfloat16", upsample=upsample)
     zdim = WIDTHS[width]["zdim"]
     y, z = _inputs(zdim, seed=9)
@@ -203,6 +214,68 @@ def test_bf16_vae_matches_flax(width, upsample):
         assert a.dtype == torch.float32 and np.asarray(b).dtype == np.float32
         assert bool(torch.isfinite(a).all())
         assert _rel(a, b) <= BF16_REL_BOUND
+    if upsample == "subpixel":
+        assert _rel(tlogits, logits) <= BF16_SUBPIXEL_REL_BOUND
     tm.dtype = torch.float32  # the polish switch: same params, f32 compute
     with torch.no_grad():
         assert _rel(tm.encode(torch.from_numpy(y))[0], tmu) <= BF16_REL_BOUND
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_merge_taps_matches_the_jax_einsum(dtype):
+    """_merge_taps is the JAX package's tap merge of the 'dilated' lowering,
+    einsum("up,vq,pqio->uvio", T, T, w3) in the compute dtype
+    (gppvae_tpu/models/vae.py:245-248), bit for bit: XLA contracts the rows,
+    rounds, then the columns."""
+    w = np.random.default_rng(11).standard_normal((3, 3, 24, 40)).astype(np.float32) / 7
+    jw = jnp.asarray(w).astype(getattr(jnp, dtype))
+    T = jnp.asarray([[1.0, 0, 0], [1, 1, 0], [0, 1, 1], [0, 0, 1]], jw.dtype)
+    want = np.asarray(jnp.einsum("up,vq,pqio->uvio", T, T, jw).astype(jnp.float32))
+    tw = torch.from_numpy(np.asarray(jw.astype(jnp.float32)).transpose(3, 2, 0, 1).copy())
+    got = _merge_taps(tw.to(getattr(torch, dtype)))
+    assert got.dtype == getattr(torch, dtype) and got.shape == (40, 24, 4, 4)
+    np.testing.assert_array_equal(got.float().numpy().transpose(2, 3, 1, 0), want)
+
+
+def _fro(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+@pytest.mark.parametrize("image_shape,features,zdim", SUBPIXEL_CASES)
+def test_bf16_subpixel_decoder_matches_flax(image_shape, features, zdim):
+    """The bfloat16 subpixel decoder against flax's (its 'dilated' lowering,
+    which sums the taps into a 4×4 kernel in bf16) from the same flax init.
+    Logits: max abs err / max |flax| ≤ 2⁻⁸. Measured on the CPU at the three
+    decoder shapes: 2.21e-3 / 1.75e-4 / 0; the resize forward, which the port
+    ran for 'subpixel' before, 6.64e-3 / 8.38e-3 / 4.85e-3 (the merged
+    kernel's rounding is a different bf16 function). Parameter gradients of
+    sum(tanh(logits) · C): each tensor's distance to flax's bf16 gradient
+    over flax's own bf16-to-f32 distance (Frobenius), ≤ 0.9 for the kernels
+    (measured ≤ 0.77; the resize forward up to 1.08) and ≤ 1.25 for the
+    biases (measured ≤ 1.07: flax's bf16 bias gradients are 1.3e-2–1.1e-1
+    from its f32 ones, the port's 0.9e-3–1.8e-2)."""
+    _, fp, f32 = _decoders(image_shape, features, zdim, "subpixel")
+    td = ConvDecoder(zdim, image_shape, features, "subpixel", torch.bfloat16)
+    td.load_state_dict(f32.state_dict())
+    z = np.random.default_rng(1).standard_normal((3, zdim)).astype(np.float32)
+    C = np.random.default_rng(2).standard_normal((3, *image_shape)).astype(np.float32)
+    grads = {}
+    for dtype in ("bfloat16", "float32"):
+        fdt = FlaxDecoder(image_shape, features, getattr(jnp, dtype), "subpixel")
+
+        def jloss(p):
+            return jnp.sum(jnp.tanh(fdt.apply(p, jnp.asarray(z))) * C)
+
+        grads[dtype] = flax_to_state_dict({"encoder": {}, "decoder": jax.tree.map(
+            np.asarray, jax.grad(jloss)(fp)["params"])})
+    want = FlaxDecoder(image_shape, features, jnp.bfloat16, "subpixel").apply(fp, jnp.asarray(z))
+    y = td(torch.from_numpy(z))
+    torch.sum(torch.tanh(y) * torch.from_numpy(C)).backward()
+    assert y.dtype == torch.float32 and bool(torch.isfinite(y).all())
+    assert _rel(y.detach(), want) <= BF16_SUBPIXEL_REL_BOUND
+    for k, p in td.named_parameters():
+        jb, jf = grads["bfloat16"][f"decoder.{k}"], grads["float32"][f"decoder.{k}"]
+        bound = BF16_GRAD_BIAS_RATIO if k.endswith("bias") else BF16_GRAD_KERNEL_RATIO
+        assert p.grad.dtype == torch.float32
+        assert _fro(p.grad, jb) <= bound * _fro(jb, jf), k

@@ -7,8 +7,9 @@ function of gppvae_tpu_torch.parallel.dryrun per case (the ranks never
 import jax). The JAX side runs on conftest's virtual CPU devices, fed the
 same numpy inputs: the JAX trainer's own initial params and its draws
 (tests/test_torch_parallel.py's injection). Tolerances (float32):
-  (i)   a split conv and dense layer on 2 model ranks against the unsplit
-        layer, output and the gradients of x, the weight and the bias:
+  (i)   a split conv, subpixel upsampling conv and dense layer on 2 model
+        ranks against the unsplit layer, output and the gradients of x,
+        the weight and the bias:
         rtol 1e-6, atol 1e-6 · the largest magnitude (x's gradient is the
         model ranks' two partial sums added: a regrouped float32 sum, whose
         error near zero is relative to the largest term, not the element);
@@ -46,7 +47,7 @@ from gppvae_tpu.utils.metrics import NullLogger
 from gppvae_tpu_torch import parallel
 from gppvae_tpu_torch.convert import flax_to_state_dict
 from gppvae_tpu_torch.data import build_rotated_digits
-from gppvae_tpu_torch.models import VAE
+from gppvae_tpu_torch.models import VAE, vae
 from gppvae_tpu_torch.parallel import MeshGroup, dryrun, tensor
 from gppvae_tpu_torch.train import train_gppvae as tg
 from _one_thread import one_thread  # noqa: F401
@@ -122,16 +123,19 @@ def _close(ours, want, where):
                                        err_msg=f"{where}: {k}, epoch {a['epoch']}")
 
 
-@pytest.mark.parametrize("kind", ["conv", "dense"])
+@pytest.mark.parametrize("kind", ["conv", "upconv", "dense"])
 def test_column_parallel_layer_matches_unsplit(mesh_pool, kind):
     """(i) copy_to_model → the block's product → gather_columns → + bias on
     2 model ranks (each data row of the mesh runs it) against the unsplit
-    layer: output and gradients, the bias added after the gather."""
+    layer: output and gradients, the bias added after the gather. 'upconv'
+    is models/vae.py's `_upconv`: the taps of each rank's block of output
+    features merged into its 4×4 kernel."""
     rng = np.random.default_rng(5)
-    if kind == "conv":
+    if kind != "dense":
         w = rng.standard_normal((16, 8, 3, 3)).astype(np.float32) / 8
         x = rng.standard_normal((5, 8, 6, 6)).astype(np.float32)
-        dy = rng.standard_normal((5, 16, 6, 6)).astype(np.float32)
+        side = 12 if kind == "upconv" else 6
+        dy = rng.standard_normal((5, 16, side, side)).astype(np.float32)
     else:
         w = rng.standard_normal((12, 20)).astype(np.float32) / 4
         x = rng.standard_normal((7, 20)).astype(np.float32)
@@ -139,8 +143,14 @@ def test_column_parallel_layer_matches_unsplit(mesh_pool, kind):
     b = rng.standard_normal(w.shape[0]).astype(np.float32)
     wt, bt = torch.tensor(w, requires_grad=True), torch.tensor(b, requires_grad=True)
     xt = torch.tensor(x, requires_grad=True)
-    y = (torch.nn.functional.conv2d(xt, wt, bt, padding=1) if kind == "conv"
-         else torch.nn.functional.linear(xt, wt, bt))
+    if kind == "upconv":
+        layer = torch.nn.Conv2d(8, 16, 3, padding=1)
+        layer.weight, layer.bias = torch.nn.Parameter(wt), torch.nn.Parameter(bt)
+        y = vae._upconv(layer, xt, torch.float32)
+        wt, bt = layer.weight, layer.bias
+    else:
+        y = (torch.nn.functional.conv2d(xt, wt, bt, padding=1) if kind == "conv"
+             else torch.nn.functional.linear(xt, wt, bt))
     torch.sum(y * torch.tensor(dy)).backward()
     want = {"y": y, "dx": xt.grad, "dw": wt.grad, "db": bt.grad}
     ranks = mesh_pool().run(dryrun.column_parallel_rank, kind, w, b, x, dy)

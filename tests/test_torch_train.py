@@ -15,7 +15,10 @@ then ε from split(fold_in(epoch_key, 1), nb)). Tolerances (float32):
 The same trajectories with NO injection and NO converted weights (the
 port's own init and draws at the JAX trainer's seed, the JAX package's
 stream: utils/prng.py), 'joint' and 'dis', and train_vae's: every history
-key rtol 1e-4.
+key rtol 1e-4. The headline's bfloat16 + subpixel run, with and without a
+float32 polish epoch, from the seed alone: bounds in units of the JAX
+trainer's own bfloat16-to-float32 distance (test_bf16_headline_trajectory_
+matches_jax).
 The optimizer tests run in float64 and hold the port to optax at 1e-12.
 """
 
@@ -71,12 +74,25 @@ CASES = {
     "refresh_every_steps": dict(refresh_every_steps=2),
     "subpixel": dict(dec_upsample="subpixel"),
 }
+# the headline's compute dtype and decoder (bench_torch.py's gppvae_joint), and
+# the same with a float32 polish epoch, held to the JAX trainer by
+# test_bf16_headline_trajectory_matches_jax; CASES["subpixel"] is their
+# float32 run
+BF16_CASES = {
+    "bf16_subpixel": dict(compute_dtype="bfloat16", dec_upsample="subpixel", polish_epochs=0),
+    "bf16_subpixel_polish": dict(compute_dtype="bfloat16", dec_upsample="subpixel",
+                                 polish_epochs=1),
+}
+BF16_KEYS = ("loss", "gp_nll_full", "oos_mse")
+# a bfloat16 run of the port against the JAX trainer's, in units of the JAX
+# trainer's own bfloat16-to-float32 distance on the same case (see the test)
+BF16_HISTORY_FACTOR, BF16_PARAMS_FACTOR = 3.0, 1.0
 
 
 @functools.cache
 def _golden(case):
     ds = build_rotated_digits("synthetic", num_objects=10, num_views=8, seed=7)
-    jcfg = jtrain.GPPVAETrainConfig(**{**GOLDEN, **CASES[case]})
+    jcfg = jtrain.GPPVAETrainConfig(**{**GOLDEN, **(CASES | BF16_CASES)[case]})
     model, params, fixed_W, arrays, rng, num_train = jtrain._setup(ds, jcfg, None, None)
     init = {
         "vae": flax_to_state_dict(jax.tree.map(np.asarray, params["vae"])),
@@ -206,6 +222,60 @@ def test_two_epoch_trajectory_matches_jax_without_injection(mode):
     for ours, theirs in zip(res.history, _jax_run(mode).history):
         for k in train_gppvae._METRIC_KEYS:
             np.testing.assert_allclose(ours[k], theirs[k], rtol=1e-4, err_msg=k)
+
+
+def _flat_params(vae_state: dict, gp: dict) -> tuple[list, np.ndarray]:
+    """Every parameter of a run (the port's names): the names in order, and
+    the values in one float64 vector."""
+    named = sorted([*vae_state.items(), *(("gp." + k, v) for k, v in gp.items())])
+    return ([k for k, _ in named],
+            np.concatenate([np.asarray(t, np.float64).ravel() for _, t in named]))
+
+
+@pytest.mark.parametrize("case", list(BF16_CASES))
+def test_bf16_headline_trajectory_matches_jax(case):
+    """The headline's bfloat16 + subpixel training from config.seed alone
+    (flax's init, X₀, plans and ε from the JAX package's stream; nothing
+    injected), and the same crossing into float32 for its last epoch,
+    against the JAX trainer's 2-epoch run of the case.
+
+    bfloat16 rounds at other places in the two frameworks, so rtol 1e-4
+    cannot hold. The unit of the bounds is the JAX trainer's own distance
+    from its bfloat16 run to its float32 run of the same case
+    (CASES["subpixel"]; a float32 run does not polish). The largest
+    difference between the two trainers is not the decoder, whose forward
+    now rounds as flax's does, but the bias gradients: XLA's CPU backend
+    sums the bfloat16 cotangent of a broadcast bias with a bfloat16
+    accumulator (7.6 % from the float32 sum for a 3 × 32 × 32 × 64 one),
+    torch with a float32 one (0.13 %, the final rounding). So the port's run
+    is another bfloat16 rounding of the same run, and two roundings sit up to
+    √2 × as far apart as either from float32; a 2-epoch run draws that
+    distance once per metric, so each epoch's loss, gp_nll_full and oos_mse
+    is held within 3 × the JAX trainer's own distance at that epoch
+    (largest ratios measured on the CPU: 2.43, gp_nll_full at epoch 1 of
+    bf16_subpixel, and 2.02, oos_mse at epoch 0 of both), and the final
+    parameters, all in one vector, within 1 × (Frobenius; measured 0.79 and
+    0.056). The resize forward, which the port ran for 'subpixel' before,
+    measured 2.56 / 1.10 and 0.86 / 0.060."""
+    g = _golden(case)
+    cfg = train_gppvae.GPPVAETrainConfig(**{**GOLDEN, **BF16_CASES[case]})
+    res = train_gppvae.train_gppvae(g["ds"], cfg, device="cpu", log=_Quiet())
+    jb, jf = _jax_run(case), _jax_run("subpixel")
+    assert len(res.history) == len(jb.history) == len(jf.history) == 2
+    assert res.model.dtype == (torch.float32 if cfg.polish_epochs else torch.bfloat16)
+    for ours, theirs, f32 in zip(res.history, jb.history, jf.history):
+        for k in BF16_KEYS:
+            assert np.isfinite(ours[k])
+            assert abs(ours[k] - theirs[k]) <= BF16_HISTORY_FACTOR * abs(f32[k] - theirs[k]), (
+                f"epoch {ours['epoch']} {k}: port {ours[k]}, JAX bf16 {theirs[k]}, f32 {f32[k]}")
+    names, ours = _flat_params({k: v.numpy() for k, v in res.model.state_dict().items()},
+                               {k: v.detach().numpy() for k, v in res.gp_params.items()})
+    (jnames, theirs), (fnames, f32) = (_flat_params(
+        {k: v.numpy() for k, v in flax_to_state_dict(
+            jax.tree.map(np.asarray, r.params["vae"])).items()},
+        {k: np.asarray(v) for k, v in r.params["gp"].items()}) for r in (jb, jf))
+    assert names == jnames == fnames and ours.shape == theirs.shape == f32.shape
+    assert np.linalg.norm(ours - theirs) <= BF16_PARAMS_FACTOR * np.linalg.norm(f32 - theirs)
 
 
 def test_setup_draws_the_jax_trainers_init():
@@ -406,7 +476,9 @@ def test_package_imports_no_jax(tmp_path):
     sources = [*sorted((REPO / "gppvae_tpu_torch").rglob("*.py")), REPO / "chip_smoke.py",
                REPO / "validate_torch.py", REPO / "bench_torch.py",
                REPO / "tools" / "torch_observe_throughput.py",
-               REPO / "tools" / "torch_bench_diff.py", REPO / "tools" / "torch_stream_cost.py"]
+               REPO / "tools" / "torch_bench_diff.py", REPO / "tools" / "torch_stream_cost.py",
+               REPO / "tools" / "torch_headline_seeds.py",
+               REPO / "tools" / "torch_subpixel_lowering.py"]
     found = []
     for path in sources:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

@@ -1,7 +1,8 @@
 """Profile the port's sustained serving chain on the GPU.
 
     python tools/torch_profile_serving.py [--data synthetic|faces]
-        [--dtype float32|bfloat16] [--batch 200] [--chain 20]
+        [--dtype float32|bfloat16] [--dec_upsample resize|subpixel]
+        [--batch 200] [--chain 20]
 
 Folds a server state (eval/serving.build_server_state) from a freshly
 initialized model (weights from seed 0) at the width of chip_smoke.py's
@@ -36,6 +37,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from gppvae_tpu_torch.config import build_dataset_from_flag  # noqa: E402
 from gppvae_tpu_torch.eval import serving  # noqa: E402
+from gppvae_tpu_torch.models import UPSAMPLES  # noqa: E402
 from gppvae_tpu_torch.train import train_gppvae as tg  # noqa: E402
 from gppvae_tpu_torch.train.device import COMPUTE_DTYPES, set_float32_precision  # noqa: E402
 from torch_profile_epoch import kernel_seconds  # noqa: E402
@@ -45,6 +47,7 @@ def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--data", default="synthetic", choices=["synthetic", "faces"])
     p.add_argument("--dtype", default="float32", choices=list(COMPUTE_DTYPES))
+    p.add_argument("--dec_upsample", default="resize", choices=list(UPSAMPLES))
     p.add_argument("--batch", type=int, default=200)
     p.add_argument("--chain", type=int, default=20)
     p.add_argument("--out", default="out/torch_profile_serving.json")
@@ -56,10 +59,11 @@ def main() -> None:
     if args.data == "faces":
         ds = build_dataset_from_flag("faces", 50, 8, 0, image_size=128)
         cfg = tg.GPPVAETrainConfig(zdim=32, compute_dtype=args.dtype, object_kernel="rbf",
-                                   rff_features=32, extra_effects=("object",))
+                                   rff_features=32, extra_effects=("object",),
+                                   dec_upsample=args.dec_upsample)
     else:
         ds = build_dataset_from_flag("synthetic", 400, 16, 0)
-        cfg = tg.GPPVAETrainConfig(compute_dtype=args.dtype)
+        cfg = tg.GPPVAETrainConfig(compute_dtype=args.dtype, dec_upsample=args.dec_upsample)
     model, gp_params, fixed_W, data, _ = tg._setup(ds, cfg, device)
     x_map, _ = tg._object_kernel(cfg, gp_params["X"], {}, device)
     params = {"vae": model.state_dict(), "gp": {k: v.detach() for k, v in gp_params.items()}}
@@ -82,7 +86,8 @@ def main() -> None:
         return time.perf_counter() - t0
 
     print(f"device {torch.cuda.get_device_name(0)}; {args.data} {ds.image_shape}, "
-          f"R = {state.core.M.shape[0]}, {args.dtype}; {args.chain} batches of {args.batch}")
+          f"R = {state.core.M.shape[0]}, {args.dtype}, {args.dec_upsample} decoder; "
+          f"{args.chain} batches of {args.batch}")
     print(f"serve --sustained: {serving._sustained_throughput(call, d, q, P, Q, args.chain)}")
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
