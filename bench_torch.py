@@ -21,6 +21,11 @@ config other than the headline becomes `{"error": ...}` (`_Bench.safe`); a
 failing headline ends the run non-zero with no artifact. The last line is
 the artifact, under 2,000 characters (`last_line`).
 
+The kernels block's rows carry kernel_timing.timings' numbers: `ms`,
+`device_ms`, `host_ms` (ms − device_ms), `plain_ms`, `library_ms`,
+`bound_ms`, and for the NLL core `driver`, the nll_core driver its plan ran
+("cta", "cluster" or "grid").
+
 Each training and serving config records `kernel_launches`: each kernel's
 calls during the config, from the ops counters. On the card those are CUDA
 launches, and a plain version on a CUDA tensor fails the config; on the CPU,

@@ -10,12 +10,16 @@ Phases, one per printed line group; any failure ends the run non-zero:
      sm_90a, one nvcc per source, started together;
   3. kernel vs plain on the card: factor_prep at (N, R, L) = (5700,56,16),
      (5701,56,16), (6401,256,16), (256,2048,8), (332,232,32), (5700,560,16);
-     nll_core at R = 56, 232, 560, 600, 1024, 2048 (L 16, 32, 16, 16, 16, 8).
-     At each shape the
+     nll_core at R = 56, 232, 560, 600, 1024, 2048 (L 16, 32, 16, 16, 16, 8),
+     a ragged R in each driver's band (233, 561, 1000) and, at L = 16, R on
+     either side of and at each cut-over between its drivers that the plan
+     chose on this card (ops.nll_core.plan_nll_core): every driver launched
+     at least once, each shape's driver printed. At each shape the
      value and the gradients through the autograd.Function against autograd
      of the plain version, a bit-identical rerun, and five numbers: `ms`
      (CUDA events around the Python call, median of 50), `device_ms` (the
-     kernel's own device time per call, torch.profiler over 50 calls),
+     kernel's own device time per call, torch.profiler over 50 calls; and
+     `host_ms`, ms − device_ms),
      `plain_ms`, `library_ms` (one PyTorch call: torch.mm(Uᵀ, [U | Z]) for
      factor_prep, torch.linalg.cholesky_ex(I + G/vₙ) for nll_core) and
      `bound_ms` (the larger of FLOP over 67 TFLOP/s and bytes over
@@ -44,8 +48,9 @@ Phases, one per printed line group; any failure ends the run non-zero:
      float64, and both kernels on the trained inputs;
      (c) rbf-nystrom on the digits, 1 epoch;
      (d) the digits at R = 560 (rbf, 80 RFF features), past the TPU
-     kernel's 512, 1 joint epoch: one launch of each kernel and the final GP
-     NLL against CPU float64;
+     kernel's 512, 1 joint epoch: one launch of each kernel (nll_core by
+     the driver its plan picks, printed) and the final GP NLL against CPU
+     float64;
   6. serving, from the runs of 4, 5a and 5b (their directories are kept):
      `generate` (held-out MSE = the trainer's last oos_mse, float32 runs),
      `generate --export_server`, then `serve --state` through each main(argv):
@@ -170,8 +175,11 @@ from gppvae_tpu_torch.utils.kernel_timing import (
 # path 9; from R = 560 past the TPU kernel's 512
 SHAPES_FACTOR_PREP = [(5700, 56, 16), (5701, 56, 16), (6401, 256, 16), (256, 2048, 8),
                       (332, 232, 32), (5700, 560, 16), (2850, 56, 16)]
+# nll_core: then a ragged R in the cluster's band and past it; nll_core_shapes()
+# adds R at and beside each cut-over between the drivers
 SHAPES_NLL_CORE = [(5700, 56, 16), (332, 232, 32), (5700, 560, 16), (6400, 600, 16),
-                   (6400, 1024, 16), (6400, 2048, 8)]
+                   (6400, 1024, 16), (6400, 2048, 8), (6400, 233, 16), (6400, 561, 16),
+                   (6400, 1000, 16)]
 KERNEL_KEYS = ("max_abs_err", "ms", "device_ms", "device_ms_method", "plain_ms", "bound_ms",
                "bound_by", "library_ms")
 SLICE_NLL_REL_BOUND = 1e-4  # card (fp32, kernels) vs CPU float64, N = 5700
@@ -329,9 +337,11 @@ def phase_build() -> None:
 
 
 def say_timings(label: str, t: dict) -> None:
+    driver = f", driver {t['driver']}" if t["driver"] else ""
     say(f"  {label}: ms {t['ms']:.4f}, device_ms {t['device_ms']:.4f} ({t['device_ms_method']}), "
-        f"plain_ms {t['plain_ms']:.4f}, library_ms {t['library_ms']:.4f}, "
-        f"bound_ms {t['bound_ms']:.6f} ({t['bound_by']})")
+        f"host_ms {t['host_ms']:.4f}, plain_ms {t['plain_ms']:.4f}, "
+        f"library_ms {t['library_ms']:.4f}, bound_ms {t['bound_ms']:.6f} ({t['bound_by']})"
+        + driver)
 
 
 def check_factor_prep(gen, n: int, r: int, l: int) -> dict:
@@ -415,14 +425,35 @@ def check_nll_core(gen, n: int, r: int, l: int) -> dict:
     return {"shape": [n, r, l], "max_abs_err": verr, **t}
 
 
+def nll_core_shapes() -> list[tuple[int, int, int]]:
+    """SHAPES_NLL_CORE, then at L = 16 each R where the plan changes driver
+    on this card, with the R below and above it."""
+    from gppvae_tpu_torch.ops import _build
+    from gppvae_tpu_torch.ops.nll_core import plan_nll_core
+
+    props = _build.device_props(torch.cuda.current_device())
+    drivers = [plan_nll_core(r, 16, props).driver for r in range(1, 2049)]
+    cuts = [r for r in range(2, 2049) if drivers[r - 1] != drivers[r - 2]]
+    say(f"nll_core's drivers on this card at L = 16: {drivers[0]} from R = 1, " + ", ".join(
+        f"{drivers[r - 1]} from {r}" for r in cuts))
+    return SHAPES_NLL_CORE + [(6400, r + d, 16) for r in cuts for d in (-1, 0, 1)]
+
+
 def phase_kernels() -> dict:
+    from gppvae_tpu_torch import ops
+
     say("== 3 kernel vs plain, and the yardsticks (ms: CUDA events around the Python "
         "call, median of 50; device_ms: the kernel's own device time per call)")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    return {
+    ops.reset_launch_counts()
+    stats = {
         "factor_prep": [check_factor_prep(gen, *s) for s in SHAPES_FACTOR_PREP],
-        "woodbury_nll_core": [check_nll_core(gen, *s) for s in SHAPES_NLL_CORE],
+        "woodbury_nll_core": [check_nll_core(gen, *s) for s in nll_core_shapes()],
     }
+    drivers = ops.driver_counts()
+    say(f"3: nll_core launches per driver {drivers}")
+    check(all(drivers.values()), "3: each of nll_core's drivers launched at least once")
+    return stats
 
 
 def drive(label: str, fn):
@@ -710,6 +741,7 @@ def path_nystrom() -> dict:
 
 
 def path_large_rank() -> dict:
+    from gppvae_tpu_torch import ops
     from gppvae_tpu_torch.train import train_gppvae
 
     say("== 5d the digits at R = 560 (rbf, 80 RFF features × 7 view features), past the "
@@ -721,6 +753,13 @@ def path_large_rank() -> dict:
     report(result.history)
     check(counts["launch_factor_prep.launches"] == 1 and counts["launch_nll_core.launches"] == 1,
           "each kernel launched once")
+    from gppvae_tpu_torch.ops import _build
+    from gppvae_tpu_torch.ops.nll_core import plan_nll_core
+
+    drivers = ops.driver_counts()
+    planned = plan_nll_core(560, 16, _build.device_props(torch.cuda.current_device())).driver
+    say(f"5d R=560: nll_core trained by its {planned} driver (launches per driver {drivers})")
+    check(drivers[planned] == 1 == sum(drivers.values()), "5d: nll_core ran the planned driver")
     _, Vs, _, _ = final_nll_check(result, "5d R=560")
     check(Vs[0].shape[1] == 560, "R = 80·7 = 560")
     return counts
@@ -1515,7 +1554,8 @@ def main() -> None:
                         **{k: main_shape[k] for k in KERNEL_KEYS}})
     for name, rows in stats.items():
         say(f"{name} at every shape: " + json.dumps(
-            [{"shape": row["shape"], **{k: row[k] for k in KERNEL_KEYS}} for row in rows]))
+            [{"shape": row["shape"], **{k: row[k] for k in (*KERNEL_KEYS, "host_ms", "driver")}}
+             for row in rows]))
     say(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all, the build included")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

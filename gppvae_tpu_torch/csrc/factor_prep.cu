@@ -44,7 +44,6 @@
 
 #include <cuda_runtime.h>
 
-#include <algorithm>
 #include <cstddef>
 #include <cstdint>
 
@@ -55,10 +54,11 @@ constexpr int KS = 32;              // rows per pipeline stage
 constexpr int STAGES = 2;
 constexpr int MAX_EDGE = 64;        // output tile rows bound (16 threads × 4)
 constexpr int MAX_TN = 24;          // threads along a tile's columns
-constexpr int MIN_ROWS_PER_CHUNK = 160;
-constexpr int CTAS_PER_SM = 2;      // resident together: one's loads hide behind the other's FMAs
-constexpr int MAX_DEVICES = 64;
 
+// The launch's shape: made by the caller's plan (ops/factor_prep.py
+// plan_factor_prep, which also sizes the chunks: at most two CTAs per SM,
+// so that one's loads hide behind the other's FMAs, and at least 160 rows
+// per chunk).
 struct Plan {
   int tm, tn;                 // threads along the tile's rows and columns
   int row_tiles, col_tiles;   // the grid of 4·tm × 4·tn tiles over [G | UᵀZ]
@@ -80,46 +80,6 @@ __host__ __device__ inline void row_tile_span(const Plan& p, int R, int rt,
   *below = b < p.col_tiles ? b : p.col_tiles;
   const int f = R / (4 * p.tn);
   *from = f > *below ? f : *below;
-}
-
-int sm_count() {
-  static int cached[MAX_DEVICES];
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 1;
-  if (dev < MAX_DEVICES && cached[dev] > 0) return cached[dev];
-  int n = 1;
-  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) n = 1;
-  if (dev < MAX_DEVICES) cached[dev] = n;
-  return n;
-}
-
-Plan make_plan(int N, int R, int L, int sms, bool vec) {
-  Plan p;
-  const int C = R + L;
-  p.row_tiles = cdiv(R, MAX_EDGE);
-  p.tm = cdiv(cdiv(R, p.row_tiles), 4);
-  // at most 96 columns: the two stages stay within 40 KB of shared memory
-  // and one pass of the 256 threads covers a staged row's copies
-  const int tn_max = std::min(THREADS / p.tm, MAX_TN);
-  p.col_tiles = cdiv(C, 4 * tn_max);
-  p.tn = cdiv(cdiv(C, p.col_tiles), 4);
-  p.tiles = 0;
-  for (int rt = 0; rt < p.row_tiles; ++rt) {
-    int below, from;
-    row_tile_span(p, R, rt, &below, &from);
-    p.tiles += below + p.col_tiles - from;
-  }
-  int chunks = CTAS_PER_SM * sms / p.tiles;
-  if (chunks > cdiv(N, MIN_ROWS_PER_CHUNK)) chunks = cdiv(N, MIN_ROWS_PER_CHUNK);
-  if (chunks < 1) chunks = 1;
-  p.rows_per_chunk = cdiv(cdiv(N, chunks), KS) * KS;
-  p.chunks = cdiv(N, p.rows_per_chunk);
-  p.vec = vec;
-  return p;
-}
-
-size_t partial_floats(const Plan& p) {
-  return (size_t)p.tiles * p.chunks * (4 * p.tm) * (4 * p.tn);
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
@@ -375,31 +335,36 @@ bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 =
 
 extern "C" {
 
-// Floats of workspace and ticket counters gppvae_factor_prep needs for
-// these shapes on the current device (both 0 when N is not split). The
-// tickets start at 0 and the kernel leaves them at 0.
-size_t gppvae_factor_prep_workspace(int N, int R, int L) {
-  if (N < 1 || R < 1 || L < 1) return 0;
-  const Plan p = make_plan(N, R, L, sm_count(), false);
-  return p.chunks == 1 ? 0 : partial_floats(p) + p.chunks;
-}
-
-size_t gppvae_factor_prep_tickets(int N, int R, int L) {
-  if (N < 1 || R < 1 || L < 1) return 0;
-  const Plan p = make_plan(N, R, L, sm_count(), false);
-  return p.chunks == 1 ? 0 : p.tiles;
-}
-
-// G (R×R), UtZ (R×L) and zn (one float) from U (N×R) and Z (N×L); ws and
-// tickets as sized above. One launch on `stream`; allocates nothing, does
-// not synchronise; returns cudaGetLastError().
+// G (R×R), UtZ (R×L) and zn (one float) from U (N×R) and Z (N×L), by the
+// caller's plan (ops/factor_prep.py plan_factor_prep, the twin of make_plan:
+// tm, tn, row_tiles, col_tiles, tiles, chunks, rows_per_chunk, and vec for
+// 16-byte copies); with more than one chunk, ws holds the partial tiles and
+// ‖Z‖² partials (tiles·chunks·16·tm·tn + chunks floats) and tickets one
+// counter per tile, at 0 (the kernel leaves them at 0). The plan is checked,
+// not trusted: it must cover the shapes and match make_plan's tile count.
+// One launch on `stream`; allocates nothing, does not synchronise; returns
+// cudaGetLastError().
 int gppvae_factor_prep(const float* U, const float* Z, float* G, float* UtZ,
                        float* zn, float* ws, unsigned* tickets, int N, int R,
-                       int L, cudaStream_t stream) {
+                       int L, int tm, int tn, int row_tiles, int col_tiles,
+                       int tiles, int chunks, int rows_per_chunk, int vec,
+                       cudaStream_t stream) {
   if (N < 1 || R < 1 || L < 1) return (int)cudaErrorInvalidValue;
-  const bool vec = R % 4 == 0 && L % 4 == 0 && aligned16(U) && aligned16(Z);
-  const Plan p = make_plan(N, R, L, sm_count(), vec);
-  if (p.chunks > 1 && (ws == nullptr || tickets == nullptr)) {
+  Plan p{tm, tn, row_tiles, col_tiles, 0, chunks, rows_per_chunk, vec};
+  if (tm < 1 || 4 * tm > MAX_EDGE || tn < 1 || tn > MAX_TN || tm * tn > THREADS ||
+      row_tiles < 1 || col_tiles < 1 || 4 * tm * row_tiles < R ||
+      4 * tn * col_tiles < R + L || chunks < 1 || rows_per_chunk < KS ||
+      rows_per_chunk % KS != 0 || (long long)rows_per_chunk * chunks < N ||
+      (long long)rows_per_chunk * (chunks - 1) >= N) {
+    return (int)cudaErrorInvalidValue;
+  }
+  for (int rt = 0; rt < row_tiles; ++rt) {
+    int below, from;
+    row_tile_span(p, R, rt, &below, &from);
+    p.tiles += below + col_tiles - from;
+  }
+  if (p.tiles != tiles || (chunks > 1 && (ws == nullptr || tickets == nullptr)) ||
+      (vec && (R % 4 != 0 || L % 4 != 0 || !aligned16(U) || !aligned16(Z)))) {
     return (int)cudaErrorInvalidValue;
   }
   const size_t smem = (size_t)STAGES * KS * (4 * p.tm + 4 * p.tn) * sizeof(float);

@@ -11,9 +11,10 @@ for chip_smoke.py's kernel-vs-plain comparison; the main path never calls
 them on a CUDA tensor (`cuda_calls` counts it if something does). Each
 kernel wrapper counts its launches (`launches`), each plain version its
 calls on any device (`calls`, `plain_calls()`: what the CPU runs in place
-of a launch). `uncounted()` leaves every count as it was after a block that
-compares or times a kernel against its plain version, which is not the
-path's work.
+of a launch); nll_core's launches are also counted per driver
+(`driver_counts()`: "cta", "cluster", "grid"). `uncounted()` leaves every
+count as it was after a block that compares or times a kernel against its
+plain version, which is not the path's work.
 
 `gram`, `matmul_tn` and `sqnorm` have no kernel (gppvae_tpu/ops/
 pallas_gemm.py:239-241): the GP layer writes them as plain products.
@@ -46,9 +47,15 @@ def launch_counts() -> dict[str, int]:
     return {f"{fn.__name__}.{attr}": getattr(fn, attr) for fn, attr in _COUNTERS}
 
 
+def driver_counts() -> dict[str, int]:
+    """nll_core's launches per driver so far (their sum is its launches)."""
+    return dict(launch_nll_core.drivers)
+
+
 def reset_launch_counts() -> None:
     for fn, attr in _COUNTERS:
         setattr(fn, attr, 0)
+    launch_nll_core.drivers = dict.fromkeys(launch_nll_core.drivers, 0)
 
 
 def plain_calls() -> dict[str, int]:
@@ -61,15 +68,17 @@ def uncounted():
     """Every count (launch_counts, plain_calls) after the block as before it."""
     every = (*_COUNTERS, (factor_prep_torch, "calls"), (nll_core_torch, "calls"))
     saved = [(fn, attr, getattr(fn, attr)) for fn, attr in every]
+    drivers = dict(launch_nll_core.drivers)
     try:
         yield
     finally:
         for fn, attr, value in saved:
             setattr(fn, attr, value)
+        launch_nll_core.drivers = drivers
 
 
 __all__ = [
-    "factor_prep", "factor_prep_torch", "launch_counts",
+    "driver_counts", "factor_prep", "factor_prep_torch", "launch_counts",
     "launch_factor_prep", "launch_nll_core", "nll_core_torch", "plain_calls",
     "reset_launch_counts", "uncounted", "woodbury_nll_core", "woodbury_nll_core_torch",
 ]

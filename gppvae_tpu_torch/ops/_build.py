@@ -9,6 +9,11 @@ it. nvcc's output (including `-Xptxas -v`'s registers and shared memory per
 kernel) is kept beside it in `nvcc.log`.
 
 A failed build raises with nvcc's stderr: there is no fallback.
+
+`build(defines)` builds another copy with preprocessor defines (its own
+directory, `<hash>-<defines>`): tools/torch_nll_core_steps.py builds
+nll_core's step clock (`GPPVAE_STEP_CLOCK`) so; the package's own build
+never sets a define.
 """
 
 from __future__ import annotations
@@ -35,14 +40,11 @@ LIB_NAME = "libgppvae_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # name: (restype, argtypes)
-    "gppvae_factor_prep_workspace": (ctypes.c_size_t, [_I, _I, _I]),
-    "gppvae_factor_prep_tickets": (ctypes.c_size_t, [_I, _I, _I]),
-    "gppvae_factor_prep": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
-    "gppvae_nll_core_scratch": (ctypes.c_size_t, [_I, _I]),
-    "gppvae_nll_core": (
-        _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    ),
+    # name: (restype, argtypes); each launch is one call, its plan passed in
+    "gppvae_factor_prep": (_I, [*[_P] * 7, *[_I] * 11, _P]),
+    "gppvae_nll_core_props": (_I, [_P]),
+    "gppvae_nll_core_clusters": (_I, [_I, _I]),
+    "gppvae_nll_core": (_I, [*[_P] * 8, *[_I] * 7, _P]),
     "gppvae_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -79,11 +81,12 @@ def run_nvcc(cmd: list[str]) -> subprocess.CompletedProcess:
     return subprocess.run(cmd, capture_output=True, text=True, timeout=600)
 
 
-def compile_library(nvcc: str, lib: Path) -> tuple[bool, str]:
+def compile_library(nvcc: str, lib: Path, defines: tuple[str, ...] = ()) -> tuple[bool, str]:
     """Compile every source (one nvcc each, all started together) into
     objects beside `lib`, then link them into `lib`. Returns (ok, log)."""
     objs = [lib.parent / (Path(name).stem + ".o") for name in SOURCES]
-    cmds = [[nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(CSRC / name)]
+    flags = (*COMPILE_FLAGS, *(f"-D{d}" for d in defines))
+    cmds = [[nvcc, *flags, "-c", "-o", str(obj), str(CSRC / name)]
             for name, obj in zip(SOURCES, objs)]
     with ThreadPoolExecutor(len(cmds)) as pool:
         procs = list(pool.map(run_nvcc, cmds))
@@ -93,9 +96,13 @@ def compile_library(nvcc: str, lib: Path) -> tuple[bool, str]:
     return all(p.returncode == 0 for p in procs), log
 
 
-def build() -> Path:
+def build_dir(defines: tuple[str, ...] = ()) -> Path:
+    return BUILD_ROOT / "-".join((source_hash(), *defines))
+
+
+def build(defines: tuple[str, ...] = ()) -> Path:
     """Path of the built library, compiling it if this tree has not yet."""
-    out_dir = BUILD_ROOT / source_hash()
+    out_dir = build_dir(defines)
     lib = out_dir / LIB_NAME
     if lib.is_file():
         return lib
@@ -105,7 +112,7 @@ def build() -> Path:
     # or interrupted build never leaves a half-written one under the final name
     tmp = Path(tempfile.mkdtemp(dir=out_dir))
     try:
-        ok, log = compile_library(nvcc, tmp / LIB_NAME)
+        ok, log = compile_library(nvcc, tmp / LIB_NAME, defines)
         (out_dir / "nvcc.log").write_text(log)
         if not ok:
             raise KernelBuildError("nvcc failed:\n" + log)
@@ -116,14 +123,29 @@ def build() -> Path:
 
 
 @functools.cache
-def load() -> ctypes.CDLL:
-    """The kernel library, built on first call and loaded once per process."""
-    lib = ctypes.CDLL(str(build()))
+def load(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The kernel library, built on first call and loaded once per process
+    (per set of defines)."""
+    lib = ctypes.CDLL(str(build(defines)))
     for name, (restype, argtypes) in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.restype = restype
         fn.argtypes = argtypes
     return lib
+
+
+@functools.cache
+def device_props(index: int) -> dict:
+    """What the kernels' plans read of CUDA device `index`, once per device:
+    `sms`, `smem_optin` (bytes of shared memory a block may opt into),
+    `max_cluster` (the largest cluster of nll_core's cluster kernel at that
+    shared memory) and `grid_per_sm` (resident CTAs of its grid kernel)."""
+    import torch
+
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(index):
+        check(load().gppvae_nll_core_props(out), "device properties")
+    return dict(zip(("sms", "smem_optin", "max_cluster", "grid_per_sm"), out))
 
 
 def check(err: int, what: str) -> None:
@@ -135,5 +157,5 @@ def check(err: int, what: str) -> None:
 
 def nvcc_log() -> str:
     """nvcc's output for the current build ('' before the first build)."""
-    log = BUILD_ROOT / source_hash() / "nvcc.log"
+    log = build_dir() / "nvcc.log"
     return log.read_text() if log.is_file() else ""

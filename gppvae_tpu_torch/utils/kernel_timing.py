@@ -87,13 +87,21 @@ def bound(flop: float, nbytes: float) -> tuple[float, str]:
 
 
 def timings(kernel, plain, library, flop: float, nbytes: float) -> dict:
-    """The five numbers of one kernel at one shape; the event timings come
-    first, so that no profiler run of this shape precedes them."""
+    """The five numbers of one kernel at one shape, `host_ms` (ms −
+    device_ms: what the call costs beyond the device's work) and `driver`,
+    the nll_core driver that `kernel` ran (ops.driver_counts(); None where
+    it ran none). The event timings come first, so that no profiler run of
+    this shape precedes them."""
+    from gppvae_tpu_torch import ops
+
     b_ms, b_by = bound(flop, nbytes)
-    t = {"ms": time_ms(kernel), "plain_ms": time_ms(plain), "library_ms": time_ms(library)}
+    before = ops.driver_counts()
+    t = {"ms": time_ms(kernel)}
+    ran = [d for d, n in ops.driver_counts().items() if n > before[d]]
+    t.update(plain_ms=time_ms(plain), library_ms=time_ms(library))
     d_ms, method = device_ms(kernel)
-    return {**t, "device_ms": d_ms, "device_ms_method": method, "bound_ms": b_ms,
-            "bound_by": b_by}
+    return {**t, "device_ms": d_ms, "device_ms_method": method, "host_ms": t["ms"] - d_ms,
+            "driver": ",".join(ran) or None, "bound_ms": b_ms, "bound_by": b_by}
 
 
 def time_factor_prep(U: torch.Tensor, Z: torch.Tensor) -> dict:

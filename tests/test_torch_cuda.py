@@ -59,13 +59,24 @@ def test_factor_prep_kernel_matches_plain(gen, n, r, l, offset):
         assert _rel_err(g, w) <= 1e-5
 
 
+def _planned_driver(r, l):
+    """The driver ops.nll_core's plan picks for (R, L) on this card."""
+    from gppvae_tpu_torch.ops import _build
+    from gppvae_tpu_torch.ops.nll_core import plan_nll_core
+
+    return plan_nll_core(r, l, _build.device_props(torch.cuda.current_device())).driver
+
+
 @pytest.mark.parametrize("r,l", [
     (56, 16), (3, 1), (225, 16), (232, 32), (234, 16), (235, 16), (256, 16),
     (512, 8), (560, 16), (600, 16), (1024, 16), (2048, 8),
+    # each driver's band with a ragged R, and either side of the cut-overs
+    (127, 16), (128, 16), (129, 16), (233, 16), (479, 16), (480, 16), (481, 16),
+    (561, 16), (1000, 16), (1100, 16),
 ])
 def test_nll_core_kernel_matches_plain(gen, r, l):
-    """Both drivers of the kernel: one CTA up to R = 234, one cooperative
-    launch above."""
+    """Each of the kernel's three drivers (one CTA, a cluster, a cooperative
+    grid), as the plan picks them; the launch runs the planned one."""
     n = 6400
     U = torch.randn(n, r, device="cuda", generator=gen) / math.sqrt(r)
     Z = torch.randn(n, l, device="cuda", generator=gen)
@@ -78,10 +89,26 @@ def test_nll_core_kernel_matches_plain(gen, r, l):
     assert abs(k.item() - p.item()) <= 1e-5 * abs(p.item())
     for a, b in zip(torch.autograd.grad(k, ka), torch.autograd.grad(p, pa)):
         assert _rel_err(a, b) <= 1e-4
+    before = ops.driver_counts()
     first = ops.launch_nll_core(G, UtZ, zn, vn, n, l)
     again = ops.launch_nll_core(G, UtZ, zn, vn, n, l)
+    ran = {d: c - before[d] for d, c in ops.driver_counts().items() if c != before[d]}
+    assert ran == {_planned_driver(r, l): 2}
     assert all(torch.equal(a, b) for a, b in zip(first, again))
     assert torch.equal(first[1], torch.tril(first[1]))  # X = L_B⁻¹ is lower triangular
+
+
+def test_cluster_driver_reruns_bit_for_bit(gen):
+    """The cluster driver sums in a fixed order across its CTAs' shared
+    memory: five launches at a ragged R give the same bits."""
+    n, r, l = 6400, 233, 16
+    assert _planned_driver(r, l) == "cluster"
+    U = torch.randn(n, r, device="cuda", generator=gen) / math.sqrt(r)
+    Z = torch.randn(n, l, device="cuda", generator=gen)
+    G, UtZ, zn = ops.factor_prep_torch(U, Z)
+    vn = torch.tensor(0.4, device="cuda")
+    outs = [ops.launch_nll_core(G, UtZ, zn, vn, n, l) for _ in range(5)]
+    assert all(torch.equal(a, b) for out in outs[1:] for a, b in zip(outs[0], out))
 
 
 def test_nll_core_kernel_refuses_float64(gen):
@@ -179,8 +206,9 @@ def test_serving_on_card_matches_cpu_float64(gen):
     assert rate["sustained_images_per_sec"] > 0
 
 
-@pytest.mark.parametrize("r", [8, 600])  # each driver
-def test_non_positive_pivot_gives_nan(gen, r):
+@pytest.mark.parametrize("r,driver", [(8, "cta"), (300, "cluster"), (600, "grid")])
+def test_non_positive_pivot_gives_nan(gen, r, driver):
+    assert _planned_driver(r, 2) == driver
     G = -4.0 * torch.eye(r, device="cuda")  # B = I + G/vn has negative pivots
     nll, X, W = ops.launch_nll_core(G, torch.ones(r, 2, device="cuda"),
                                     torch.tensor(1.0, device="cuda"),

@@ -478,7 +478,9 @@ def test_package_imports_no_jax(tmp_path):
                REPO / "tools" / "torch_observe_throughput.py",
                REPO / "tools" / "torch_bench_diff.py", REPO / "tools" / "torch_stream_cost.py",
                REPO / "tools" / "torch_headline_seeds.py",
-               REPO / "tools" / "torch_subpixel_lowering.py"]
+               REPO / "tools" / "torch_subpixel_lowering.py",
+               REPO / "tools" / "torch_nll_core_steps.py",
+               REPO / "tools" / "torch_nll_core_drivers.py"]
     found = []
     for path in sources:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -488,7 +490,8 @@ def test_package_imports_no_jax(tmp_path):
                       if n.split(".")[0] in ("gppvae_tpu", "jax", "flax", "optax")]
     assert len(sources) > 35 and not found, found
     assert {"train_cvae.py", "plots.py", "cvae.py", "profiling.py", "kernel_timing.py",
-            "prng.py", "bench_torch.py", "torch_bench_diff.py"} <= {p.name for p in sources}
+            "prng.py", "bench_torch.py", "torch_bench_diff.py", "torch_nll_core_steps.py",
+            "nll_core.py"} <= {p.name for p in sources}
 
 
 def test_guarded_adam_matches_optax_spike_guard():
