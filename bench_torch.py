@@ -213,7 +213,8 @@ def factor_prep_row(gen: torch.Generator, n: int, r: int, l: int) -> dict:
     (kernel_timing.time_factor_prep)."""
     U = torch.randn(n, r, device="cuda", generator=gen) / math.sqrt(r)
     Z = torch.randn(n, l, device="cuda", generator=gen)
-    err, rel = kt.max_err(ops.launch_factor_prep(U, Z), ops.factor_prep_torch(U, Z))
+    got, want = ops.launch_factor_prep(U, Z), ops.factor_prep_torch(U, Z)
+    err, rel = kt.max_err(got, want)[0], kt.max_rel_err(got, want)  # each output on its own
     if not rel <= kt.FACTOR_PREP_REL_BOUND:
         raise RuntimeError(f"factor_prep {n, r, l}: rel err {rel:.3e} > "
                            f"{kt.FACTOR_PREP_REL_BOUND:.0e} against the plain version")

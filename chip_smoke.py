@@ -8,23 +8,32 @@ Phases, one per printed line group; any failure ends the run non-zero:
      the TF32 flags. Raises without CUDA;
   2. build: both CUDA kernels from gppvae_tpu_torch/csrc with nvcc for
      sm_90a, one nvcc per source, started together;
-  3. kernel vs plain on the card: factor_prep at (N, R, L) = (5700,56,16),
-     (5701,56,16), (6401,256,16), (256,2048,8), (332,232,32), (5700,560,16);
+  3. kernel vs plain on the card: the factor_prep kernels' registers and
+     spills (nvcc.log) and their tensor-core products (HMMA…TF32 in
+     cuobjdump -sass: above 0, no spills); factor_prep at (N, R, L) =
+     (5700,56,16), (5701,56,16), (6401,256,16), (256,2048,8), (332,232,32),
+     (5700,560,16), (2850,56,16), the bench's (262144,256,16), a ragged R
+     across the tensor-core tiles (57, 130), L = 1 and N shorter than one
+     stage (20);
      nll_core at R = 56, 232, 560, 600, 1024, 2048 (L 16, 32, 16, 16, 16, 8),
      a ragged R in each driver's band (233, 561, 1000) and, at L = 16, R on
      either side of and at each cut-over between its drivers that the plan
      chose on this card (ops.nll_core.plan_nll_core): every driver launched
      at least once, each shape's driver printed. At each shape the
      value and the gradients through the autograd.Function against autograd
-     of the plain version, a bit-identical rerun, and five numbers: `ms`
-     (CUDA events around the Python call, median of 50), `device_ms` (the
-     kernel's own device time per call, torch.profiler over 50 calls; and
-     `host_ms`, ms − device_ms),
+     of the plain version (factor_prep: G, UᵀZ, ‖Z‖², dU and dZ each
+     against its own max |plain|), a bit-identical rerun (and G exactly
+     symmetric), and five numbers: `ms` (CUDA events around the Python
+     call, median of 50), `device_ms` (the call's device time: CUDA events
+     around 50 calls queued behind torch.cuda._sleep, so the host's enqueue
+     is hidden; where that reading is above `ms`, torch.profiler's kernel
+     time instead; and `host_ms`, ms − device_ms),
      `plain_ms`, `library_ms` (one PyTorch call: torch.mm(Uᵀ, [U | Z]) for
      factor_prep, torch.linalg.cholesky_ex(I + G/vₙ) for nll_core) and
-     `bound_ms` (the larger of FLOP over 67 TFLOP/s and bytes over
-     3.35 TB/s, counting what the function needs: G's lower triangle, as G
-     is symmetric);
+     `bound_ms` (the larger of FLOP over 165 TFLOP/s, float32-accurate
+     products on the tensor cores in split TF32, a third of the TF32 peak,
+     and bytes over 3.35 TB/s, counting what the function needs: G's lower
+     triangle, as G is symmetric);
   4. the slice at the full width of BASELINE's GPPVAE-joint: synthetic
      rotated digits (P = 400, Q = 16, 32×32×1), train_vae for 1 epoch, then
      train_gppvae --mode joint for 3 epochs from its vae_weights, both
@@ -166,15 +175,19 @@ from gppvae_tpu_torch.utils.kernel_timing import (
     NLL_GRAD_REL_BOUND,
     NLL_VALUE_REL_BOUND,
     max_err,
+    max_rel_err,
     time_factor_prep,
     timings,
 )
 
 # (N, R, L); the first of each is the main path's (phase 4), (332, 232, 32)
 # path (b)'s, (5700, 560, 16) path (d)'s, (2850, 56, 16) one rank's shard in
-# path 9; from R = 560 past the TPU kernel's 512
+# path 9; from R = 560 past the TPU kernel's 512. factor_prep then: the
+# bench's N 262,144 at R 256, R across the tensor-core tiles (57 and 130,
+# also the 4-byte copies), L = 1, and N shorter than one 32-row stage
 SHAPES_FACTOR_PREP = [(5700, 56, 16), (5701, 56, 16), (6401, 256, 16), (256, 2048, 8),
-                      (332, 232, 32), (5700, 560, 16), (2850, 56, 16)]
+                      (332, 232, 32), (5700, 560, 16), (2850, 56, 16), (262144, 256, 16),
+                      (5700, 57, 16), (5700, 130, 16), (5700, 56, 1), (20, 56, 16)]
 # nll_core: then a ragged R in the cluster's band and past it; nll_core_shapes()
 # adds R at and beside each cut-over between the drivers
 SHAPES_NLL_CORE = [(5700, 56, 16), (332, 232, 32), (5700, 560, 16), (6400, 600, 16),
@@ -338,8 +351,10 @@ def phase_build() -> None:
 
 def say_timings(label: str, t: dict) -> None:
     driver = f", driver {t['driver']}" if t["driver"] else ""
-    say(f"  {label}: ms {t['ms']:.4f}, device_ms {t['device_ms']:.4f} ({t['device_ms_method']}), "
-        f"host_ms {t['host_ms']:.4f}, plain_ms {t['plain_ms']:.4f}, "
+    dev, host = ("not resolved",) * 2 if t["device_ms"] is None else (
+        f"{t['device_ms']:.4f}", f"{t['host_ms']:.4f}")
+    say(f"  {label}: ms {t['ms']:.4f}, device_ms {dev} ({t['device_ms_method']}), "
+        f"host_ms {host}, plain_ms {t['plain_ms']:.4f}, "
         f"library_ms {t['library_ms']:.4f}, bound_ms {t['bound_ms']:.6f} ({t['bound_by']})"
         + driver)
 
@@ -355,8 +370,10 @@ def check_factor_prep(gen, n: int, r: int, l: int) -> dict:
     want = ops.factor_prep_torch(U, Z)
     again = ops.launch_factor_prep(U, Z)
     torch.cuda.synchronize()
-    err, rel = max_err(got, want)
+    err = max_err(got, want)[0]
+    rel = max_rel_err(got, want)  # each output against its own scale
     same = all(torch.equal(a, b) for a, b in zip(got, again))
+    symmetric = torch.equal(got[0], got[0].T)
     A = torch.randn(r, r, device="cuda", generator=gen)
     B = torch.randn(r, l, device="cuda", generator=gen)
 
@@ -369,14 +386,15 @@ def check_factor_prep(gen, n: int, r: int, l: int) -> dict:
     U2, Z2 = U.clone().requires_grad_(), Z.clone().requires_grad_()
     g_p = torch.autograd.grad(loss(ops.factor_prep_torch, U2, Z2), (U2, Z2))
     torch.cuda.synchronize()
-    gerr, grel = max_err(g_k, g_p)
+    grel = max_rel_err(g_k, g_p)
     say(f"factor_prep N={n} R={r} L={l}: max abs err {err:.3e}, rel {rel:.3e}; grads rel "
         f"{grel:.3e} (bound {FACTOR_PREP_REL_BOUND:.0e}); zn shape {tuple(got[2].shape)}; "
-        f"bit-identical rerun {same}")
+        f"bit-identical rerun {same}; G symmetric {symmetric}")
     check(rel <= FACTOR_PREP_REL_BOUND, f"factor_prep {n, r, l} error")
     check(grel <= FACTOR_PREP_REL_BOUND, f"factor_prep {n, r, l} gradients")
     check(got[2].dim() == 0, "factor_prep zn is 0-d")
     check(same, f"factor_prep {n, r, l} is deterministic")
+    check(symmetric, f"factor_prep {n, r, l}: G exactly symmetric")
     t = time_factor_prep(U, Z)
     say_timings(f"factor_prep N={n} R={r} L={l}", t)
     return {"shape": [n, r, l], "max_abs_err": err, **t}
@@ -439,11 +457,43 @@ def nll_core_shapes() -> list[tuple[int, int, int]]:
     return SHAPES_NLL_CORE + [(6400, r + d, 16) for r in cuts for d in (-1, 0, 1)]
 
 
+def factor_prep_build() -> None:
+    """The factor_prep kernels' registers and spills (nvcc's -Xptxas -v)
+    and their tensor-core products in the built library (cuobjdump -sass):
+    HMMA…TF32 instructions above 0, no spills."""
+    from gppvae_tpu_torch.ops import _build
+
+    entry = None
+    for line in _build.nvcc_log().splitlines():
+        if "Compiling entry" in line:
+            entry = line if "factor_prep_kernel" in line else None
+        elif entry and ("spill" in line or "registers" in line):
+            bt = re.search(r"kernelILi(\d+)", entry)[1]
+            say(f"  factor_prep build, tile edge {bt}: {line.strip()}")
+            if "spill" in line:
+                check(" 0 bytes spill stores, 0 bytes spill loads" in line,
+                      "3: the factor_prep kernels do not spill")
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build.build())], capture_output=True, text=True,
+                          timeout=300).stdout
+    hmma, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif fn and "factor_prep_kernel" in fn and "HMMA" in line and "TF32" in line:
+            hmma[fn] = hmma.get(fn, 0) + 1
+    say(f"  factor_prep SASS: HMMA…TF32 per kernel {sorted(hmma.values())}")
+    check(len(hmma) == 3 and all(hmma.values()),
+          "3: every factor_prep kernel runs its products on the tensor cores")
+
+
 def phase_kernels() -> dict:
     from gppvae_tpu_torch import ops
 
     say("== 3 kernel vs plain, and the yardsticks (ms: CUDA events around the Python "
-        "call, median of 50; device_ms: the kernel's own device time per call)")
+        "call, median of 50; device_ms: the call's device time, its launches queued "
+        "behind a sleep)")
+    factor_prep_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
     ops.reset_launch_counts()
     stats = {
@@ -711,7 +761,7 @@ def path_faces(tmp: str) -> tuple[dict, dict]:
     # both kernels on this path's trained inputs, against their plain versions
     U = torch.cat([torch.sqrt(s) * v for s, v in zip(v_sigs, Vs)], dim=1).contiguous()
     got, want = ops.launch_factor_prep(U, Z), ops.factor_prep_torch(U, Z)
-    err, rel = max_err(got, want)
+    rel = max_rel_err(got, want)
     check(rel <= FACTOR_PREP_REL_BOUND, "factor_prep at R = 232")
     G, UtZ, zn = want
     n, L = Z.shape

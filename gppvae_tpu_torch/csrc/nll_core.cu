@@ -84,6 +84,8 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
 
 namespace cg = cooperative_groups;
@@ -141,24 +143,7 @@ __device__ __forceinline__ void step_clock(int, int) {}
 
 // ---- split-TF32 tensor-core products of 32×32 tiles, one warp
 
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+// tf32, split and mma_tf32: hopper.cuh
 
 // A lane's rows of a 32-row tile: rows g + 8i (g = lane / 4), i = 0 … 3,
 // as pointers to the tile's column 0 (nullptr: a row of zeros).
@@ -577,30 +562,8 @@ __device__ __forceinline__ float assemble(float lsum, float wsq, float zn, float
   return 0.5f * (l_dims * (n_rows * logf(vn) + 2.f * lsum) + quad + n_rows * l_dims * LOG2PI);
 }
 
-// ---- the bulk asynchronous copy and its mbarrier
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT_%=:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT_%=;\n"
-      "}\n" ::"r"(smem_addr(bar)), "r"(parity)
-      : "memory");
-}
+// smem_addr, bulk_load and mbar_wait (the bulk asynchronous copy and its
+// mbarrier): hopper.cuh
 
 // Shared-memory layout of the cta and cluster drivers, in floats: M (mfl,
 // the most any CTA holds), W and Pb (32 rows per block, wbl blocks: the most

@@ -3,7 +3,8 @@
 `nvcc` compiles every `csrc/*.cu` of this package for `sm_90a`, one process
 per source, all started together, and links the objects into one shared
 library with a plain C interface. The library lands in
-`gppvae_tpu_torch/_build/<hash of the sources and flags>/` (listed in
+`gppvae_tpu_torch/_build/<hash of the sources, the headers they include
+and the flags>/` (listed in
 .gitignore), so an edit to a kernel rebuilds it and an unchanged tree reuses
 it. nvcc's output (including `-Xptxas -v`'s registers and shared memory per
 kernel) is kept beside it in `nvcc.log`.
@@ -11,9 +12,9 @@ kernel) is kept beside it in `nvcc.log`.
 A failed build raises with nvcc's stderr: there is no fallback.
 
 `build(defines)` builds another copy with preprocessor defines (its own
-directory, `<hash>-<defines>`): tools/torch_nll_core_steps.py builds
-nll_core's step clock (`GPPVAE_STEP_CLOCK`) so; the package's own build
-never sets a define.
+directory, `<hash>-<defines>`): tools/torch_nll_core_steps.py and
+tools/torch_factor_prep_steps.py build the kernels' step clocks
+(`GPPVAE_STEP_CLOCK`) so; the package's own build never sets a define.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("factor_prep.cu", "nll_core.cu")
+HEADERS = ("hopper.cuh",)  # included by the sources: part of the hash
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = (*ARCH_FLAGS, "-shared")
@@ -41,7 +43,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # name: (restype, argtypes); each launch is one call, its plan passed in
-    "gppvae_factor_prep": (_I, [*[_P] * 7, *[_I] * 11, _P]),
+    "gppvae_factor_prep": (_I, [*[_P] * 7, *[_I] * 12, _P]),
+    "gppvae_factor_prep_capacity": (_I, [_I, _I, _I]),
     "gppvae_nll_core_props": (_I, [_P]),
     "gppvae_nll_core_clusters": (_I, [_I, _I]),
     "gppvae_nll_core": (_I, [*[_P] * 8, *[_I] * 7, _P]),
@@ -70,7 +73,7 @@ def find_nvcc() -> str:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join((*COMPILE_FLAGS, *LINK_FLAGS)).encode())
-    for name in SOURCES:
+    for name in (*SOURCES, *HEADERS):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

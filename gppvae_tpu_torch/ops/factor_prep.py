@@ -2,15 +2,18 @@
 
 Counterpart of gppvae_tpu/ops/pallas_gemm.py (`factor_prep_pallas`, whose
 Pallas kernel `_factor_prep_pallas` this module's CUDA kernel replaces). The
-kernel is `csrc/factor_prep.cu`: one launch, row chunks streamed through a
-cp.async ring in fp32 FMA, the chunks' partials summed in a fixed order by
-the last CTA of each tile (see the note at the top of that file for what
-bounds it on the H100 and why it is built that way). The library is loaded
-and its ctypes signatures set once per process (`_build.load`). The launch's
-shape is planned here, by `plan_factor_prep` from the device's SM count
-(read once per device, `_build.device_props`), and cached per (device,
-shape); a launch is one ctypes call that takes the plan's integers. The
-workspace and the ticket counters are cached per device and stream.
+kernel is `csrc/factor_prep.cu`: one launch; a producer warp streams each
+CTA's rows of U and Z into a ring of tensor-map copies, eight warps take the
+products on the tensor cores in split TF32, and the chunks of N are summed
+in a fixed order, in thread-block clusters over distributed shared memory
+and then by ticket (see the note at the top of that file for what bounds it
+on the H100 and why it is built that way). The library is
+loaded and its ctypes signatures set once per process (`_build.load`). The
+launch's shape is planned here, by `plan_factor_prep` from the shape, the
+pointers' alignment and how many CTAs the device holds (read once per
+device, `_capacity`), and cached per (device, shape, alignment);
+a launch is one ctypes call that takes the plan's integers. The workspace
+and the ticket counters are cached per device and stream.
 
 Which version runs is decided by the tensor's device alone: a CPU tensor
 takes the plain PyTorch version, a CUDA float32 tensor launches the kernel,
@@ -47,70 +50,161 @@ def factor_prep_torch(U: torch.Tensor, Z: torch.Tensor):
 factor_prep_torch.calls = factor_prep_torch.cuda_calls = 0
 
 
-# csrc/factor_prep.cu's tiling: 256 threads of 4×4 outputs, rows staged 32 at
-# a time; tiles of at most 64 rows and 96 columns; N cut into chunks of at
-# least 160 rows, at most two CTAs per SM
-THREADS, KS, MAX_EDGE, MAX_TN = 256, 32, 64, 24
-MIN_ROWS_PER_CHUNK, CTAS_PER_SM = 160, 2
+# csrc/factor_prep.cu's shape: eight consumer warps of 32×32 blocks (two
+# each) and one producer warp, stages of 32 rows; tiles of BT = 32, 64 or 128
+# rows of G, the diagonal tile taking Z's first zw columns beside G's lower
+# blocks (zw ≤ 32, or 64 at BT 64, so that its blocks fit the warps)
+KS = 32
+TILE_EDGES = (32, 64, 128)
+STAGES = {32: 8, 64: 6, 128: 5}
+CLUSTERS = (8, 4, 2, 1)
+# how the producer warp copies rows (the C enum Copy): where rows are 16-byte
+# aligned, boxes of a 2-D tensor map ("tma"; a stage cut by a chunk's end
+# takes one bulk copy per row), else 4-byte cp.asyncs
+COPIES = {"cp4": 0, "tma": 1}
+# N's chunks: at most one per stage of rows. The plan takes the chunks and
+# the cluster size that its cost model gives the least time, among those
+# that run in one wave: a CTA's stages of 32 rows (µs each, per tile edge),
+# its share of the final values to store (µs per float), and with more than
+# one cluster per tile the second pass (workspace, fence, ticket) and the
+# last CTA's sum (µs per float read). The constants are device times of the
+# kernel's steps on an H100 80GB HBM3 (tools/torch_factor_prep_steps.py).
+MIN_ROWS_PER_CHUNK = KS
+STAGE_US = {32: 1.1, 64: 1.6, 128: 2.9}
+STORE_US_PER_FLOAT = 1e-3
+SECOND_PASS_US = 3.0
+SUM_US_PER_FLOAT = 5.7e-5
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def tile_edge(R: int) -> int:
+    """BT: the smallest tile edge that holds R, up to 128."""
+    return next((bt for bt in TILE_EDGES if R <= bt), TILE_EDGES[-1])
+
+
+def z_most(bt: int) -> int:
+    """The most Z columns of a diagonal tile (csrc zmax)."""
+    return 64 if bt == 64 else 32
+
+
+def partial_floats(bt: int, zw: int) -> int:
+    """Floats of one partial tile: BT × (BT + zw, Z padded to 8) and ‖Z‖²,
+    padded to 16 bytes (csrc partial_floats)."""
+    return (bt * (bt + (zw + 7) // 8 * 8) + 1 + 3) // 4 * 4
+
+
+def smem_bytes(bt: int, stages: int) -> int:
+    """Dynamic shared memory of the BT kernel: the ring of `stages` stages of
+    A and B rows (BT + 8 floats each), which the partial tile and the final
+    values reuse, and 128 bytes to align it."""
+    return 4 * (max(stages * 2 * KS * (bt + 8), 2 * partial_floats(bt, z_most(bt))) + 32)
+
+
 @dataclass(frozen=True)
 class FactorPrepPlan:
-    """The launch's shape: threads along a tile's rows and columns (tm, tn),
-    the grid of 4·tm × 4·tn tiles over [G | UᵀZ], those computed (the tiles
-    wholly above G's diagonal are mirrored, not computed), and N's chunks."""
-    tm: int
-    tn: int
+    """The launch's shape: the tile edge bt, Z's columns per Z tile (zw) and
+    the tiles (row_tiles·(row_tiles−1)/2 left of G's diagonal, row_tiles
+    diagonal ones, the rest of Z's columns), N's chunks in clusters of
+    `cluster` CTAs, the ring's stages, how rows are copied (COPIES), and
+    the dynamic shared memory."""
+    bt: int
+    zw: int
     row_tiles: int
-    col_tiles: int
+    z_tiles: int
     tiles: int
+    cluster: int
     chunks: int
     rows_per_chunk: int
+    stages: int
+    copy: str
+    smem: int
+
+    @property
+    def ctas(self) -> int:
+        return self.tiles * self.chunks
 
     @property
     def workspace(self) -> int:
-        """Floats of partial tiles and ‖Z‖² partials (0 when N is not split)."""
-        return 0 if self.chunks == 1 else (
-            self.tiles * self.chunks * 16 * self.tm * self.tn + self.chunks)
+        """Floats of the clusters' partial tiles (0 with one cluster per tile)."""
+        clusters = self.chunks // self.cluster
+        return 0 if clusters == 1 else self.tiles * clusters * partial_floats(self.bt, self.zw)
 
     @property
     def tickets(self) -> int:
-        """Ticket counters, one per computed tile (0 when N is not split)."""
-        return 0 if self.chunks == 1 else self.tiles
+        """Ticket counters, one per tile and cluster rank (0 with one cluster
+        per tile)."""
+        return 0 if self.chunks == self.cluster else self.tiles * self.cluster
 
 
-def _row_tile_span(tm: int, tn: int, col_tiles: int, R: int, rt: int) -> tuple[int, int]:
-    below = min(_cdiv((rt + 1) * 4 * tm, 4 * tn), col_tiles)
-    return below, max(R // (4 * tn), below)
+def _tiles(R: int, L: int, bt: int) -> tuple[int, int, int]:
+    """(row tiles, Z tiles, tiles) at tile edge bt."""
+    row_tiles, z_tiles = _cdiv(R, bt), _cdiv(L, min(L, z_most(bt)))
+    return row_tiles, z_tiles, row_tiles * (row_tiles - 1) // 2 + row_tiles * z_tiles
 
 
-def plan_factor_prep(N: int, R: int, L: int, props: dict) -> FactorPrepPlan:
-    """The kernel's launch shape for U (N, R), Z (N, L) on a device with
-    props["sms"] SMs (the kernel checks it against its own tiling)."""
-    row_tiles = _cdiv(R, MAX_EDGE)
-    tm = _cdiv(_cdiv(R, row_tiles), 4)
-    # at most 96 columns: the two stages stay within 40 KB of shared memory
-    # and one pass of the 256 threads covers a staged row's copies
-    tn_max = min(THREADS // tm, MAX_TN)
-    col_tiles = _cdiv(R + L, 4 * tn_max)
-    tn = _cdiv(_cdiv(R + L, col_tiles), 4)
-    tiles = 0
-    for rt in range(row_tiles):
-        below, start = _row_tile_span(tm, tn, col_tiles, R, rt)
-        tiles += below + col_tiles - start
-    chunks = max(1, min(CTAS_PER_SM * props["sms"] // tiles, _cdiv(N, MIN_ROWS_PER_CHUNK)))
-    rows_per_chunk = _cdiv(_cdiv(N, chunks), KS) * KS
-    return FactorPrepPlan(tm, tn, row_tiles, col_tiles, tiles, _cdiv(N, rows_per_chunk),
-                          rows_per_chunk)
+def plan_factor_prep(N: int, R: int, L: int, capacity: dict,
+                     aligned: bool = True) -> FactorPrepPlan:
+    """The kernel's launch shape for U (N, R), Z (N, L) on a device that
+    holds capacity[bt][cluster] CTAs of the BT kernel in clusters of that
+    size at once (`_capacity`; the kernel checks the plan against its own
+    tiling). `aligned`: both pointers are 16-byte aligned. N's chunks and
+    the cluster size: the least estimate_us among the plans that run in one
+    wave (one chunk per tile where the tiles alone fill more)."""
+    bt = tile_edge(R)
+    zw = min(L, z_most(bt))
+    tiles = _tiles(R, L, bt)[2]
+    most = _cdiv(N, MIN_ROWS_PER_CHUNK)
+    options = [(estimate_us(N, bt, zw, c, n), -c, n) for c in CLUSTERS
+               for n in range(c, min(capacity[bt][c] // tiles, most) + 1, c)]
+    _, c, n = min(options) if options else (0.0, -1, 1)
+    return make_plan(N, R, L, bt, -c, n, aligned)
+
+
+def make_plan(N: int, R: int, L: int, bt: int, cluster: int, chunks: int,
+              aligned: bool = True) -> FactorPrepPlan:
+    """The plan of tile edge `bt` with N in `chunks` chunks, in clusters of
+    `cluster` CTAs: plan_factor_prep's choice, or one that a tool times."""
+    if bt not in TILE_EDGES:
+        raise ValueError(f"no factor_prep tile edge {bt}; have {TILE_EDGES}")
+    if cluster not in CLUSTERS or chunks % cluster:
+        raise ValueError(f"{chunks} chunks cannot run in clusters of {cluster}")
+    copy = "tma" if aligned and R % 4 == 0 and L % 4 == 0 else "cp4"
+    return FactorPrepPlan(bt, min(L, z_most(bt)), *_tiles(R, L, bt), cluster, chunks,
+                          _cdiv(N, chunks), STAGES[bt], copy, smem_bytes(bt, STAGES[bt]))
+
+
+def estimate_us(N: int, bt: int, zw: int, cluster: int, chunks: int) -> float:
+    """The plan's cost model (see STAGE_US): µs of the longest CTA's stages,
+    its store, and the second pass where chunks > cluster."""
+    k = chunks // cluster
+    share = partial_floats(bt, zw) / cluster
+    est = _cdiv(_cdiv(N, chunks), KS) * STAGE_US[bt] + share * STORE_US_PER_FLOAT
+    return est + (SECOND_PASS_US + k * share * SUM_US_PER_FLOAT if k > 1 else 0.0)
+
+
+def capacity(lib, bt: int, cluster: int) -> int:
+    """CTAs of the BT kernel in clusters of `cluster` that the current
+    device holds at once (the C query)."""
+    n = lib.gppvae_factor_prep_capacity(bt, smem_bytes(bt, STAGES[bt]), cluster)
+    _build.check(-n if n < 0 else 0, "factor_prep capacity")
+    return n
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(index: int, N: int, R: int, L: int) -> FactorPrepPlan:
-    return plan_factor_prep(N, R, L, _build.device_props(index))
+def _capacity(index: int) -> dict:
+    """capacity() of CUDA device `index` for every tile edge and cluster
+    size, read once per device."""
+    lib = _build.load()
+    with torch.cuda.device(index):
+        return {bt: {c: capacity(lib, bt, c) for c in CLUSTERS} for bt in TILE_EDGES}
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(index: int, N: int, R: int, L: int, aligned: bool = True) -> FactorPrepPlan:
+    return plan_factor_prep(N, R, L, _capacity(index), aligned)
 
 
 def _on(dev: torch.device):
@@ -143,14 +237,16 @@ def _outputs(dev: torch.device, R: int, L: int):
             torch.empty((), device=dev, dtype=torch.float32))
 
 
+def _aligned(U: torch.Tensor, Z: torch.Tensor) -> bool:
+    return U.data_ptr() % 16 == 0 and Z.data_ptr() % 16 == 0
+
+
 def _launch(lib, p: FactorPrepPlan, U, Z, G, UtZ, zn, ws, tickets, stream: int) -> int:
     (N, R), L = U.shape, Z.shape[1]
-    u, z = U.data_ptr(), Z.data_ptr()
-    vec = R % 4 == 0 and L % 4 == 0 and u % 16 == 0 and z % 16 == 0
     return lib.gppvae_factor_prep(
-        u, z, G.data_ptr(), UtZ.data_ptr(), zn.data_ptr(), ws.data_ptr(), tickets.data_ptr(),
-        N, R, L, p.tm, p.tn, p.row_tiles, p.col_tiles, p.tiles, p.chunks, p.rows_per_chunk,
-        int(vec), stream)
+        U.data_ptr(), Z.data_ptr(), G.data_ptr(), UtZ.data_ptr(), zn.data_ptr(), ws.data_ptr(),
+        tickets.data_ptr(), N, R, L, p.bt, p.zw, p.tiles, p.cluster, p.chunks, p.rows_per_chunk,
+        p.stages, COPIES[p.copy], p.smem, stream)
 
 
 def launch_factor_prep(U: torch.Tensor, Z: torch.Tensor):
@@ -164,7 +260,7 @@ def launch_factor_prep(U: torch.Tensor, Z: torch.Tensor):
     lib = _build.load()
     dev = U.device
     with _on(dev):
-        plan = _plan(dev.index, N, R, L)
+        plan = _plan(dev.index, N, R, L, _aligned(U, Z))
         stream = _stream(dev)
         ws, tickets = _scratch(dev, stream, plan)
         G, UtZ, zn = _outputs(dev, R, L)

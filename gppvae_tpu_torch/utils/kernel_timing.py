@@ -13,11 +13,15 @@ power limit beside it.
 from __future__ import annotations
 
 import statistics
+import time
 
 import torch
 
 FP32_FLOPS = 67e12  # fp32 outside the tensor cores
 BF16_FLOPS = 989e12  # bfloat16 on the tensor cores
+# float32-accurate products on the tensor cores: split TF32 (x = hi + lo,
+# lo·hi + hi·lo + hi·hi) takes three TF32 passes at 495 TFLOP/s each
+SPLIT_TF32_FLOPS = 495e12 / 3
 HBM_BYTES_PER_S = 3.35e12
 
 # a kernel against its plain version on the same inputs
@@ -31,6 +35,13 @@ def max_err(got, want) -> tuple[float, float]:
     err = max(float((g - w).detach().abs().max()) for g, w in zip(got, want))
     scale = max(float(w.detach().abs().max()) for w in want)
     return err, err / max(scale, 1e-30)
+
+
+def max_rel_err(got, want) -> float:
+    """The largest of each output's max abs error / its own max |want|: a
+    small output (G beside ‖Z‖²) is held to its own scale, not the
+    largest one's."""
+    return max(max_err([g], [w])[1] for g, w in zip(got, want))
 
 
 def time_ms(fn, reps: int = 50) -> float:
@@ -50,11 +61,18 @@ def time_ms(fn, reps: int = 50) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 50) -> tuple[float, str]:
-    """The kernel's own device time per call: its CUDA kernels' time summed
-    in torch.profiler's key_averages() over `reps` calls, over reps. If the
-    profiler shows no device time, CUDA events around `reps` back-to-back
-    calls instead (which then include any launch gaps). Returns (ms, method)."""
+def per_call_us(kernels, reps: int) -> float:
+    """µs per call from (µs, count) of each kernel recorded over `reps`
+    calls: its mean per recorded launch times its launches per call (its
+    count over reps, rounded). A later profiler session of a process can
+    record fewer kernels than were launched, and dividing the recorded time
+    by reps would count the missing ones as free."""
+    return sum(us / n * max(1, round(n / reps)) for us, n in kernels if n)
+
+
+def _profile(fn, reps: int) -> tuple[float, int]:
+    """(µs of CUDA kernels per call by per_call_us, kernels recorded) in
+    torch.profiler's key_averages() over `reps` calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -64,25 +82,73 @@ def device_ms(fn, reps: int = 50) -> tuple[float, str]:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(ev.self_device_time_total for ev in prof.key_averages()
-             if ev.device_type == DeviceType.CUDA and not ev.is_user_annotation)
-    if us > 0:
-        return us / 1e3 / reps, "profiler"
+    kernels = [ev for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA and not ev.is_user_annotation]
+    return (per_call_us([(ev.self_device_time_total, ev.count) for ev in kernels], reps),
+            sum(ev.count for ev in kernels))
+
+
+def profiled_ms(fn, reps: int = 50) -> tuple[float, int]:
+    """torch.profiler's view of `reps` calls: ms per call (_profile), and
+    how many kernels it recorded (reps × the kernels of one call, where
+    none was dropped)."""
+    us, seen = _profile(fn, reps)
+    return (us / 1e3 if seen else float("nan")), seen
+
+
+def _queued(fn, reps: int) -> tuple[float, bool]:
+    """(ms per call between CUDA events around `reps` calls enqueued behind
+    torch.cuda._sleep, whether the sleep outlasted the enqueue). The sleep
+    is twice what `reps` calls took with a synchronise (at 2 GHz), so the
+    calls run back to back unless `fn` waits for the device itself."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    cycles = int(2 * 2e9 * (time.perf_counter() - t0)) + (1 << 20)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(cycles)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
+    hidden = not start.query()
     end.synchronize()
-    return start.elapsed_time(end) / reps, "events"
+    return start.elapsed_time(end) / reps, hidden
+
+
+def queued_ms(fn, reps: int = 50) -> float:
+    """Device milliseconds per call: CUDA events around `reps` calls that the
+    host enqueued while the stream slept, so that they run back to back and
+    the host's enqueue time is hidden (for a `fn` that does not wait for
+    the device itself)."""
+    return _queued(fn, reps)[0]
+
+
+def device_ms(fn, reps: int = 50, most: float | None = None) -> tuple[float | None, str]:
+    """The call's device time and how it was read: "queued" (queued_ms), or,
+    where `fn` waits for the device itself so that its launches cannot
+    queue, or where the queued reading is above `most` (the call's own
+    `ms`: back-to-back calls then cost more than one alone, and the
+    reading is not one call's device time), "profiler" (_profile over
+    reps); None and "not resolved" where the profiler recorded no kernel."""
+    ms, hidden = _queued(fn, reps)
+    if hidden and (most is None or ms <= most):
+        return ms, "queued"
+    us, seen = _profile(fn, reps)
+    return (us / 1e3, "profiler") if seen else (None, "not resolved")
 
 
 def bound(flop: float, nbytes: float) -> tuple[float, str]:
-    """(least ms the card could take, what bounds it): FLOP over the fp32
-    peak outside the tensor cores, bytes (each input read once, each output
-    written once) over the memory rate."""
-    t_op, t_mem = flop / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    """(least ms the card could take, what bounds it): FLOP over the rate of
+    float32-accurate products on the tensor cores (split TF32, a third of
+    the TF32 peak: both kernels' products run so, and a kernel that does may
+    beat the 67 TFLOP/s of the CUDA cores), bytes (each input read once,
+    each output written once) over the memory rate."""
+    t_op, t_mem = flop / SPLIT_TF32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (t_op, "operations") if t_op >= t_mem else (t_mem, "bytes")
 
 
@@ -99,8 +165,9 @@ def timings(kernel, plain, library, flop: float, nbytes: float) -> dict:
     t = {"ms": time_ms(kernel)}
     ran = [d for d, n in ops.driver_counts().items() if n > before[d]]
     t.update(plain_ms=time_ms(plain), library_ms=time_ms(library))
-    d_ms, method = device_ms(kernel)
-    return {**t, "device_ms": d_ms, "device_ms_method": method, "host_ms": t["ms"] - d_ms,
+    d_ms, method = device_ms(kernel, most=t["ms"])
+    return {**t, "device_ms": d_ms, "device_ms_method": method,
+            "host_ms": None if d_ms is None else t["ms"] - d_ms,
             "driver": ",".join(ran) or None, "bound_ms": b_ms, "bound_by": b_by}
 
 

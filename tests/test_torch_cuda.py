@@ -43,6 +43,10 @@ def _rel_err(got, want):
     (5700, 56, 16, 0), (5701, 56, 16, 0), (1, 3, 1, 0), (127, 64, 64, 0),
     (6401, 256, 16, 0), (256, 2048, 8, 0), (332, 232, 32, 0), (5700, 560, 16, 0),
     (5700, 56, 16, 1),  # 4-byte aligned only: the scalar copies
+    # the bench's large N, R across the tensor-core tiles (57: the 4-byte
+    # copies), L = 1, N shorter than one 32-row stage
+    (262144, 256, 16, 0), (5700, 57, 16, 0), (5700, 130, 16, 0), (5700, 56, 1, 0),
+    (20, 56, 16, 0),
 ])
 def test_factor_prep_kernel_matches_plain(gen, n, r, l, offset):
     U = torch.randn(n * r + offset, device="cuda", generator=gen)[offset:].view(n, r)
@@ -57,6 +61,12 @@ def test_factor_prep_kernel_matches_plain(gen, n, r, l, offset):
     for g, a, w in zip(got, again, want):
         assert torch.equal(g, a)  # fixed-order reduction: bit-identical reruns
         assert _rel_err(g, w) <= 1e-5
+
+
+def test_factor_prep_kernel_refuses_float64(gen):
+    U = torch.randn(64, 8, device="cuda", generator=gen, dtype=torch.float64)
+    with pytest.raises(TypeError, match="float32"):
+        ops.launch_factor_prep(U, U[:, :2])
 
 
 def _planned_driver(r, l):

@@ -3,7 +3,8 @@
 `plan_nll_core` and `plan_factor_prep` (gppvae_tpu_torch/ops) are plain
 functions of the shape and the device's properties, given here as the
 H100's numbers (132 SMs, 232,448 bytes of shared memory per block, clusters
-of up to 16 CTAs, or 8 where the non-portable size is not allowed). The
+of up to 16 CTAs, or 8 where the non-portable size is not allowed;
+factor_prep's CTAs resident at once, FP_CAPACITY). The
 kernels check the plans they are given; these tests check that the plans
 cover what the kernels assume.
 
@@ -17,6 +18,7 @@ bounds; `python tests/test_torch_nll_core_plan.py` prints the table PERF.md
 quotes, one plain TF32 pass beside it.
 """
 
+import importlib
 import math
 
 import numpy as np
@@ -30,18 +32,23 @@ from gppvae_tpu_torch.ops import nll_core as nc
 from gppvae_tpu_torch.ops.factor_prep import _plan as fp_plan
 from gppvae_tpu_torch.ops.factor_prep import plan_factor_prep
 
+fp_module = importlib.import_module("gppvae_tpu_torch.ops.factor_prep")  # ops.factor_prep: the function
 H100 = {"sms": 132, "smem_optin": 232448, "max_cluster": 16, "grid_per_sm": 1}
+# factor_prep's CTAs resident at once per tile edge and cluster size
+# (gppvae_factor_prep_capacity on an H100 80GB HBM3)
+FP_CAPACITY = {bt: {8: 120, 4: 120, 2: 132, 1: 132} for bt in (32, 64, 128)}
 H100_PORTABLE = {**H100, "max_cluster": 8}
 # where plan_nll_core changes driver on an H100: the one CTA up to R = 128,
 # the cluster up to 480, the grid above (PERF.md, the cut-overs)
 CUTS = (128, 480)
-# chip_smoke.py's factor_prep shapes and the workspace floats and tickets
-# that the C size queries of the kernel before its plan moved to Python
-# (gppvae_factor_prep_workspace / _tickets) gave for them on an H100, 132 SMs
+# chip_smoke.py's factor_prep shapes and the workspace floats and tickets of
+# the split-TF32 kernel's plan on an H100 (these once came from C size
+# queries, gppvae_factor_prep_workspace / _tickets, before the plan moved to
+# Python): a second pass only where N's chunks outnumber one cluster per tile
 FACTOR_PREP_SIZES = {
-    (5700, 56, 16): (145188, 1), (5701, 56, 16): (145188, 1), (6401, 256, 16): (913935, 17),
-    (256, 2048, 8): (0, 0), (332, 232, 32): (159123, 13), (5700, 560, 16): (868356, 53),
-    (2850, 56, 16): (72594, 1),
+    (5700, 56, 16): (61488, 8), (5701, 56, 16): (61488, 8), (6401, 256, 16): (276540, 24),
+    (256, 2048, 8): (0, 0), (332, 232, 32): (0, 0), (5700, 560, 16): (0, 0),
+    (2850, 56, 16): (30744, 8),
 }
 
 
@@ -95,11 +102,11 @@ def test_cluster_rows_cover_packed_m_exactly_once():
 
 def test_factor_prep_plan_gives_the_c_queries_sizes():
     for (n, r, l), (ws, tickets) in FACTOR_PREP_SIZES.items():
-        p = plan_factor_prep(n, r, l, H100)
+        p = plan_factor_prep(n, r, l, FP_CAPACITY)
         assert (p.workspace, p.tickets) == (ws, tickets), (n, r, l)
-        assert 4 * p.tm * p.row_tiles >= r and 4 * p.tn * p.col_tiles >= r + l
-        assert p.chunks * p.rows_per_chunk >= n > (p.chunks - 1) * p.rows_per_chunk
-        assert p.tiles * p.chunks <= 2 * H100["sms"] or p.chunks == 1
+        assert p.bt * p.row_tiles >= r and p.zw * p.z_tiles >= l
+        assert p.chunks * p.rows_per_chunk >= n and p.chunks % p.cluster == 0
+        assert p.ctas <= FP_CAPACITY[p.bt][p.cluster] or p.chunks == 1
 
 
 @pytest.fixture
@@ -107,6 +114,7 @@ def fake_card(monkeypatch):
     """Device properties and cluster occupancy as an H100 gives them, and
     empty plan caches before and after."""
     monkeypatch.setattr(_build, "device_props", lambda index: H100)
+    monkeypatch.setattr(fp_module, "_capacity", lambda index: FP_CAPACITY)
     fits = {"clusters": 1}
     monkeypatch.setattr(nc, "_clusters_fit", lambda index, C, smem: fits["clusters"])
     monkeypatch.setattr(nc.launch_nll_core, "cluster_refused", 0)
@@ -121,7 +129,7 @@ def test_plans_are_computed_once_per_device_and_shape(fake_card):
     for _ in range(3):
         assert nc._plan(0, 232, 32).driver == "cluster"
         assert nc._plan(0, 56, 16).driver == "cta"
-        assert fp_plan(0, 5700, 56, 16) == plan_factor_prep(5700, 56, 16, H100)
+        assert fp_plan(0, 5700, 56, 16) == plan_factor_prep(5700, 56, 16, FP_CAPACITY)
     nc._plan(1, 232, 32)
     assert (nc._plan.cache_info().misses, nc._plan.cache_info().hits) == (3, 4)
     assert (fp_plan.cache_info().misses, fp_plan.cache_info().hits) == (1, 2)

@@ -11,8 +11,9 @@ version (relative error), X and W's max abs error, whether a rerun is bit
 for bit the same, and two times of the launch alone: `ms`, the median of
 CUDA events around one launch (after 5; with the host's enqueue where that
 is longer), and `device_ms`, the kernel's own device time per launch
-(utils/kernel_timing.device_ms: torch.profiler over 50 launches). The cut-overs of plan_nll_core (CTA_MAX_R) come from
-these times. G, UᵀZ come from 6,400 random rows (N(0, 1/R) and N(0, 1)),
+(utils/kernel_timing.device_ms: CUDA events around 50 launches queued
+behind a sleep). The cut-overs of plan_nll_core (CTA_MAX_R) came from these
+times, read then from torch.profiler's kernel times. G, UᵀZ come from 6,400 random rows (N(0, 1/R) and N(0, 1)),
 vₙ = 0.37, as in chip_smoke.py's phase 3. Needs CUDA; prints `nvidia-smi`'s
 name and power limit and the device's properties first.
 """
