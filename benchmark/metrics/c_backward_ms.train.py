@@ -1,0 +1,9 @@
+"""c_backward_ms.train: the host's milliseconds per Phase C step in the
+program's span `C.backward` (`loss.backward()`, enqueued), less its
+children, over the traced run's card-only slice (harness/spans.py)."""
+
+from benchmark.harness import spans
+
+
+def read(run):
+    return spans.ms_per_step(run, lambda name: name == "C.backward", own=True)

@@ -68,6 +68,7 @@ from gppvae_tpu_torch.models import VAE
 from gppvae_tpu_torch.parallel import all_reduce, row_block
 from gppvae_tpu_torch.train.device import compute_dtype, resolve_device, set_float32_precision
 from gppvae_tpu_torch.utils import prng
+from gppvae_tpu_torch.utils.timers import span
 
 
 class ServerState(NamedTuple):
@@ -130,13 +131,20 @@ def build_server_state(model, params: dict, fixed_W, images_tr: torch.Tensor,
     rank's alike."""
     W = params["gp"]["W"] if "W" in params["gp"] else fixed_W
     X = params["gp"]["X"]
-    Z0 = _encode_all(model, params["vae"], images_tr, encode_chunk)
-    V_tr = gp.build_effect_rows(X, W, d_tr, q_tr, extra_effects=extra_effects, x_map=x_map)
-    v_sig, v_noise = gp.variances_from_log(params["gp"]["log_vs"], params["gp"]["log_vn"])
-    v_sig = v_sig.reshape(-1)
-    factors = gp.factorize(V_tr, [v_sig[i] for i in range(len(V_tr))], v_noise, group=group)
-    # the encoder returns float32 latents whatever the GP's dtype
-    core = gp.posterior_core(factors, Z0.to(factors.U.dtype), group=group)
+    with span("fold"):
+        with span("fold.encode"):
+            Z0 = _encode_all(model, params["vae"], images_tr, encode_chunk)
+        with span("fold.factorize"):
+            V_tr = gp.build_effect_rows(X, W, d_tr, q_tr, extra_effects=extra_effects,
+                                        x_map=x_map)
+            v_sig, v_noise = gp.variances_from_log(params["gp"]["log_vs"],
+                                                   params["gp"]["log_vn"])
+            v_sig = v_sig.reshape(-1)
+            factors = gp.factorize(V_tr, [v_sig[i] for i in range(len(V_tr))], v_noise,
+                                   group=group)
+        with span("fold.core"):
+            # the encoder returns float32 latents whatever the GP's dtype
+            core = gp.posterior_core(factors, Z0.to(factors.U.dtype), group=group)
     return ServerState(core=core, X=X, W=W,
                        v_sig=v_sig,
                        vae_params=params["vae"])
@@ -165,17 +173,21 @@ def predict_images(model, state: ServerState, d: torch.Tensor, q: torch.Tensor, 
     return_var=True also the (n,) GP-predictive latent variance. With a
     group (the state alike on every rank), each rank computes its block of
     the rows and every rank returns the whole reply."""
-    n = d.shape[0]
-    if group is not None:
-        block = row_block(n, group)
-        d, q = d[block], q[block]
-    V_star, v_sigs = _effect_rows(state, d, q, x_map=x_map, extra_effects=extra_effects)
-    out = gp.predict_from_core(V_star, state.core, v_sigs, return_var=return_var)
-    z_star, var = out if return_var else (out, None)
-    y = decode_images(model, state.vae_params, z_star, chunk=None)
-    if group is not None:
-        y = _assemble(group, y, n, block)
-        var = None if var is None else _assemble(group, var, n, block)
+    with span("serve.predict"):
+        n = d.shape[0]
+        if group is not None:
+            block = row_block(n, group)
+            d, q = d[block], q[block]
+        with span("serve.gp"):
+            V_star, v_sigs = _effect_rows(state, d, q, x_map=x_map,
+                                          extra_effects=extra_effects)
+            out = gp.predict_from_core(V_star, state.core, v_sigs, return_var=return_var)
+            z_star, var = out if return_var else (out, None)
+        with span("serve.decode"):
+            y = decode_images(model, state.vae_params, z_star, chunk=None)
+        if group is not None:
+            y = _assemble(group, y, n, block)
+            var = None if var is None else _assemble(group, var, n, block)
     return (y, var) if return_var else y
 
 

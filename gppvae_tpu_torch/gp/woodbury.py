@@ -30,6 +30,7 @@ import torch
 
 from gppvae_tpu_torch import ops
 from gppvae_tpu_torch.parallel.collectives import all_reduce_sum
+from gppvae_tpu_torch.utils.timers import read
 
 _LOG2PI = math.log(2.0 * math.pi)
 
@@ -75,7 +76,7 @@ def factorize(Vs, v_sigs, v_noise, *, group=None) -> GPFactors:
     G = U.T @ U
     if group is not None:
         G, n = all_reduce_sum(group, G, torch.tensor(float(N), dtype=U.dtype, device=U.device))
-        N = n.item()
+        N = read("rows", float, n)
     B = torch.eye(R, dtype=U.dtype, device=U.device) + G / v_noise
     Lb = torch.linalg.cholesky(B)
     logdet = N * torch.log(v_noise) + 2.0 * torch.sum(torch.log(torch.diagonal(Lb)))

@@ -12,9 +12,11 @@ them on a CUDA tensor (`cuda_calls` counts it if something does). Each
 kernel wrapper counts its launches (`launches`), each plain version its
 calls on any device (`calls`, `plain_calls()`: what the CPU runs in place
 of a launch); nll_core's launches are also counted per driver
-(`driver_counts()`: "cta", "cluster", "grid"). `uncounted()` leaves every
-count as it was after a block that compares or times a kernel against its
-plain version, which is not the path's work.
+(`driver_counts()`: "cta", "cluster", "grid"). The counts are counters of
+the port's tracer (utils/timers.py), so a traced span holds the launches made
+inside it. `uncounted()` leaves every count as it was after a block that
+compares or times a kernel against its plain version, which is not the
+path's work.
 
 `gram`, `matmul_tn` and `sqnorm` have no kernel (gppvae_tpu/ops/
 pallas_gemm.py:239-241): the GP layer writes them as plain products.
@@ -33,18 +35,17 @@ from gppvae_tpu_torch.ops.nll_core import (
     woodbury_nll_core,
     woodbury_nll_core_torch,
 )
+from gppvae_tpu_torch.utils.timers import TRACER
 
-_COUNTERS = (
-    (launch_factor_prep, "launches"),
-    (launch_nll_core, "launches"),
-    (factor_prep_torch, "cuda_calls"),
-    (nll_core_torch, "cuda_calls"),
-)
+_LAUNCHES = ("launch_factor_prep.launches", "launch_nll_core.launches",
+             "factor_prep_torch.cuda_calls", "nll_core_torch.cuda_calls")
+_DRIVERS = tuple(f"launch_nll_core.drivers.{d}" for d in launch_nll_core.drivers)
+_CALLS = {"factor_prep": "factor_prep_torch.calls", "woodbury_nll_core": "nll_core_torch.calls"}
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches and plain-version calls on CUDA tensors so far."""
-    return {f"{fn.__name__}.{attr}": getattr(fn, attr) for fn, attr in _COUNTERS}
+    return {name: TRACER.counts.get(name, 0) for name in _LAUNCHES}
 
 
 def driver_counts() -> dict[str, int]:
@@ -53,28 +54,25 @@ def driver_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    for fn, attr in _COUNTERS:
-        setattr(fn, attr, 0)
-    launch_nll_core.drivers = dict.fromkeys(launch_nll_core.drivers, 0)
+    for name in (*_LAUNCHES, *_DRIVERS):
+        TRACER.counts[name] = 0
 
 
 def plain_calls() -> dict[str, int]:
     """Calls of each kernel's plain version so far, on any device."""
-    return {"factor_prep": factor_prep_torch.calls, "woodbury_nll_core": nll_core_torch.calls}
+    return {k: TRACER.counts.get(name, 0) for k, name in _CALLS.items()}
 
 
 @contextlib.contextmanager
 def uncounted():
-    """Every count (launch_counts, plain_calls) after the block as before it."""
-    every = (*_COUNTERS, (factor_prep_torch, "calls"), (nll_core_torch, "calls"))
-    saved = [(fn, attr, getattr(fn, attr)) for fn, attr in every]
-    drivers = dict(launch_nll_core.drivers)
+    """Every count (launch_counts, driver_counts, plain_calls) after the
+    block as before it."""
+    names = (*_LAUNCHES, *_DRIVERS, *_CALLS.values())
+    saved = {name: TRACER.counts.get(name, 0) for name in names}
     try:
         yield
     finally:
-        for fn, attr, value in saved:
-            setattr(fn, attr, value)
-        launch_nll_core.drivers = drivers
+        TRACER.counts.update(saved)
 
 
 __all__ = [

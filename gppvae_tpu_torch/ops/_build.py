@@ -29,6 +29,8 @@ import tempfile
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+from gppvae_tpu_torch.utils.timers import span
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
@@ -128,12 +130,13 @@ def build(defines: tuple[str, ...] = ()) -> Path:
 @functools.cache
 def load(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     """The kernel library, built on first call and loaded once per process
-    (per set of defines)."""
-    lib = ctypes.CDLL(str(build(defines)))
-    for name, (restype, argtypes) in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.restype = restype
-        fn.argtypes = argtypes
+    (per set of defines): the span `kernels.load`."""
+    with span("kernels.load"):
+        lib = ctypes.CDLL(str(build(defines)))
+        for name, (restype, argtypes) in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.restype = restype
+            fn.argtypes = argtypes
     return lib
 
 

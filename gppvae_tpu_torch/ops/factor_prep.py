@@ -35,19 +35,17 @@ import torch
 
 from gppvae_tpu_torch.ops import _build
 from gppvae_tpu_torch.parallel.collectives import all_reduce_sum
+from gppvae_tpu_torch.utils.timers import count
 
 
 def factor_prep_torch(U: torch.Tensor, Z: torch.Tensor):
     """Plain version: (UᵀU, UᵀZ, ‖Z‖²) with ‖Z‖² a 0-d tensor. Counts its
-    calls in `factor_prep_torch.calls` and those on a CUDA tensor in
-    `factor_prep_torch.cuda_calls`."""
-    factor_prep_torch.calls += 1
+    calls in the counter `factor_prep_torch.calls` and those on a CUDA
+    tensor in `factor_prep_torch.cuda_calls` (utils/timers.py)."""
+    count("factor_prep_torch.calls")
     if U.is_cuda:
-        factor_prep_torch.cuda_calls += 1
+        count("factor_prep_torch.cuda_calls")
     return U.T @ U, U.T @ Z, torch.sum(Z * Z)
-
-
-factor_prep_torch.calls = factor_prep_torch.cuda_calls = 0
 
 
 # csrc/factor_prep.cu's shape: eight consumer warps of 32×32 blocks (two
@@ -252,8 +250,8 @@ def _launch(lib, p: FactorPrepPlan, U, Z, G, UtZ, zn, ws, tickets, stream: int) 
 def launch_factor_prep(U: torch.Tensor, Z: torch.Tensor):
     """Run the CUDA kernel on float32 CUDA tensors U (N, R) and Z (N, L).
     Returns (G (R, R), UtZ (R, L), zn ()) as new tensors; counts launches in
-    `launch_factor_prep.launches`. One ctypes call, with the plan cached per
-    (device, shape)."""
+    the counter `launch_factor_prep.launches`. One ctypes call, with the
+    plan cached per (device, shape)."""
     _check_factor_prep(U, Z)
     U, Z = U.contiguous(), Z.contiguous()
     (N, R), L = U.shape, Z.shape[1]
@@ -266,11 +264,9 @@ def launch_factor_prep(U: torch.Tensor, Z: torch.Tensor):
         G, UtZ, zn = _outputs(dev, R, L)
         err = _launch(lib, plan, U, Z, G, UtZ, zn, ws, tickets, stream)
     _build.check(err, "factor_prep kernel")
-    launch_factor_prep.launches += 1
+    count("launch_factor_prep.launches")
     return G, UtZ, zn
 
-
-launch_factor_prep.launches = 0
 
 # (device, stream) → (workspace, tickets), kept between calls and grown when
 # a shape needs more: calls on one stream run in order, so they can share

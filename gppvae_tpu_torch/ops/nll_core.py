@@ -41,17 +41,18 @@ from gppvae_tpu_torch.ops.factor_prep import (
     _on,
     _stream,
 )
+from gppvae_tpu_torch.utils.timers import TRACER, Counters, count
 
 _LOG2PI = math.log(2.0 * math.pi)
 
 
 def nll_core_torch(G, UtZ, zn, vn, n_rows: int, l_dims: int):
     """Plain version: (nll, X = L_B⁻¹, W = L_B⁻¹UtZ). Counts its calls in
-    `nll_core_torch.calls` and those on a CUDA tensor in
-    `nll_core_torch.cuda_calls`."""
-    nll_core_torch.calls += 1
+    the counter `nll_core_torch.calls` and those on a CUDA tensor in
+    `nll_core_torch.cuda_calls` (utils/timers.py)."""
+    count("nll_core_torch.calls")
     if G.is_cuda:
-        nll_core_torch.cuda_calls += 1
+        count("nll_core_torch.cuda_calls")
     R = G.shape[0]
     eye = torch.eye(R, dtype=G.dtype, device=G.device)
     Lb = torch.linalg.cholesky(eye + G / vn)
@@ -61,9 +62,6 @@ def nll_core_torch(G, UtZ, zn, vn, n_rows: int, l_dims: int):
     quad = (zn - torch.sum(W * W) / vn) / vn
     nll = 0.5 * (l_dims * logdet + quad + n_rows * l_dims * _LOG2PI)
     return nll, X, W
-
-
-nll_core_torch.calls = nll_core_torch.cuda_calls = 0
 
 
 def woodbury_nll_core_torch(G, UtZ, zn, vn, n_rows: int, l_dims: int):
@@ -235,9 +233,9 @@ def _launch(lib, plan: NLLCorePlan, G, UtZ, zn, vn, nll, X, W, scratch, n_rows: 
 def launch_nll_core(G, UtZ, zn, vn, n_rows: int, l_dims: int):
     """Run the CUDA kernel on float32 CUDA tensors G (R, R), UtZ (R, L) and
     0-d zn, vn. Returns (nll (), X (R, R), W (R, L)) as new tensors; counts
-    launches in `launch_nll_core.launches` and per driver in
-    `launch_nll_core.drivers`. One ctypes call, with the plan cached per
-    (device, shape)."""
+    launches in the counter `launch_nll_core.launches` and per driver in
+    `launch_nll_core.drivers.<driver>` (`launch_nll_core.drivers` reads
+    them). One ctypes call, with the plan cached per (device, shape)."""
     _check_nll_core(G, UtZ, zn, vn)
     G, UtZ = G.contiguous(), UtZ.contiguous()
     zn, vn = zn.reshape(()).contiguous(), vn.reshape(()).contiguous()
@@ -250,13 +248,12 @@ def launch_nll_core(G, UtZ, zn, vn, n_rows: int, l_dims: int):
         err = _launch(lib, plan, G, UtZ, zn, vn, nll, X, W, scratch, n_rows, l_dims,
                       _stream(dev))
     _build.check(err, "nll_core kernel")
-    launch_nll_core.launches += 1
-    launch_nll_core.drivers[plan.driver] += 1
+    count("launch_nll_core.launches")
+    count(f"launch_nll_core.drivers.{plan.driver}")
     return nll, X, W
 
 
-launch_nll_core.launches = 0
-launch_nll_core.drivers = dict.fromkeys(DRIVERS, 0)
+launch_nll_core.drivers = Counters(TRACER, "launch_nll_core.drivers", DRIVERS)
 launch_nll_core.cluster_refused = 0
 
 

@@ -12,15 +12,26 @@ import math
 import torch
 import torch.nn.functional as F
 
+from gppvae_tpu_torch.utils.timers import read
+
 
 def gaussian_recon_nll(y: torch.Tensor, y_hat: torch.Tensor, sigma_y):
     """(recon (B,), mse (B,)): ‖y − ŷ‖²/(2σ²) + (D/2)·log(2πσ²) and the
     per-sample pixel MSE."""
     D = math.prod(y.shape[1:])
     sq = torch.sum(((y - y_hat) ** 2).reshape(y.shape[0], -1), dim=1)
-    var = torch.as_tensor(sigma_y, dtype=y.dtype, device=y.device) ** 2
+    var = _like(sigma_y, y) ** 2
     recon = sq / (2.0 * var) + 0.5 * D * torch.log(2.0 * math.pi * var)
     return recon, sq / D
+
+
+def _like(v, y: torch.Tensor) -> torch.Tensor:
+    """v as a 0-d tensor of y's dtype on y's device. A number goes there by
+    a blocking copy, which on a CUDA device waits for every kernel queued
+    before it: the tracer's read `sync.sigma_y`."""
+    if torch.is_tensor(v):
+        return torch.as_tensor(v, dtype=y.dtype, device=y.device)
+    return read("sigma_y", lambda x: torch.as_tensor(x, dtype=y.dtype, device=y.device), v)
 
 
 # |logit| above which f32 sigmoid rounds to exactly 0/1 is ~16.6; the

@@ -38,6 +38,7 @@ import torch
 from gppvae_tpu_torch.parallel import all_reduce, gather
 from gppvae_tpu_torch.parallel.tensor import block
 from gppvae_tpu_torch.train.batching import num_batches
+from gppvae_tpu_torch.utils.timers import read
 
 
 def resolve_grad_accum(grad_accum_steps: int, num_train: int, batch_size: int) -> int:
@@ -56,7 +57,7 @@ class GuardedAdam:
     `accum_steps` calls on the mean gradient.
 
     Deciding the skip reads Σg² on the host: one device sync per Adam step,
-    so one per `accum_steps` calls."""
+    so one per `accum_steps` calls (the tracer's read `sync.guard`)."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], lr: float,
                  clip_grad_norm: float = 1e5, accum_steps: int = 1, shards=None):
@@ -151,7 +152,7 @@ class GuardedAdam:
                 elif p.grad is not None:
                     sumsq = sumsq + torch.sum(p.grad * p.grad)
             sumsq = sumsq + all_reduce(self.group, blocks, axis="model")
-        if not bool(torch.isfinite(sumsq)):
+        if not read("guard", bool, torch.isfinite(sumsq)):
             self.notfinite_count += 1
             return False
         if self.clip and self.clip > 0:

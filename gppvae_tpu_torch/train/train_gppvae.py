@@ -115,6 +115,7 @@ from gppvae_tpu_torch.train.losses import (
 from gppvae_tpu_torch.train.optim import GuardedAdam, resolve_grad_accum
 from gppvae_tpu_torch.utils import MetricsLogger, NullLogger, prng
 from gppvae_tpu_torch.utils.profiling import maybe_trace
+from gppvae_tpu_torch.utils.timers import read, span
 
 _METRIC_KEYS = (
     "loss", "recon_term", "gp_term", "pen_term", "mse",
@@ -257,41 +258,44 @@ def _setup(dataset: GridDataset, config: GPPVAETrainConfig, device: torch.device
     large weights then split over it (split_model_axis)."""
     init_params = init_params or {}
     _, init_key, _, x_key = run_keys(config.seed)
-    model = VAE(config.zdim, dataset.image_shape, config.enc_features,
-                config.dec_features, config.dec_upsample, key=init_key,
-                dtype=compute_dtype(config.compute_dtype))
-    if "vae" in init_params:
-        model.load_state_dict({k: torch.as_tensor(v) for k, v in init_params["vae"].items()})
-    elif config.vae_weights:
-        model.load_state_dict(torch.load(config.vae_weights, map_location="cpu",
-                                         weights_only=True))
-    model.to(device)
+    with span("setup.model"):
+        model = VAE(config.zdim, dataset.image_shape, config.enc_features,
+                    config.dec_features, config.dec_upsample, key=init_key,
+                    dtype=compute_dtype(config.compute_dtype))
+        if "vae" in init_params:
+            model.load_state_dict({k: torch.as_tensor(v) for k, v in init_params["vae"].items()})
+        elif config.vae_weights:
+            model.load_state_dict(torch.load(config.vae_weights, map_location="cpu",
+                                             weights_only=True))
+        model.to(device)
 
-    W0 = _init_view_features(config, dataset)
-    M = config.obj_feature_dim
-    gp_init = {
-        "X": torch.from_numpy(prng.normal(x_key, (dataset.num_objects, M))) / math.sqrt(M),
-        # one signal variance per random effect
-        "log_vs": torch.full((1 + len(config.extra_effects),), math.log(config.init_v_sig)),
-        "log_vn": torch.tensor(math.log(config.init_v_noise)),
-    }
-    if config.learn_sigma_y:
-        gp_init["log_sy"] = torch.tensor(math.log(config.sigma_y))
-    fixed_W = None
-    if config.mode == "joint":
-        gp_init["W"] = W0
-    else:
-        fixed_W = W0.to(device)
-    for k, v in gp_params_from_numpy(init_params.get("gp", {})).items():
-        if k not in gp_init:
-            raise KeyError(f"unknown GP param {k!r} for mode {config.mode!r}")
-        gp_init[k] = v
-    gp_params = {k: torch.nn.Parameter(v.to(device=device, dtype=torch.float32))
-                 for k, v in gp_init.items()}
-    replicate(group, [*model.parameters(), *gp_params.values()])
-    split_model_axis(model, group)
-    return (model, gp_params, fixed_W, _data_tensors(dataset, device, group),
-            len(dataset.train_idx))
+    with span("setup.gp"):
+        W0 = _init_view_features(config, dataset)
+        M = config.obj_feature_dim
+        gp_init = {
+            "X": torch.from_numpy(prng.normal(x_key, (dataset.num_objects, M))) / math.sqrt(M),
+            # one signal variance per random effect
+            "log_vs": torch.full((1 + len(config.extra_effects),), math.log(config.init_v_sig)),
+            "log_vn": torch.tensor(math.log(config.init_v_noise)),
+        }
+        if config.learn_sigma_y:
+            gp_init["log_sy"] = torch.tensor(math.log(config.sigma_y))
+        fixed_W = None
+        if config.mode == "joint":
+            gp_init["W"] = W0
+        else:
+            fixed_W = W0.to(device)
+        for k, v in gp_params_from_numpy(init_params.get("gp", {})).items():
+            if k not in gp_init:
+                raise KeyError(f"unknown GP param {k!r} for mode {config.mode!r}")
+            gp_init[k] = v
+        gp_params = {k: torch.nn.Parameter(v.to(device=device, dtype=torch.float32))
+                     for k, v in gp_init.items()}
+        replicate(group, [*model.parameters(), *gp_params.values()])
+        split_model_axis(model, group)
+    with span("setup.data"):
+        data = _data_tensors(dataset, device, group)
+    return model, gp_params, fixed_W, data, len(dataset.train_idx)
 
 
 def _select_nystrom_landmarks(X0: torch.Tensor, draws, config: GPPVAETrainConfig) -> np.ndarray:
@@ -444,27 +448,36 @@ class _Loop:
         differentiated, and one all-reduce sums the gradients of both Adams'
         parameters with the metric sums, so that both Adams see the whole
         batch's gradient on every rank."""
-        self.opt_vae.zero_grad()
-        self.opt_gp.zero_grad()
-        if self.group is None:
-            loss, recon, gp_term, pen_rows, mse = self.batch_terms(coeffs, pos, w, eps)
-            recon_m, pen_m, mse_m = masked_means(w, recon, pen_rows, mse)
-            metrics = torch.stack([loss, recon_m, gp_term, pen_m, mse_m]).detach()
-            loss.backward()
-        else:
-            sums = torch.zeros(6, device=w.device)  # loss, Σw·recon, gp_term, Σw·pen, Σw·mse, Σw
-            if pos.numel():
-                loss, recon, gp_term, pen_rows, mse = self.batch_terms(coeffs, pos, w, eps)
-                loss.backward()
-                sums = torch.stack([loss, torch.sum(w * recon), gp_term, torch.sum(w * pen_rows),
-                                    torch.sum(w * mse), torch.sum(w)]).detach()
-            sums = all_reduce_grads(self.group, [*self.opt_vae.params, *self.opt_gp.params],
-                                    sums, [*self.shards, *[False] * len(self.opt_gp.params)])
-            metrics = sums[:5].clone()
-            metrics[[1, 3, 4]] /= sums[5]  # the masked means
-        self.opt_vae.step()
-        self.opt_gp.step()
-        return metrics
+        with span("C.step"):
+            self.opt_vae.zero_grad()
+            self.opt_gp.zero_grad()
+            if self.group is None:
+                with span("C.forward"):
+                    loss, recon, gp_term, pen_rows, mse = self.batch_terms(coeffs, pos, w, eps)
+                    recon_m, pen_m, mse_m = masked_means(w, recon, pen_rows, mse)
+                    metrics = torch.stack([loss, recon_m, gp_term, pen_m, mse_m]).detach()
+                with span("C.backward"):
+                    loss.backward()
+            else:
+                # loss, Σw·recon, gp_term, Σw·pen, Σw·mse, Σw
+                sums = torch.zeros(6, device=w.device)
+                if pos.numel():
+                    with span("C.forward"):
+                        loss, recon, gp_term, pen_rows, mse = self.batch_terms(
+                            coeffs, pos, w, eps)
+                    with span("C.backward"):
+                        loss.backward()
+                    sums = torch.stack([loss, torch.sum(w * recon), gp_term,
+                                        torch.sum(w * pen_rows), torch.sum(w * mse),
+                                        torch.sum(w)]).detach()
+                sums = all_reduce_grads(self.group, [*self.opt_vae.params, *self.opt_gp.params],
+                                        sums, [*self.shards, *[False] * len(self.opt_gp.params)])
+                metrics = sums[:5].clone()
+                metrics[[1, 3, 4]] /= sums[5]  # the masked means
+            with span("C.optim"):
+                self.opt_vae.step()
+                self.opt_gp.step()
+            return metrics
 
     def epoch_steps(self, batches, weights, eps) -> list[tuple]:
         """The epoch's (pos, w, eps) per step on the device, from the plan's
@@ -472,8 +485,8 @@ class _Loop:
         position lies in this rank's block ("owner computes": no image
         crosses ranks), pos local to the block."""
         device = self.data["images_tr"].device
-        if self.group is None:
-            b, w, e = batches.to(device), weights.to(device), eps.to(device)
+        if self.group is None:  # blocking copies from host memory: the host waits
+            b, w, e = (read("plan", lambda t: t.to(device), t) for t in (batches, weights, eps))
             return [(b[i], w[i], e[i]) for i in range(b.shape[0])]
         start, stop = self.block.start, self.block.stop
         own = (batches >= start) & (batches < stop)
@@ -518,9 +531,11 @@ class _Loop:
             cm = self.minibatch_epoch(coeffs, self.epoch_steps(*draws(epoch)))
         with timer.phase("eval_oos"):
             y_pred, oos_mse = self.oos(self.encode())
-        row = [*cm.tolist(), float(coeffs.value) / self.num_train,
-               math.exp(float(self.gp["log_vs"][0].detach())),  # the product effect
-               math.exp(float(self.gp["log_vn"].detach())), float(oos_mse)]
+        row = [*read("metrics", torch.Tensor.tolist, cm),
+               read("nll", float, coeffs.value) / self.num_train,
+               math.exp(read("v_sig", float, self.gp["log_vs"][0].detach())),  # product effect
+               math.exp(read("v_noise", float, self.gp["log_vn"].detach())),
+               read("oos_mse", float, oos_mse)]
         return dict(zip(_METRIC_KEYS, row)), timer.reset(), y_pred
 
 
@@ -622,32 +637,35 @@ def train_gppvae(
     docstring); global rank 0 alone writes outdir and logs, the other ranks'
     log defaults to none. The result's model holds the full weights; its
     optimizers, on a mesh, the blocks."""
-    if config.mode not in ("joint", "dis"):
-        raise ValueError(f"unknown mode {config.mode!r}; want 'joint' or 'dis'")
-    init_params = dict(init_params or {})
-    device = resolve_device(str(device))
-    set_float32_precision(config.compute_dtype)
-    shape = _shape_config(config, dataset)
-    # before any work, and before outdir's files are touched
-    resumed = _load_resume(config.resume, shape, device) if config.resume else None
-    if resumed and resumed["object_kernel"] is not None:
-        ok = resumed["object_kernel"]
-        init_params.update(
-            rff=(ok["omega"].cpu(), ok["phase"].cpu()),
-            nystrom_idx=None if ok["nystrom_idx"] is None else ok["nystrom_idx"].cpu())
-    writer = group is None or group.global_rank == 0
-    own_log = log is None
-    log = log or (MetricsLogger(config.outdir) if writer else NullLogger())
-    outdir = config.outdir if writer else None
-    if outdir:
-        _write_sidecar(config, dataset, device)
-    run_key = run_keys(config.seed)[0]
-    model, gp_params, fixed_W, data, num_train = _setup(
-        dataset, config, device, init_params, group)
-    x_map, x_draws = _object_kernel(config, gp_params["X"], init_params, device)
-    accum = resolve_grad_accum(config.grad_accum_steps, num_train, config.batch_size)
-    loop = _Loop(model, gp_params, fixed_W, data, num_train, config,
-                 x_map=x_map, accum_steps=accum, group=group)
+    with span("setup"):
+        if config.mode not in ("joint", "dis"):
+            raise ValueError(f"unknown mode {config.mode!r}; want 'joint' or 'dis'")
+        init_params = dict(init_params or {})
+        device = resolve_device(str(device))
+        set_float32_precision(config.compute_dtype)
+        shape = _shape_config(config, dataset)
+        # before any work, and before outdir's files are touched
+        resumed = _load_resume(config.resume, shape, device) if config.resume else None
+        if resumed and resumed["object_kernel"] is not None:
+            ok = resumed["object_kernel"]
+            init_params.update(
+                rff=(ok["omega"].cpu(), ok["phase"].cpu()),
+                nystrom_idx=None if ok["nystrom_idx"] is None else ok["nystrom_idx"].cpu())
+        writer = group is None or group.global_rank == 0
+        own_log = log is None
+        log = log or (MetricsLogger(config.outdir) if writer else NullLogger())
+        outdir = config.outdir if writer else None
+        if outdir:
+            _write_sidecar(config, dataset, device)
+        run_key = run_keys(config.seed)[0]
+        model, gp_params, fixed_W, data, num_train = _setup(
+            dataset, config, device, init_params, group)
+        with span("setup.object_kernel"):
+            x_map, x_draws = _object_kernel(config, gp_params["X"], init_params, device)
+        accum = resolve_grad_accum(config.grad_accum_steps, num_train, config.batch_size)
+        with span("setup.loop"):
+            loop = _Loop(model, gp_params, fixed_W, data, num_train, config,
+                         x_map=x_map, accum_steps=accum, group=group)
     start_epoch = 0
     if resumed:
         tp.load_state_dict(model, resumed["vae"])

@@ -364,3 +364,54 @@ def test_factor_prep_per_shard_on_two_gloo_ranks(gen):
     for name, want in (("dU", dU), ("dZ", dZ)):
         got = torch.from_numpy(np.concatenate([r[name] for r in ranks]))
         assert _rel_err(got, want.cpu()) <= 1e-5, name
+
+
+def _synchronising(fn):
+    """(synchronising calls CUDA's sync debug mode warns about in fn(), the
+    port's host_sync count over the same call)."""
+    import warnings
+
+    from gppvae_tpu_torch.utils import timers
+
+    # set before the warnings are caught: the first switch of a process
+    # warns once itself (torch/cuda/__init__.py's set_sync_debug_mode)
+    torch.cuda.set_sync_debug_mode("warn")
+    before = timers.TRACER.counts.get("host_sync", 0)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    warned = sum("synchroniz" in str(w.message) for w in caught)
+    return warned, timers.TRACER.counts.get("host_sync", 0) - before
+
+
+def test_every_host_sync_of_a_step_and_a_request_is_counted(gen):
+    """Each synchronising call of a Phase C step (σ_y's copy and the two
+    guards) and of a predict_images call (none) goes through the tracer's
+    read, so `host_sync` counts them all."""
+    from gppvae_tpu_torch.eval.serving import build_server_state, predict_images
+
+    ds = build_rotated_digits("synthetic", num_objects=10, num_views=8, seed=7)
+    cfg = train_gppvae.GPPVAETrainConfig(zdim=6, epochs=1, batch_size=16, obj_feature_dim=4,
+                                         view_num_freqs=2, enc_features=(8, 16),
+                                         dec_features=(16, 8))
+    res = train_gppvae.train_gppvae(ds, cfg, device="cuda", log=_Quiet())
+    loop = train_gppvae._Loop(res.model, res.gp_params, res.fixed_W, res.data,
+                              len(ds.train_idx), cfg)
+    coeffs = loop.solve(loop.encode())
+    batches, w, eps = train_gppvae.make_draws(train_gppvae.run_keys(0)[0], len(ds.train_idx),
+                                              16, 6)(0)
+    steps = loop.epoch_steps(batches, w, eps)
+    loop.minibatch_step(coeffs, *steps[0])
+    torch.cuda.synchronize()
+    assert _synchronising(lambda: loop.minibatch_step(coeffs, *steps[1])) == (3, 3)
+    d = res.data
+    params = {"vae": res.model.state_dict(),
+              "gp": {k: v.detach() for k, v in res.gp_params.items()}}
+    state = build_server_state(res.model, params, None, d["images_tr"], d["d_tr"], d["q_tr"])
+    dd, qq = (torch.tensor([0, 3, 5], device="cuda") for _ in range(2))
+    predict_images(res.model, state, dd, qq)
+    torch.cuda.synchronize()
+    assert _synchronising(lambda: predict_images(res.model, state, dd, qq)) == (0, 0)

@@ -252,7 +252,8 @@ def test_train_vae_artifacts(tmp_path):
 
 def test_profile_dir_writes_a_trace(ds, tmp_path):
     """profile_dir wraps the epochs in torch.profiler and leaves a Chrome
-    trace (the twin of the JAX trainer's jax.profiler trace)."""
+    trace (the twin of the JAX trainer's jax.profiler trace), in which the
+    port's spans are user annotations: the phases and each Phase C step."""
     import gzip
 
     _train(ds, epochs=1, profile_dir=str(tmp_path / "trace"))
@@ -260,6 +261,9 @@ def test_profile_dir_writes_a_trace(ds, tmp_path):
         trace = json.load(f)
     names = {ev.get("name") for ev in trace["traceEvents"]}
     assert any("conv" in (n or "") for n in names)
+    spans = {ev["name"] for ev in trace["traceEvents"] if ev.get("cat") == "user_annotation"}
+    assert {"C_minibatch", "C.step", "C.forward", "C.backward", "C.optim",
+            "sync.guard"} <= spans
 
 
 def _jax_plan(rng, epoch, num_train, bs, zdim):
