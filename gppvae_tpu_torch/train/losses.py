@@ -2,7 +2,9 @@
 
 Counterpart of gppvae_tpu/train/losses.py, with its conventions: images
 y ∈ [0, 1], decoders emit logits, ŷ = sigmoid(logits); per-sample terms are
-summed over pixels / latent dims and returned per sample (B,).
+summed over pixels / latent dims and returned per sample (B,). No term
+makes the host wait for the device: a number such as σ_y becomes a 0-d
+tensor by a fill on the device (`_like`), not by a host-to-device copy.
 """
 
 from __future__ import annotations
@@ -11,8 +13,6 @@ import math
 
 import torch
 import torch.nn.functional as F
-
-from gppvae_tpu_torch.utils.timers import read
 
 
 def gaussian_recon_nll(y: torch.Tensor, y_hat: torch.Tensor, sigma_y):
@@ -26,12 +26,13 @@ def gaussian_recon_nll(y: torch.Tensor, y_hat: torch.Tensor, sigma_y):
 
 
 def _like(v, y: torch.Tensor) -> torch.Tensor:
-    """v as a 0-d tensor of y's dtype on y's device. A number goes there by
-    a blocking copy, which on a CUDA device waits for every kernel queued
-    before it: the tracer's read `sync.sigma_y`."""
+    """v as a 0-d tensor of y's dtype on y's device. A number is filled in
+    on the device (the same bits as torch.as_tensor's), so the host does
+    not wait there: a host-to-device copy would wait for every kernel
+    queued before it."""
     if torch.is_tensor(v):
         return torch.as_tensor(v, dtype=y.dtype, device=y.device)
-    return read("sigma_y", lambda x: torch.as_tensor(x, dtype=y.dtype, device=y.device), v)
+    return torch.full((), v, dtype=y.dtype, device=y.device)
 
 
 # |logit| above which f32 sigmoid rounds to exactly 0/1 is ~16.6; the

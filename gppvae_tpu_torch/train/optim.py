@@ -1,12 +1,21 @@
 """Adam guarded against gradient spikes, with gradient accumulation.
 
 Counterpart of `spike_guard` / `make_optimizer` / `resolve_grad_accum` in
-gppvae_tpu/train/train_gppvae.py:233-336. One Σg² pass over the gradients
-gives both the global-norm clip (exact pass-through below the threshold,
-(g/‖g‖)·c above it, as optax.clip_by_global_norm) and the non-finite skip:
-a step whose Σg² is not finite leaves the parameters, the Adam moments and
-the step count untouched. Adam is torch.optim.Adam, whose update equals
-optax.adam's (b1 0.9, b2 0.999, eps 1e-8 outside the sqrt).
+gppvae_tpu/train/train_gppvae.py:233-336. One multi-tensor Σg² pass over the
+gradients gives both the global-norm clip (exact pass-through below the
+threshold, (g/‖g‖)·c above it, as optax.clip_by_global_norm) and the
+non-finite skip: a step whose Σg² is not finite leaves the parameters, the
+Adam moments and the step count untouched. Adam is torch.optim.Adam's fused
+update, which equals optax.adam's (b1 0.9, b2 0.999, eps 1e-8 outside the
+sqrt).
+
+Everything is decided on the device, as the JAX spike_guard decides with
+selects: the clip is a select of two 0-d factors applied with
+`torch._foreach_*` ops, the skip is the fused Adam's `found_inf` (which
+holds back the parameters, both moments and the step count), and the skips
+are counted in a device counter. A step only enqueues work; the host waits
+for the device only where it reads `notfinite_count` or `steps` (the
+tracer's read `sync.notfinite`), at most once an epoch.
 
 With accum_steps = k > 1 the guard sits inside optax.MultiSteps: each call
 folds the gradients into a running mean (optax's Welford form
@@ -31,6 +40,7 @@ it.
 
 from __future__ import annotations
 
+import functools
 from typing import Iterable
 
 import torch
@@ -52,12 +62,21 @@ def resolve_grad_accum(grad_accum_steps: int, num_train: int, batch_size: int) -
     return grad_accum_steps
 
 
+def _sumsq(grads: list[torch.Tensor], device: torch.device) -> torch.Tensor:
+    """Σ g² over the tensors from one multi-tensor norm pass, in float32 or
+    wider (float64 where the gradients are)."""
+    if not grads:
+        return torch.zeros((), dtype=torch.float32, device=device)
+    dtype = functools.reduce(torch.promote_types, (g.dtype for g in grads), torch.float32)
+    return torch.sum(torch.stack(torch._foreach_norm(grads, 2, dtype=dtype)) ** 2)
+
+
 class GuardedAdam:
-    """torch.optim.Adam behind the fused clip + non-finite skip, every
+    """torch.optim.Adam (fused) behind the clip + non-finite skip, every
     `accum_steps` calls on the mean gradient.
 
-    Deciding the skip reads Σg² on the host: one device sync per Adam step,
-    so one per `accum_steps` calls (the tracer's read `sync.guard`)."""
+    A step makes no host sync: the skip and the clip are decided on the
+    device, and `notfinite_count` / `steps` read a device counter."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], lr: float,
                  clip_grad_norm: float = 1e5, accum_steps: int = 1, shards=None):
@@ -65,12 +84,23 @@ class GuardedAdam:
         # (MeshGroup, [is a block per parameter]) under tensor parallelism
         self.group, self.shards = shards if shards and any(shards[1]) else (None, None)
         self.clip = clip_grad_norm
-        self.adam = torch.optim.Adam(self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+        self.adam = torch.optim.Adam(self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                     fused=True)
         self.accum_steps = accum_steps
         self.mini_step = 0
         self.acc: list[torch.Tensor] | None = None  # running mean gradients
-        self.notfinite_count = 0
-        self.steps = 0  # Adam steps applied
+        self.guarded = 0  # calls that reached the guard: steps + skips
+        self.skipped = torch.zeros((), dtype=torch.int64, device=self.params[0].device)
+
+    @property
+    def notfinite_count(self) -> int:
+        """Steps skipped because Σg² was not finite (reads the device)."""
+        return read("notfinite", int, self.skipped)
+
+    @property
+    def steps(self) -> int:
+        """Adam steps applied (reads the device)."""
+        return self.guarded - self.notfinite_count
 
     def zero_grad(self) -> None:
         self.adam.zero_grad(set_to_none=True)
@@ -86,43 +116,46 @@ class GuardedAdam:
     def state_dict(self) -> dict:
         """Everything the next call reads: Adam's moments and step counts,
         the position inside an accumulation window with its running mean,
-        and the counters; whole under tensor parallelism (every rank of the
-        model row calls it)."""
+        and the counters as ints; whole under tensor parallelism (every
+        rank of the model row calls it)."""
         adam = self.adam.state_dict()
         if self.group is not None:
             adam["state"] = {i: {k: self._whole(i, v) if torch.is_tensor(v) and v.dim() else v
                                  for k, v in st.items()} for i, st in adam["state"].items()}
+        skipped = self.notfinite_count
         return {
             "adam": adam,
             "mini_step": self.mini_step,
             "acc": None if self.acc is None else [
                 self._whole(i, a).clone() for i, a in enumerate(self.acc)],
-            "notfinite_count": self.notfinite_count,
-            "steps": self.steps,
+            "notfinite_count": skipped,
+            "steps": self.guarded - skipped,
         }
 
     def load_state_dict(self, state: dict) -> None:
         # the learning rate stays this optimizer's own (optax keeps it
-        # outside its state)
+        # outside its state), and the update the fused one, whatever wrote
+        # the state: its step counts then load onto the parameters' device
         lr = self.adam.param_groups[0]["lr"]
-        adam = state["adam"]
+        adam = dict(state["adam"], param_groups=[
+            {**g, "lr": lr, "fused": True} for g in state["adam"]["param_groups"]])
         if self.group is not None:
-            adam = {**adam, "state": {
+            adam["state"] = {
                 i: {k: self._mine(i, v) if torch.is_tensor(v) and v.dim() else v
-                    for k, v in st.items()} for i, st in adam["state"].items()}}
+                    for k, v in st.items()} for i, st in adam["state"].items()}
         self.adam.load_state_dict(adam)
-        for group in self.adam.param_groups:
-            group["lr"] = lr
         self.mini_step = int(state["mini_step"])
         self.acc = None if state["acc"] is None else [
             self._mine(i, a).to(device=p.device, dtype=p.dtype)
             for i, (a, p) in enumerate(zip(state["acc"], self.params))]
-        self.notfinite_count = int(state["notfinite_count"])
-        self.steps = int(state["steps"])
+        skipped = int(state["notfinite_count"])
+        self.skipped.fill_(skipped)
+        self.guarded = int(state["steps"]) + skipped
 
     @torch.no_grad()
-    def step(self) -> bool:
-        """Accumulate, or clip and apply; True if the parameters moved."""
+    def step(self) -> torch.Tensor:
+        """Accumulate, or clip and apply; a 0-d device bool, True if the
+        parameters moved."""
         if self.accum_steps > 1:
             if self.acc is None:
                 self.acc = [torch.zeros_like(p) for p in self.params]
@@ -131,35 +164,35 @@ class GuardedAdam:
                 a.add_((g - a) / (self.mini_step + 1))
             self.mini_step += 1
             if self.mini_step < self.accum_steps:
-                return False
+                return torch.zeros((), dtype=torch.bool, device=self.skipped.device)
             for a, p in zip(self.acc, self.params):
                 p.grad = a.clone()
                 a.mul_(0)
             self.mini_step = 0
         return self._guarded_step()
 
-    def _guarded_step(self) -> bool:
+    def _guarded_step(self) -> torch.Tensor:
         grads = [p.grad for p in self.params if p.grad is not None]
-        sumsq = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+        device = self.skipped.device
         if self.group is None:
-            for g in grads:
-                sumsq = sumsq + torch.sum(g * g)
+            sumsq = _sumsq(grads, device)
         else:  # the blocks' share from the whole model row, the rest once
-            blocks = torch.zeros_like(sumsq)
-            for p, is_block in zip(self.params, self.shards):
-                if p.grad is not None and is_block:
-                    blocks = blocks + torch.sum(p.grad * p.grad)
-                elif p.grad is not None:
-                    sumsq = sumsq + torch.sum(p.grad * p.grad)
-            sumsq = sumsq + all_reduce(self.group, blocks, axis="model")
-        if not read("guard", bool, torch.isfinite(sumsq)):
-            self.notfinite_count += 1
-            return False
+            blocks = [p.grad for p, b in zip(self.params, self.shards)
+                      if p.grad is not None and b]
+            rest = [p.grad for p, b in zip(self.params, self.shards)
+                    if p.grad is not None and not b]
+            sumsq = _sumsq(rest, device) + all_reduce(self.group, _sumsq(blocks, device),
+                                                      axis="model")
+        ok = torch.isfinite(sumsq)
+        bad = ~ok
         if self.clip and self.clip > 0:
+            # optax's select: g below the clip, else (g/‖g‖)·c
             norm = torch.sqrt(sumsq)
             below = norm < self.clip
-            for g in grads:
-                g.copy_(torch.where(below, g, (g / norm.to(g.dtype)) * self.clip))
+            torch._foreach_div_(grads, torch.where(below, 1.0, norm))
+            torch._foreach_mul_(grads, torch.where(below, 1.0, torch.full_like(norm, self.clip)))
+        self.adam.found_inf = bad.float()  # the fused update skips on 1.0
         self.adam.step()
-        self.steps += 1
-        return True
+        self.skipped.add_(bad)
+        self.guarded += 1
+        return ok

@@ -388,9 +388,10 @@ def _synchronising(fn):
 
 
 def test_every_host_sync_of_a_step_and_a_request_is_counted(gen):
-    """Each synchronising call of a Phase C step (σ_y's copy and the two
-    guards) and of a predict_images call (none) goes through the tracer's
-    read, so `host_sync` counts them all."""
+    """Each synchronising call of a Phase C step and of a predict_images
+    call goes through the tracer's read, so `host_sync` counts them all.
+    Neither makes one: a step fills σ_y in on the card and both guarded
+    Adams decide the skip and the clip there, so the host runs ahead."""
     from gppvae_tpu_torch.eval.serving import build_server_state, predict_images
 
     ds = build_rotated_digits("synthetic", num_objects=10, num_views=8, seed=7)
@@ -406,7 +407,7 @@ def test_every_host_sync_of_a_step_and_a_request_is_counted(gen):
     steps = loop.epoch_steps(batches, w, eps)
     loop.minibatch_step(coeffs, *steps[0])
     torch.cuda.synchronize()
-    assert _synchronising(lambda: loop.minibatch_step(coeffs, *steps[1])) == (3, 3)
+    assert _synchronising(lambda: loop.minibatch_step(coeffs, *steps[1])) == (0, 0)
     d = res.data
     params = {"vae": res.model.state_dict(),
               "gp": {k: v.detach() for k, v in res.gp_params.items()}}
@@ -415,3 +416,49 @@ def test_every_host_sync_of_a_step_and_a_request_is_counted(gen):
     predict_images(res.model, state, dd, qq)
     torch.cuda.synchronize()
     assert _synchronising(lambda: predict_images(res.model, state, dd, qq)) == (0, 0)
+
+
+def test_a_non_finite_step_is_skipped_on_the_card(gen):
+    """A NaN gradient on the card: the fused update leaves the parameters,
+    both moments and the step count as they were, `notfinite_count` reads
+    the int 1, and the step itself makes no synchronising call. A clipped
+    step then equals the same optimizer's on the CPU."""
+    from gppvae_tpu_torch.train.optim import GuardedAdam
+
+    shapes = [(64, 32), (32,), (3, 3, 8, 8)]
+    ps = [torch.nn.Parameter(torch.randn(s, device="cuda", generator=gen)) for s in shapes]
+    cpu = [torch.nn.Parameter(p.detach().cpu()) for p in ps]
+    opt, ref = GuardedAdam(ps, lr=1e-2, clip_grad_norm=1e3), GuardedAdam(cpu, lr=1e-2,
+                                                                          clip_grad_norm=1e3)
+
+    def feed(scale, nan=False):
+        for p, q in zip(ps, cpu):
+            p.grad = torch.randn(p.shape, device="cuda", generator=gen) * scale
+            q.grad = p.grad.cpu()
+        if nan:
+            ps[1].grad[3] = float("nan")
+            cpu[1].grad[3] = float("nan")
+
+    feed(1.0)
+    opt.step()
+    ref.step()
+    before = [(p.detach().clone(), {k: v.clone() for k, v in opt.adam.state[p].items()})
+              for p in ps]
+    feed(1.0, nan=True)
+    torch.cuda.synchronize()
+    moved = []
+    assert _synchronising(lambda: moved.append(opt.step())) == (0, 0)
+    ref.step()
+    assert moved[0].device.type == "cuda" and not bool(moved[0])
+    for p, (was, state) in zip(ps, before):
+        assert torch.equal(p, was)
+        for k, v in state.items():
+            assert torch.equal(opt.adam.state[p][k], v), k
+    assert float(opt.adam.state[ps[0]]["step"]) == 1.0
+    n = opt.notfinite_count
+    assert type(n) is int and n == 1 and opt.steps == 1
+    feed(1e6)  # far above the clip
+    assert bool(opt.step()) and bool(ref.step())
+    for p, q in zip(ps, cpu):
+        torch.testing.assert_close(p.detach().cpu(), q.detach(), rtol=1e-6, atol=1e-7)
+    assert (opt.notfinite_count, opt.steps) == (ref.notfinite_count, ref.steps) == (1, 2)

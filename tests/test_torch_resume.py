@@ -263,7 +263,7 @@ def test_profile_dir_writes_a_trace(ds, tmp_path):
     assert any("conv" in (n or "") for n in names)
     spans = {ev["name"] for ev in trace["traceEvents"] if ev.get("cat") == "user_annotation"}
     assert {"C_minibatch", "C.step", "C.forward", "C.backward", "C.optim",
-            "sync.guard"} <= spans
+            "sync.plan"} <= spans
 
 
 def _jax_plan(rng, epoch, num_train, bs, zdim):

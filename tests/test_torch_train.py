@@ -26,6 +26,7 @@ import ast
 import functools
 import importlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -43,13 +44,14 @@ from gppvae_tpu.data import build_rotated_digits
 from gppvae_tpu.train.batching import epoch_batches as jax_epoch_batches
 from gppvae_tpu.train.batching import epoch_keys
 from gppvae_tpu_torch import ops
-from gppvae_tpu_torch.checkpoint import CheckpointFormatError
+from gppvae_tpu_torch.checkpoint import CheckpointFormatError, load_tree, save_tree
 from gppvae_tpu_torch.convert import flax_to_state_dict, rff_draws_from_map
 from gppvae_tpu_torch.eval import predict_heldout
 from gppvae_tpu_torch.models import encode_all
 from gppvae_tpu_torch.train import train_gppvae, train_vae
+from gppvae_tpu_torch.train.losses import _like
 from gppvae_tpu_torch.train.optim import GuardedAdam, resolve_grad_accum
-from gppvae_tpu_torch.utils import prng
+from gppvae_tpu_torch.utils import prng, timers
 from _one_thread import one_thread  # noqa: F401
 
 # the module (gppvae_tpu.train re-exports a function of the same name)
@@ -561,6 +563,70 @@ def test_guarded_adam_accumulation_matches_optax_multisteps(k):
     assert topt.notfinite_count == int(state.inner_opt_state["notfinite_count"]) == skipped
     assert topt.mini_step == int(state.mini_step) == len(scale) % k
     assert topt.steps == first_emit_after_nan // k
+
+
+def test_guarded_adam_counts_are_ints_and_survive_a_save(tmp_path):
+    """The skips and steps are counted on the device and handed over as
+    ints; a saved state resumes with the same counts, also where the state
+    was written by the unfused Adam."""
+    grads = [np.full((4, 3), s) for s in (1.0, np.nan, 1.0, 1e6, 0.5, np.inf, 2.0)]
+
+    def make():
+        p = torch.nn.Parameter(torch.ones(4, 3, dtype=torch.float64))
+        return p, GuardedAdam([p], lr=1e-2, clip_grad_norm=1e3)
+
+    pa, a = make()
+    for g in grads[:4]:
+        pa.grad = torch.tensor(g)
+        a.step()
+    saved = a.state_dict()
+    assert type(saved["notfinite_count"]) is int and type(saved["steps"]) is int
+    assert (saved["notfinite_count"], saved["steps"]) == (1, 3)
+    save_tree(str(tmp_path / "opt"), saved)
+    back = load_tree(str(tmp_path / "opt"))
+    back["adam"]["param_groups"][0]["fused"] = None  # as torch.optim.Adam's default writes it
+    pb, b = make()
+    with torch.no_grad():
+        pb.copy_(pa)
+    b.load_state_dict(back)
+    assert (b.notfinite_count, b.steps) == (1, 3) and b.adam.param_groups[0]["fused"]
+    for g in grads[4:]:
+        for p, opt in ((pa, a), (pb, b)):
+            p.grad = torch.tensor(g)
+            opt.step()
+    assert torch.equal(pa, pb)
+    assert (a.notfinite_count, a.steps) == (b.notfinite_count, b.steps) == (2, 5)
+    assert type(a.notfinite_count) is int and type(a.steps) is int
+
+
+def test_a_phase_c_step_makes_no_host_sync(golden):
+    """One _Loop.minibatch_step only enqueues work: the tracer's host_sync
+    count stays as it was (σ_y is filled on the device, and both guards
+    decide there)."""
+    loop = _port(golden)
+    coeffs = loop.solve(loop.encode())
+    batches, w, eps = train_gppvae.make_draws(train_gppvae.run_keys(7)[0],
+                                              golden["num_train"], 16, 6)(0)
+    steps = loop.epoch_steps(batches, w, eps)
+    before = timers.TRACER.counts.get("host_sync", 0)
+    loop.minibatch_step(coeffs, *steps[0])
+    assert timers.TRACER.counts.get("host_sync", 0) == before
+    assert loop.opt_vae.steps == loop.opt_gp.steps == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sigma_y_fill_equals_the_copy_bit_for_bit(dtype):
+    """_like fills a number in on y's device with the bits that
+    torch.as_tensor's copy gave, rounding ties included."""
+    rng = np.random.default_rng(0)
+    values = [0.1, 0.3, 1 / 3, 0.05, 2.5e-5, math.pi, 1e-40, 3.0e38,
+              *(rng.random(500) * 10.0 ** rng.integers(-6, 4, 500))]
+    ints = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    y = torch.zeros(2, 3, dtype=dtype)
+    for v in values:
+        got, want = _like(float(v), y), torch.as_tensor(float(v), dtype=dtype)
+        assert got.dtype == dtype and got.shape == () and got.device == y.device
+        assert int(got.view(ints)) == int(want.view(ints)), v
 
 
 @pytest.mark.parametrize("requested", [-1, 1, 3])
