@@ -2,7 +2,8 @@
 comparison with the reference once the program's state is freed.
 
 A mix's `kind` picks one of KINDS; everything else a run reads comes from
-the configuration (configs/<name>.json) and the mix (traffic/<name>.json).
+the configuration (configs/<name>.json, with the reference module it names
+under `reference_module`) and the mix (traffic/<name>.json).
 """
 
 from __future__ import annotations
@@ -13,7 +14,6 @@ import time
 import torch
 
 from benchmark.harness import checks, datagen, program, trace, traffic, weights
-from benchmark.reference.gppvae import GPPVAE
 
 
 class Run:
@@ -29,6 +29,10 @@ class Run:
         self.images = 0  # serving: images handed back in the window
         self.attempted = self.failed = 0
         self.slice: trace.Slice | None = None  # the card's activity in the traced slice
+        # serving: profile a card-only slice in an untraced run too, for an
+        # end-to-end metric read from the device's trace
+        self.card_slice = False
+        self.slice_images = 0  # serving: images asked in that slice
         self.host_slice: trace.Slice | None = None  # a shorter one with the host's too
         self.memory_peak_bytes = None
         self.numbers: dict = {}
@@ -42,6 +46,12 @@ class Run:
 def _ref_config(run: Run) -> dict:
     """The model and training fields the reference reads, as the mix runs them."""
     return {**run.cfg["model"], **run.cfg["train"], **run.mix.get("train", {})}
+
+
+def _reference_model(run: Run, grid: dict, vae0: dict, gp0: dict, precision: str):
+    """The configuration's reference model over the initial parameters."""
+    return run.cfg["reference_module"].GPPVAE(_ref_config(run), tuple(grid["images"].shape[1:]),
+                                              vae0, gp0, precision)
 
 
 def _grid_rows(grid: dict, part: str, device):
@@ -62,7 +72,8 @@ def _free() -> None:
 def inputs(cfg: dict, mix: dict, seed: int, device):
     """The grid, the initial parameters, the program's dataset and config."""
     grid = datagen.make_grid(cfg["data"], seed, device)
-    vae0, gp0 = weights.make(cfg["model"], cfg["train"], grid, seed, device)
+    vae0, gp0 = weights.make(cfg["reference_module"], cfg["model"], cfg["train"], grid, seed,
+                             device)
     ds = program.dataset(grid, cfg["name"])
     return grid, vae0, gp0, ds, program.train_config(cfg, mix.get("train", {}))
 
@@ -86,7 +97,7 @@ def reference_training(run: Run, grid: dict, vae0: dict, gp0: dict, precision: s
     device, steps, rc = run.device, run.mix["checked_steps"], _ref_config(run)
     draws = traffic.epoch_draws(run.seed, len(grid["train_idx"]), rc["batch_size"], rc["zdim"])
     images, d, q = _grid_rows(grid, "train_idx", device)
-    ref = GPPVAE(rc, tuple(grid["images"].shape[1:]), vae0, gp0, precision)
+    ref = _reference_model(run, grid, vae0, gp0, precision)
     Z0 = ref.means(images)
     coeffs = ref.taylor(Z0, d, q)
     batches, w, eps = draws(0)
@@ -215,7 +226,7 @@ def reference_serving(run: Run, grid: dict, vae0: dict, gp0: dict, precision: st
     """The folded core and the images of each kept request."""
     device = run.device
     images, d, q = _grid_rows(grid, "train_idx", device)
-    ref = GPPVAE(_ref_config(run), tuple(grid["images"].shape[1:]), vae0, gp0, precision)
+    ref = _reference_model(run, grid, vae0, gp0, precision)
     M = ref.core(ref.means(images), d, q)
     out = [ref.predict(M, torch.as_tensor(dd, device=device), torch.as_tensor(qq, device=device))
            for dd, qq in run.produced["requests"]]
@@ -228,7 +239,7 @@ def serve(run: Run, seconds: float, traced: bool, t_start: float, fault=None) ->
     part("start")
     grid, vae0, gp0, ds, config = inputs(cfg, mix, seed, device)
     part("inputs")
-    server = program.Server(ds, config, vae0, gp0, device)
+    server = program.Server(ds, config, cfg["model"], vae0, gp0, device)
     if fault:
         fault(server)
     part("program")
@@ -260,14 +271,19 @@ def serve(run: Run, seconds: float, traced: bool, t_start: float, fault=None) ->
         if end - t0 >= seconds:
             break
     run.window_s = end - t0
+
+    def work(requests):
+        for d, q in requests:
+            server.request(d, q)
+
     if traced:
         slice_reqs = [reqs.next()[:2] for _ in range(mix["trace_requests"])]
-
-        def work(requests):
-            for d, q in requests:
-                server.request(d, q)
-
+    elif run.card_slice:  # whole blocks: every seed the same sizes
+        slice_reqs = reqs.blocks(-(-mix["trace_requests"] // len(reqs.sizes)))
+    if traced or run.card_slice:
         run.slice = trace.profile(lambda: work(slice_reqs), len(slice_reqs), device)
+        run.slice_images = sum(len(d) for d, _ in slice_reqs)
+    if traced:
         host_reqs = slice_reqs[: max(1, len(slice_reqs) // 4)]
         run.host_slice = trace.profile(lambda: work(host_reqs), len(host_reqs), device, True)
     run.memory_peak_bytes = _peak(device)

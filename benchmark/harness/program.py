@@ -16,6 +16,7 @@ Serving folds `eval.serving.build_server_state` and answers with
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import time
 
 import numpy as np
@@ -186,14 +187,26 @@ class Trainer:
             setattr(self.loop, hook, fn)
 
 
+def vae_options(model: dict, given) -> dict:
+    """The keys of a configuration's `model` that the program's VAE
+    constructor names, other than those in `given`: a model option the
+    program gains reaches the served model as it reaches the trainer's
+    config (train_config)."""
+    names = set(inspect.signature(VAE).parameters) - set(given)
+    return {k: tuple(v) if isinstance(v, list) else v for k, v in model.items() if k in names}
+
+
 class Server:
     """A served model: the state folded once, then one call per request."""
 
-    def __init__(self, ds: GridDataset, config: tg.GPPVAETrainConfig, vae: dict, gp: dict,
-                 device: torch.device):
+    def __init__(self, ds: GridDataset, config: tg.GPPVAETrainConfig, model: dict, vae: dict,
+                 gp: dict, device: torch.device):
+        """`model`: the configuration's `model` dict."""
         set_float32_precision(config.compute_dtype)
-        self.model = VAE(config.zdim, ds.image_shape, config.enc_features, config.dec_features,
-                         config.dec_upsample, dtype=compute_dtype(config.compute_dtype))
+        given = {"zdim": config.zdim, "image_shape": ds.image_shape,
+                 "enc_features": config.enc_features, "dec_features": config.dec_features,
+                 "upsample": config.dec_upsample, "dtype": compute_dtype(config.compute_dtype)}
+        self.model = VAE(**given, **vae_options(model, given))
         self.model.load_state_dict({k: v.cpu() for k, v in vae.items()})
         self.model.to(device)
         self.gp = {k: v.detach().clone() for k, v in gp.items()}

@@ -68,6 +68,12 @@ class Requests:
             checked = self.largest_kept = True
         return d, q, checked
 
+    def blocks(self, n: int) -> list:
+        """The (d, q) of the next n whole blocks, the rest of the current
+        block left unsent: every seed the same sizes, in its own order."""
+        self.block = []
+        return [self.next()[:2] for _ in range(n * len(self.sizes))]
+
     def warm_sizes(self):
         """One request of every size, for the set-up's warm-up."""
         return [(np.repeat(np.arange(k) % self.P, self.Q).astype(np.int64),

@@ -1,7 +1,9 @@
 """A configuration's initial parameters, drawn on the card from the seed.
 
-The VAE's weights are normal with variance 1/fan_in (LeCun's scale, as the
-program's own init) and its biases zero, all drawn in one call and sliced;
+The VAE's parameters are those the configuration's reference module lists
+(`vae_shapes`), in its order: weights normal with variance 1/fan_in (LeCun's
+scale, as the program's own init) and biases zero, all drawn in one call and
+sliced;
 the GP's object features X are normal with variance 1/M; the view features
 W are the fixed map of the view auxiliary that GPPVAE-joint starts from
 (MATH.md §1): [1, cos kθ, sin kθ]_k of rotation angles, [1, t, ..., t^deg] of
@@ -17,7 +19,6 @@ import numpy as np
 import torch
 
 from benchmark.harness.datagen import generator
-from benchmark.reference.gppvae import vae_shapes
 
 
 def view_features(view_aux: np.ndarray, periodic: bool, cols: int) -> torch.Tensor:
@@ -42,11 +43,12 @@ def view_columns(model: dict) -> int:
     return model.get("view_feature_dim") or 2 * model["view_num_freqs"] + 1
 
 
-def make(model: dict, train: dict, grid: dict, seed: int, device) -> tuple[dict, dict]:
-    """({name: VAE tensor}, {'X', 'W', 'log_vs', 'log_vn'}) float32 on `device`."""
+def make(reference, model: dict, train: dict, grid: dict, seed: int,
+         device) -> tuple[dict, dict]:
+    """({name: VAE tensor}, {'X', 'W', 'log_vs', 'log_vn'}) float32 on
+    `device`; `reference` is the configuration's reference module."""
     g = generator(seed, 4, device)
-    image_shape = tuple(grid["images"].shape[1:])
-    shapes = vae_shapes(image_shape, model["zdim"], model["enc_features"], model["dec_features"])
+    shapes = reference.vae_shapes(model, tuple(grid["images"].shape[1:]))
     sizes = {k: math.prod(s) for k, s in shapes.items()}
     flat = torch.randn(sum(sizes.values()), generator=g, device=device)
     vae, at = {}, 0

@@ -1,6 +1,7 @@
-"""serve_p95_ms: the 95th percentile (nearest rank) of every window
+"""serve_p95_ms.host: the 95th percentile (nearest rank) of every window
 request's latency, from when it was issued until its images were in host
-memory, in milliseconds."""
+memory, in milliseconds: the client's wait, on the host's clock, in a
+serving cell whose host sets the pace."""
 
 import math
 

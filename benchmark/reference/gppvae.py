@@ -25,6 +25,9 @@ MATH.md is its normative statement):
   serving   z* = U* B⁻¹ UᵀZ / v_n with U = √v_s·V, B = I + UᵀU / v_n;
             ŷ* = sigmoid(decoder(z*))
 
+The module fulfils the contract of a configuration's reference
+(harness/manifest.py): `vae_shapes`, `vae_flops` and `GPPVAE`.
+
 Parameters are a dict keyed by the names in `vae_shapes` (convolution
 weights (out, in, 3, 3), dense weights (out, in)). Everything runs in blocks
 of rows so that it fits beside nothing else on the card.
@@ -43,6 +46,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from benchmark.yardstick import flops
 
 PRECISIONS = ("exact", "tf32", "fp8")
 MIN_V_NOISE = 1e-6
@@ -90,8 +95,10 @@ def _down(size: int) -> int:
     return -(-size // 2)
 
 
-def vae_shapes(image_shape, zdim: int, enc_features, dec_features) -> dict:
-    """Every parameter's shape, by name."""
+def vae_shapes(model: dict, image_shape) -> dict:
+    """Every parameter's shape, by the program's name, in draw order, for a
+    configuration's `model` (zdim, enc_features, dec_features)."""
+    zdim, enc_features, dec_features = model["zdim"], model["enc_features"], model["dec_features"]
     H, W, C = image_shape
     shapes = {}
     cin, h, w = C, H, W
@@ -117,6 +124,14 @@ def vae_shapes(image_shape, zdim: int, enc_features, dec_features) -> dict:
     shapes["decoder.out.weight"] = (C, cin, 3, 3)
     shapes["decoder.out.bias"] = (C,)
     return shapes
+
+
+def vae_flops(model: dict, image_shape) -> tuple[int, int]:
+    """The forward FLOP of one image through the encoder and through the
+    decoder (priced in its `dec_upsample` form), by yardstick/flops.py."""
+    return (flops.encoder_fwd_flops(image_shape, model["enc_features"], model["zdim"]),
+            flops.decoder_fwd_flops(image_shape, model["dec_features"], model["zdim"],
+                                    model["dec_upsample"]))
 
 
 def _same_pad(size: int) -> tuple[int, int]:

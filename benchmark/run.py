@@ -55,6 +55,7 @@ def run_cell(manifest, name: str, seed: int, seconds: float, traced: bool, devic
     cell = manifest.workload(name)
     cfg, mix = manifest.config(cell["config"]), manifest.traffic(cell["traffic"])
     run = cells.Run(cell, cfg, mix, device, seed)
+    run.card_slice = any(m["source"] == "device_trace" for m in manifest.metrics(name, traced))
     cells.KINDS[mix["kind"]](run, seconds, traced, t_start, fault)
     correct, table = checks.judge(run.numbers, manifest.limits(name))
     metrics = {}

@@ -268,7 +268,7 @@ def serve(cfg, mix, seed, device, units, timers) -> dict:
     grid, vae0, gp0, ds, config = cells.inputs(cfg, mix, seed, device)
     t_inputs = time.perf_counter()
     timers.set_tracing(True)
-    server = program.Server(ds, config, vae0, gp0, device)
+    server = program.Server(ds, config, cfg["model"], vae0, gp0, device)
     timers.set_tracing(False)
     out: dict = {"program_part_s": time.perf_counter() - t_inputs}
     out["setup"] = setup_split(timers.take(), ("fold",))

@@ -23,14 +23,16 @@ TINY_MIX = {"trace_epochs": 1, "trace_requests": 5, "objects_per_request": [1, 4
 
 
 def tiny_tree(tmp: Path, limits: dict | None = None):
-    """A copy of BENCHMARK.json and the benchmark's data files under `tmp`,
-    every configuration cut to a tiny size and every mix to a short slice;
-    the limits are the committed ones unless `limits` replaces them."""
+    """A copy of BENCHMARK.json, the benchmark's data files, metrics and
+    reference modules under `tmp`, every configuration cut to a tiny size and
+    every mix to a short slice; the limits are the committed ones unless
+    `limits` replaces them."""
     from benchmark.harness.manifest import Manifest
 
     bench = tmp / "benchmark"
-    shutil.copytree(ROOT / "benchmark" / "metrics", bench / "metrics")
-    shutil.copytree(ROOT / "benchmark" / "limits", bench / "limits")
+    for d in ("metrics", "limits", "reference"):
+        shutil.copytree(ROOT / "benchmark" / d, bench / d,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     for d in ("configs", "traffic"):
         (bench / d).mkdir(parents=True)
     doc = json.loads((ROOT / "BENCHMARK.json").read_text())

@@ -1,16 +1,22 @@
 """What the benchmark loads: no module whose top-level name is jax, jaxlib,
 flax or gppvae_tpu (compared whole: gppvae_tpu_torch begins with
-gppvae_tpu), and nothing of the program in the reference and the
-yardstick."""
+gppvae_tpu), and nothing of the program in the yardstick and in each
+configuration's reference module."""
 
 from __future__ import annotations
 
 import ast
+import json
 import subprocess
 import sys
+from pathlib import Path
 
+import pytest
 from conftest import ROOT
 
+from benchmark.harness.manifest import Manifest
+
+DOC = json.loads((ROOT / "BENCHMARK.json").read_text())
 FORBIDDEN = {"jax", "jaxlib", "flax", "gppvae_tpu"}
 INDEPENDENT = ("reference", "yardstick")  # may not load the program either
 
@@ -51,8 +57,21 @@ def test_a_run_loads_neither_jax_nor_the_jax_package(tmp_path):
     assert "gppvae_tpu_torch" in loaded and not loaded & FORBIDDEN
 
 
+@pytest.mark.parametrize("config", [c["name"] for c in DOC["configs"]])
+def test_each_configurations_reference_imports_nothing_of_the_program(config):
+    """Wherever the configuration's `reference` path lies."""
+    cfg = Manifest().config(config)
+    path = ROOT / cfg["reference"]
+    assert path.resolve() == Path(cfg["reference_module"].__file__).resolve()
+    assert not _top_level_imports(path) & (FORBIDDEN | {"gppvae_tpu_torch"}), path
+
+
 def test_the_reference_loads_nothing_of_the_program():
-    code = ("import benchmark.reference.gppvae, benchmark.yardstick.flops, "
+    """Every configuration's reference module, loaded as a run loads it, with
+    the rest of what the comparison uses."""
+    code = ("from benchmark.harness.manifest import Manifest; m = Manifest(); "
+            "[m.config(c['name']) for c in m.doc['configs']]; "
+            "import benchmark.yardstick.flops, "
             "benchmark.yardstick.kernel_cost, benchmark.yardstick.peaks, "
             "benchmark.harness.checks, benchmark.harness.datagen, benchmark.harness.weights, "
             "benchmark.harness.traffic")

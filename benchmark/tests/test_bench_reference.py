@@ -23,7 +23,7 @@ DATA = {"kind": "rotated_digits", "num_objects": 6, "num_views": 4, "image_size"
 @pytest.fixture(scope="module")
 def case():
     grid = datagen.make_grid(DATA, 2**31 + 5, "cpu")
-    vae, gp = weights.make(MODEL, TRAIN, grid, 2**31 + 5, "cpu")
+    vae, gp = weights.make(ref, MODEL, TRAIN, grid, 2**31 + 5, "cpu")
     return grid, vae, gp
 
 
@@ -101,9 +101,12 @@ def test_a_float32_run_agrees_with_the_reference(tiny, cell):
     this size W has 15 entries, and the part of W's gradient along each row,
     which the rows' normalisation makes nought, is round-off that Adam's
     first steps turn into a step of lr either way; among the 63 entries of
-    the full size (and the full VAE) it reads 1e-5 (PERF.md)."""
+    the full size (and the full VAE) it reads 1e-5 (PERF.md). The serving
+    window is long enough to keep a reply on a loaded host: a window with
+    none reads as infinitely far."""
     from benchmark import run
 
-    out = run.run_cell(tiny, cell, 2**31 + 77, 0.2, False, torch.device("cpu"))
+    seconds = 1.0 if tiny.traffic(tiny.workload(cell)["traffic"])["kind"] == "serve" else 0.2
+    out = run.run_cell(tiny, cell, 2**31 + 77, seconds, False, torch.device("cpu"))
     for name, row in out["checks"].items():
         assert row["value"] <= (1e-2 if name == "update_gap" else row["limit"]), (name, row)

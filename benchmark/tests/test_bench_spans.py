@@ -172,7 +172,8 @@ def test_split_runs_a_cell_at_a_tiny_size(tmp_path, capsys, cell):
     assert out["span_cost_ns"]["on"] > 0 and out["idle"]["idle_s"] >= 0
     if cell == "faces128_train":
         traced = out["traced"][0]
-        assert traced["host_syncs_per_step"] == 3 and traced["steps"] >= 1
+        # a Phase C step makes no host sync since the guarded Adam decides on the card
+        assert traced["host_syncs_per_step"] == 0 and traced["steps"] >= 1
         assert 0.5 < traced["steps_over_phase"] <= 1.0
         assert {"setup", "setup.model", "setup.gp", "setup.data", "setup.object_kernel",
                 "setup.loop"} <= set(out["setup"])

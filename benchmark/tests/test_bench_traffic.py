@@ -4,10 +4,12 @@ sizes."""
 from __future__ import annotations
 
 import numpy as np
+import pytest
 import torch
 from conftest import ROOT  # noqa: F401
 
 from benchmark.harness import datagen, traffic, weights
+from benchmark.reference import gppvae
 
 MIX = {"kind": "serve", "objects_per_request": [1, 16],
        "check_share": 0.02, "max_checked": 40, "trace_requests": 200}
@@ -66,8 +68,8 @@ def test_grids_and_weights_repeat_for_a_seed():
     model = {"zdim": 4, "enc_features": [8, 16], "dec_features": [16, 8],
              "obj_feature_dim": 3, "view_num_freqs": 1}
     train = {"init_v_sig": 1.0, "init_v_noise": 0.5}
-    v1, p1 = weights.make(model, train, g1, SEED, "cpu")
-    v2, p2 = weights.make(model, train, g2, SEED, "cpu")
+    v1, p1 = weights.make(gppvae, model, train, g1, SEED, "cpu")
+    v2, p2 = weights.make(gppvae, model, train, g2, SEED, "cpu")
     assert all(torch.equal(v1[k], v2[k]) for k in v1)
     assert all(torch.equal(p1[k], p2[k]) for k in p1)
 
@@ -78,3 +80,17 @@ def test_split_counts_match_the_paper_grids():
             tr, val, ho = datagen.grid_split(P, Q, seed)
             assert (len(tr), len(ho)) == (n_train, P)
             assert len(np.unique(np.concatenate([tr, val, ho]))) == P * Q
+
+
+@pytest.mark.parametrize("sent", [0, 5, 16])
+def test_whole_blocks_ask_every_size_alike_for_every_seed(sent):
+    """The card-only slice after the window: the rest of the current block
+    is left unsent, then every size once a block, whatever the seed."""
+    for seed in (0, SEED, 7):
+        r = traffic.Requests(MIX, seed, num_objects=400, num_views=16)
+        for _ in range(sent):
+            r.next()
+        got = r.blocks(2)
+        assert len(got) == 32
+        for block in (got[:16], got[16:]):
+            assert sorted(len(d) // 16 for d, _ in block) == list(range(1, 17))

@@ -77,12 +77,21 @@ def gppvae_epoch_flops(
     rank: int,
     upsample: str = "resize",
 ) -> dict:
-    """Per-epoch FLOP breakdown of the GPPVAE epoch (train_gppvae._Loop):
+    """Per-epoch FLOP breakdown of the GPPVAE epoch of the program's VAE
+    (epoch_flops of its encoder's and decoder's count)."""
+    return epoch_flops(encoder_fwd_flops(image_shape, enc_features, zdim),
+                       decoder_fwd_flops(image_shape, dec_features, zdim, upsample),
+                       zdim=zdim, n_train=n_train, n_heldout=n_heldout,
+                       batch_size=batch_size, rank=rank)
+
+
+def epoch_flops(enc: int, dec: int, *, zdim: int, n_train: int, n_heldout: int,
+                batch_size: int, rank: int) -> dict:
+    """Per-epoch FLOP breakdown of the GPPVAE epoch (train_gppvae._Loop) of
+    a VAE whose encoder takes `enc` and decoder `dec` forward FLOP an image:
     Phase A full encode, Phase B exact solve + Taylor grads (≈ 2× the
     forward's GEMMs), OOS eval, Phase C minibatch fwd+bwd over ceil(N/bs)
     batches. The run's final refresh + eval is excluded."""
-    enc = encoder_fwd_flops(image_shape, enc_features, zdim)
-    dec = decoder_fwd_flops(image_shape, dec_features, zdim, upsample)
     nb = -(-n_train // batch_size)
     phase_a = n_train * enc
     phase_b = 3 * gp_solve_flops(n_train, rank, zdim)  # fwd + taylor bwd
