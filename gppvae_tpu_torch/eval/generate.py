@@ -96,7 +96,7 @@ def _check_grid_matches(params, fixed_W, dataset: GridDataset) -> None:
 
 def _model_and_xmap(state: dict, dataset: GridDataset, *, zdim, enc_features, dec_features,
                     object_kernel, rff_lengthscale, dec_upsample="resize",
-                    compute_dtype="float32", **_ignored):
+                    compute_dtype="float32", vae_layout="port", **_ignored):
     """Checkpoint → (model holding the run's VAE weights, on the state's
     device; object-kernel map), with the grid-mismatch guard. The model
     computes in the run's compute_dtype through its decoder lowering."""
@@ -105,7 +105,7 @@ def _model_and_xmap(state: dict, dataset: GridDataset, *, zdim, enc_features, de
     x_map = gp.make_x_map(object_kernel, _rff_draws(state), rff_lengthscale,
                           ok.get("nystrom_idx"))
     model = VAE(zdim, dataset.image_shape, tuple(enc_features), tuple(dec_features),
-                dec_upsample, dtype=_dtype(compute_dtype))
+                dec_upsample, dtype=_dtype(compute_dtype), vae_layout=vae_layout)
     model.load_state_dict(state["vae"])
     return model.to(_device(state)), x_map
 
@@ -297,7 +297,7 @@ def main(argv=None):
         "zdim": 16, "enc_features": (32, 64, 128),
         "dec_features": (128, 64, 32), "object_kernel": "linear",
         "rff_features": 32, "rff_lengthscale": 1.0, "extra_effects": (),
-        "seed": 0, "dec_upsample": "resize", "compute_dtype": "float32",
+        "seed": 0, "dec_upsample": "resize", "compute_dtype": "float32", "vae_layout": "port",
     }
     cfg_path = os.path.join(run_dir, "config.json")
     saved = {}

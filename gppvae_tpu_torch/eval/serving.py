@@ -833,14 +833,16 @@ def _sustained_throughput(call, d: torch.Tensor, q: torch.Tensor, P: int, Q: int
 
 
 def _model_from_meta(meta: dict, vae_params: dict, device) -> VAE:
-    """The VAE an artifact was exported with: architecture, decoder and the
+    """The VAE an artifact was exported with: architecture (its
+    `vae_layout` too; 'port' for an artifact that predates it), decoder and the
     compute dtype the run trained with (bfloat16 for a bfloat16 run, float32
     polish tail or not, as the JAX serve builds it), holding vae_params."""
     model = VAE(int(meta["zdim"]), tuple(meta["image_shape"]),
                 tuple(meta.get("enc_features", (32, 64, 128))),
                 tuple(meta.get("dec_features", (128, 64, 32))),
                 meta.get("dec_upsample", "resize"),
-                dtype=compute_dtype(meta.get("compute_dtype", "float32")))
+                dtype=compute_dtype(meta.get("compute_dtype", "float32")),
+                vae_layout=meta.get("vae_layout", "port"))
     model.load_state_dict(vae_params)
     return model.to(device)
 

@@ -2,6 +2,7 @@
 
 from gppvae_tpu_torch.models.cvae import CVAE
 from gppvae_tpu_torch.models.vae import (
+    LAYOUTS,
     UPSAMPLES,
     VAE,
     ConvDecoder,
@@ -10,5 +11,5 @@ from gppvae_tpu_torch.models.vae import (
     sample_reconstruction,
 )
 
-__all__ = ["CVAE", "UPSAMPLES", "VAE", "ConvDecoder", "ConvEncoder", "encode_all",
+__all__ = ["CVAE", "LAYOUTS", "UPSAMPLES", "VAE", "ConvDecoder", "ConvEncoder", "encode_all",
            "sample_reconstruction"]

@@ -44,6 +44,39 @@ of a dense output) → + the whole bias. Adding the bias after the gather
 keeps its gradient whole and alike on every rank of the model row. The
 decoder reshapes its dense output as (h, w, c) after the gather, so the
 feature order is the unsplit one.
+
+`vae_layout` picks one of two layouts of the same widths (`features`,
+`zdim`), S = len(features) stages each way:
+  * 'port' (the default) is the JAX package's VAE, as above: one 3×3
+    convolution per stage, stride 2 down and resize ×2 then a convolution
+    up, and a hidden dense layer of 8·zdim units, ELU, in front of the
+    heads;
+  * 'facevae' is FaceVAE, the face model of the GPPVAE paper (Casale et
+    al. 2018, §4.2; github.com/fpcasale/GPPVAE, pysrc/faceplace/vae.py,
+    FaceVAE(img_size=128, nf=32, zdim=256, steps=5, act='elu')). Encoder:
+    per stage h ← ELU(conv3×3(h)), stride 1, then h ← ELU(conv3×3(h)),
+    stride 2; both pad (1, 1) as `nn.Conv2d(..., padding=1)` does, so the
+    padding is the conv's own, not the explicit (0, 1) of 'SAME'; flatten
+    (H, W, C); μ and log σ² are two dense heads on the flat features,
+    with no hidden layer. Decoder: h = dense(z), linear, reshaped
+    (h, w, c); per stage nearest ×2, then ELU(conv3×3), then a second
+    conv3×3, both padding 1; a stage maps to the next width
+    (features[1:]) and the last to the image's channels, whose second
+    conv (C → C) has no ELU and gives the logits: upstream's last
+    Conv2dCellUp(nf, colors, act2='linear'). The state_dict stays flat:
+    `encoder.convs.{0..2S−1}` alternate stride 1 and stride 2,
+    `encoder.head_mu` / `encoder.head_logvar`, `decoder.dense`,
+    `decoder.convs.{0..2S−1}` in pairs per stage; there is no
+    `decoder.out`. Where it departs from the upstream file: the flatten
+    and the decoder's reshape are in (H, W, C) order, as the port's; the
+    second head is log σ², which the trainer and the Taylor surrogate
+    read, where upstream's is softplus(dense) = σ; the logits go through
+    the sigmoid of the port's likelihood, where upstream takes the last
+    conv's output as the image. 'subpixel' in bfloat16 runs each stage's
+    first convolution as `_upconv`.
+Each forward of either half counts the convolutions it launched in the
+tracer's counter `vae.conv3x3`, tallied at each launch and added with one
+`count` per half.
 """
 
 from __future__ import annotations
@@ -58,8 +91,16 @@ from torch import nn
 
 from gppvae_tpu_torch.parallel.collectives import copy_to_model, gather_columns
 from gppvae_tpu_torch.utils import prng
+from gppvae_tpu_torch.utils.timers import count
 
 UPSAMPLES = ("resize", "subpixel")
+LAYOUTS = ("port", "facevae")
+CONV_COUNTER = "vae.conv3x3"
+
+
+def _check_layout(vae_layout: str) -> None:
+    if vae_layout not in LAYOUTS:
+        raise ValueError(f"unknown vae_layout {vae_layout!r}; want one of {LAYOUTS}")
 
 
 def _same_pad(size: int, k: int = 3, s: int = 2) -> tuple[int, int]:
@@ -85,7 +126,11 @@ def flax_init_(model: nn.Module, key) -> None:
     0.8796…, variance 1/fan_in) drawn in flax's layout (HWIO, (in, out))
     from fold_in_str(key, module, layer, 1), the key flax derives for a
     layer's first parameter. `model.init(key, ...)` of the JAX package's
-    module gives the same values."""
+    module gives the same values. A 'facevae' layout, which has no flax
+    tree, is drawn by the same rule under the names such a module would
+    give its layers: `Conv_i` for the i-th convolution of a half,
+    `Dense_0` for the decoder's dense layer and the heads under their own
+    names."""
     key = prng.PRNGKey(key) if np.ndim(key) == 0 else np.asarray(key)
     n_dec_convs = len(model.decoder.convs)
     with torch.no_grad():
@@ -153,49 +198,68 @@ def _upconv(layer: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tens
 
 
 class ConvEncoder(nn.Module):
-    """Stride-2 3×3 conv stack → flatten (H, W, C) → dense → (μ, log σ²)."""
+    """3×3 conv stack → flatten (H, W, C) → (μ, log σ²): 'port', stride-2
+    convs and a hidden dense layer; 'facevae', a stride-1 and a stride-2
+    conv per stage and the heads on the flat features (module docstring)."""
 
     def __init__(self, zdim: int, image_shape: Sequence[int],
                  features: Sequence[int] = (32, 64, 128),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, vae_layout: str = "port"):
         super().__init__()
-        self.dtype = dtype
+        _check_layout(vae_layout)
+        self.dtype, self.vae_layout = dtype, vae_layout
         H, W, C = image_shape
         self.convs = nn.ModuleList()
+        self.pads = []  # each conv's explicit F.pad of its input: 'SAME' in 'port'
         cin = C
         for f in features:
-            self.convs.append(nn.Conv2d(cin, f, 3, stride=2))
+            if vae_layout == "facevae":
+                self.convs.append(nn.Conv2d(cin, f, 3, padding=1))
+                self.convs.append(nn.Conv2d(f, f, 3, stride=2, padding=1))
+                self.pads += [None, None]
+            else:
+                self.convs.append(nn.Conv2d(cin, f, 3, stride=2))
+                (h0, h1), (w0, w1) = _same_pad(H), _same_pad(W)
+                self.pads.append((w0, w1, h0, h1))
             cin = f
             H, W = -(-H // 2), -(-W // 2)
-        self.dense = nn.Linear(H * W * cin, 2 * zdim * 4)
-        self.head_mu = nn.Linear(2 * zdim * 4, zdim)
-        self.head_logvar = nn.Linear(2 * zdim * 4, zdim)
+        flat = H * W * cin
+        if vae_layout == "port":
+            self.dense = nn.Linear(flat, 2 * zdim * 4)
+            flat = 2 * zdim * 4
+        self.head_mu = nn.Linear(flat, zdim)
+        self.head_logvar = nn.Linear(flat, zdim)
 
     def forward(self, y: torch.Tensor):
         dt = self.dtype
         h = y.permute(0, 3, 1, 2)  # NHWC → NCHW
-        for conv in self.convs:
-            ph, pw = _same_pad(h.shape[2]), _same_pad(h.shape[3])
-            h = F.elu(_conv(conv, F.pad(h, (pw[0], pw[1], ph[0], ph[1])), dt))
+        launched = 0
+        for conv, pad in zip(self.convs, self.pads):
+            h = F.elu(_conv(conv, h if pad is None else F.pad(h, pad), dt))
+            launched += 1
+        count(CONV_COUNTER, launched)
         h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)  # flatten H, W, C
-        h = F.elu(_dense(self.dense, h, dt))
+        if self.vae_layout == "port":
+            h = F.elu(_dense(self.dense, h, dt))
         return (_dense(self.head_mu, h, dt).float(),
                 _dense(self.head_logvar, h, dt).float())
 
 
 class ConvDecoder(nn.Module):
-    """Dense → reshape (h, w, c) → (nearest-resize ×2 + 3×3 conv) stack →
-    3×3 conv to C logit channels, returned NHWC float32. 'subpixel' in
-    bfloat16 runs each upsampling stage as `_upconv` (the module
-    docstring)."""
+    """Dense → reshape (h, w, c) → per stage nearest-resize ×2 and a 3×3
+    conv → 3×3 conv to C logit channels ('port'); or per stage two 3×3
+    convs, the last stage's to C channels and its second linear
+    ('facevae'); returned NHWC float32. 'subpixel' in bfloat16 runs each
+    stage's first conv as `_upconv` (the module docstring)."""
 
     def __init__(self, zdim: int, image_shape: Sequence[int],
                  features: Sequence[int] = (128, 64, 32), upsample: str = "resize",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, vae_layout: str = "port"):
         super().__init__()
         if upsample not in UPSAMPLES:
             raise ValueError(f"unknown upsample {upsample!r}; want one of {UPSAMPLES}")
-        self.upsample, self.dtype = upsample, dtype
+        _check_layout(vae_layout)
+        self.upsample, self.dtype, self.vae_layout = upsample, dtype, vae_layout
         H, W, C = image_shape
         depth = len(features)
         self.h0, self.w0 = H // 2**depth, W // 2**depth
@@ -205,22 +269,44 @@ class ConvDecoder(nn.Module):
         self.dense = nn.Linear(zdim, self.h0 * self.w0 * self.f0)
         self.convs = nn.ModuleList()
         cin = self.f0
-        for f in features:
-            self.convs.append(nn.Conv2d(cin, f, 3, padding=1))
-            cin = f
-        self.out = nn.Conv2d(cin, C, 3, padding=1)
+        if vae_layout == "facevae":
+            for f in (*features[1:], C):
+                self.convs.append(nn.Conv2d(cin, f, 3, padding=1))
+                self.convs.append(nn.Conv2d(f, f, 3, padding=1))
+                cin = f
+        else:
+            for f in features:
+                self.convs.append(nn.Conv2d(cin, f, 3, padding=1))
+                cin = f
+            self.out = nn.Conv2d(cin, C, 3, padding=1)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        h = F.elu(_dense(self.dense, z, dt))
+        facevae = self.vae_layout == "facevae"
+        h = _dense(self.dense, z, dt)
+        if not facevae:
+            h = F.elu(h)
         h = h.reshape(z.shape[0], self.h0, self.w0, self.f0).permute(0, 3, 1, 2)
         merged = self.upsample == "subpixel" and dt == torch.bfloat16
-        for conv in self.convs:
+        convs = list(self.convs)  # a slice of the ModuleList would build a module per call
+        per_stage = 2 if facevae else 1
+        launched = 0
+        for s in range(0, len(convs), per_stage):
             if merged:
-                h = F.elu(_upconv(conv, h, dt))
+                h = F.elu(_upconv(convs[s], h, dt))
             else:
-                h = F.elu(_conv(conv, F.interpolate(h, scale_factor=2, mode="nearest"), dt))
-        return _conv(self.out, h, dt).permute(0, 2, 3, 1).float()  # NCHW → NHWC logits
+                h = F.elu(_conv(convs[s], F.interpolate(h, scale_factor=2, mode="nearest"), dt))
+            launched += 1
+            if facevae:
+                h = _conv(convs[s + 1], h, dt)
+                launched += 1
+                if s + 2 < len(convs):
+                    h = F.elu(h)
+        if not facevae:
+            h = _conv(self.out, h, dt)
+            launched += 1
+        count(CONV_COUNTER, launched)
+        return h.permute(0, 2, 3, 1).float()  # NCHW → NHWC logits
 
 
 class VAE(nn.Module):
@@ -228,19 +314,21 @@ class VAE(nn.Module):
     `key` (a prng key or an int seed) gives flax's init of the JAX
     package's `VAE.init(key, ...)` (`flax_init_`); without it the layers
     keep torch's construction values, for a caller that loads a state_dict
-    next."""
+    next. `vae_layout`: 'port' or 'facevae' (the module docstring)."""
 
     def __init__(self, zdim: int, image_shape: Sequence[int],
                  enc_features: Sequence[int] = (32, 64, 128),
                  dec_features: Sequence[int] = (128, 64, 32),
                  upsample: str = "resize",
                  key=None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 vae_layout: str = "port"):
         super().__init__()
         self.zdim = zdim
         self.image_shape = tuple(image_shape)
-        self.encoder = ConvEncoder(zdim, image_shape, enc_features, dtype)
-        self.decoder = ConvDecoder(zdim, image_shape, dec_features, upsample, dtype)
+        self.vae_layout = vae_layout
+        self.encoder = ConvEncoder(zdim, image_shape, enc_features, dtype, vae_layout)
+        self.decoder = ConvDecoder(zdim, image_shape, dec_features, upsample, dtype, vae_layout)
         if key is not None:
             flax_init_(self, key)
 

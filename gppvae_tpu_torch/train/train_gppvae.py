@@ -88,7 +88,7 @@ from gppvae_tpu_torch.convert import gp_params_from_numpy
 from gppvae_tpu_torch.data import GridDataset
 from gppvae_tpu_torch.eval.oos import predict_heldout
 from gppvae_tpu_torch.eval.panels import save_panel
-from gppvae_tpu_torch.models import UPSAMPLES, VAE, encode_all, sample_reconstruction
+from gppvae_tpu_torch.models import LAYOUTS, UPSAMPLES, VAE, encode_all, sample_reconstruction
 from gppvae_tpu_torch.parallel import (
     all_reduce_grads,
     check_replicated,
@@ -128,8 +128,10 @@ FINAL_STATE_FILE = "final_state"
 _SHAPE_FIELDS = (
     "mode", "zdim", "enc_features", "dec_features", "obj_feature_dim", "view_num_freqs",
     "view_feature_dim", "object_kernel", "rff_features", "nystrom_rank", "extra_effects",
-    "learn_sigma_y",
+    "learn_sigma_y", "vae_layout",
 )
+# what a state written before one of _SHAPE_FIELDS existed was written under
+_SHAPE_DEFAULTS = {"vae_layout": "port"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,6 +159,7 @@ class GPPVAETrainConfig:
     dec_features: Sequence[int] = (128, 64, 32)
     compute_dtype: str = "float32"  # VAE compute: 'float32' | 'bfloat16'
     dec_upsample: str = "resize"  # 'resize' | 'subpixel' (same params: models/vae.py)
+    vae_layout: str = "port"  # 'port' | 'facevae' (models/vae.py)
     polish_epochs: int = 0  # bfloat16 runs: the last K epochs in float32
     clip_grad_norm: float = 1e5  # global-norm clip in front of Adam (<=0 off)
     sat_penalty: float = 1.0  # saturation-death barrier weight (<=0 off)
@@ -261,12 +264,18 @@ def _setup(dataset: GridDataset, config: GPPVAETrainConfig, device: torch.device
     with span("setup.model"):
         model = VAE(config.zdim, dataset.image_shape, config.enc_features,
                     config.dec_features, config.dec_upsample, key=init_key,
-                    dtype=compute_dtype(config.compute_dtype))
+                    dtype=compute_dtype(config.compute_dtype), vae_layout=config.vae_layout)
         if "vae" in init_params:
             model.load_state_dict({k: torch.as_tensor(v) for k, v in init_params["vae"].items()})
         elif config.vae_weights:
-            model.load_state_dict(torch.load(config.vae_weights, map_location="cpu",
-                                             weights_only=True))
+            try:
+                model.load_state_dict(torch.load(config.vae_weights, map_location="cpu",
+                                                 weights_only=True))
+            except RuntimeError as e:
+                raise ValueError(
+                    f"--vae_weights {config.vae_weights!r} does not fit the "
+                    f"{config.vae_layout!r} vae_layout: pretrain with the same --vae_layout "
+                    f"({e})") from e
         model.to(device)
 
     with span("setup.gp"):
@@ -600,8 +609,9 @@ def _load_resume(path: str, shape: dict, device: torch.device) -> dict:
             f"resume {path!r}: its run drew its plans and ε from a torch.Generator "
             f"(its 'generator' field), not from the {STREAM} stream of the seed; it "
             "would continue on other draws than it began with. Train it again")
-    differs = [f"{k}: the state has {state['shape'].get(k)!r}, this run {v!r}"
-               for k, v in shape.items() if state["shape"].get(k) != v]
+    saved = {k: state["shape"].get(k, _SHAPE_DEFAULTS.get(k)) for k in shape}
+    differs = [f"{k}: the state has {saved[k]!r}, this run {v!r}"
+               for k, v in shape.items() if saved[k] != v]
     if differs:
         raise ValueError(f"resume {path!r} was written under another configuration ("
                          + "; ".join(differs) + ")")
@@ -775,7 +785,8 @@ def load_final(outdir: str, *, device: torch.device | str = "cpu",
                        weights_only=True)
     model = VAE(config.zdim, dataset.image_shape, config.enc_features, config.dec_features,
                 config.dec_upsample,
-                dtype=torch.float32 if _polish_epochs(config) else compute_dtype(config.compute_dtype))
+                dtype=torch.float32 if _polish_epochs(config) else compute_dtype(config.compute_dtype),
+                vae_layout=config.vae_layout)
     model.load_state_dict(final["vae"])
     x_draws = final["object_kernel"]
     return GPPVAETrainResult(
@@ -820,6 +831,9 @@ def main(argv=None) -> GPPVAETrainResult:
     p.add_argument("--dtype", default="float32", choices=list(COMPUTE_DTYPES),
                    help="VAE compute dtype (params and the GP path stay float32)")
     p.add_argument("--dec_upsample", default="resize", choices=list(UPSAMPLES))
+    p.add_argument("--vae_layout", default="port", choices=list(LAYOUTS),
+                   help="port: one conv a stage and a hidden dense layer; facevae: FaceVAE's "
+                        "two convs a stage, heads on the flat features (models/vae.py)")
     p.add_argument("--polish_epochs", type=int, default=0,
                    help="with --dtype bfloat16: run the final K epochs in float32")
     p.add_argument("--clip_grad_norm", type=float, default=1e5)
@@ -855,7 +869,7 @@ def main(argv=None) -> GPPVAETrainResult:
         rff_features=args.rff_features, rff_lengthscale=args.rff_lengthscale,
         nystrom_rank=args.nystrom_rank,
         extra_effects=tuple(e.strip() for e in args.extra_effects.split(",") if e.strip()),
-        compute_dtype=args.dtype, dec_upsample=args.dec_upsample,
+        compute_dtype=args.dtype, dec_upsample=args.dec_upsample, vae_layout=args.vae_layout,
         polish_epochs=args.polish_epochs, clip_grad_norm=args.clip_grad_norm,
         grad_accum_steps=args.grad_accum_steps,
         refresh_every_steps=args.refresh_every_steps,

@@ -46,7 +46,7 @@ from gppvae_tpu_torch.checkpoint import save_tree
 from gppvae_tpu_torch.config import build_dataset_from_flag
 from gppvae_tpu_torch.data import GridDataset
 from gppvae_tpu_torch.eval.panels import save_panel
-from gppvae_tpu_torch.models import UPSAMPLES, VAE, sample_reconstruction
+from gppvae_tpu_torch.models import LAYOUTS, UPSAMPLES, VAE, sample_reconstruction
 from gppvae_tpu_torch.parallel import all_reduce, all_reduce_grads, replicate, row_block
 from gppvae_tpu_torch.train.batching import make_draws, masked_means, num_batches
 from gppvae_tpu_torch.train.device import (
@@ -79,6 +79,7 @@ class VAETrainConfig:
     compute_dtype: str = "float32"  # 'float32' | 'bfloat16' (VAE compute; params f32)
     sat_penalty: float = 1.0  # saturation-death barrier weight (<=0 off)
     dec_upsample: str = "resize"  # 'resize' | 'subpixel' (same params: models/vae.py)
+    vae_layout: str = "port"  # 'port' | 'facevae' (models/vae.py); train_gppvae takes the same
     outdir: str | None = None
     panel_every: int = 0  # epochs between image panels (0 = off)
     checkpoint_every: int = 0  # epochs between vae_weights_NNNN.pt (0 = end only)
@@ -158,7 +159,7 @@ def train_vae(
     run_key, init_key, _ = prng.split(prng.PRNGKey(config.seed), 3)
     model = VAE(config.zdim, dataset.image_shape, config.enc_features,
                 config.dec_features, config.dec_upsample, key=init_key,
-                dtype=compute_dtype(config.compute_dtype))
+                dtype=compute_dtype(config.compute_dtype), vae_layout=config.vae_layout)
     if init_params is not None:
         model.load_state_dict({k: torch.as_tensor(v) for k, v in init_params.items()})
     model.to(device)
@@ -286,6 +287,8 @@ def main(argv=None) -> VAETrainResult:
     p.add_argument("--dtype", default="float32", choices=list(COMPUTE_DTYPES),
                    help="VAE compute dtype (params stay float32)")
     p.add_argument("--dec_upsample", default="resize", choices=list(UPSAMPLES))
+    p.add_argument("--vae_layout", default="port", choices=list(LAYOUTS),
+                   help="port or facevae (models/vae.py); pass train_gppvae the same")
     p.add_argument("--enc_features", default="32,64,128")
     p.add_argument("--dec_features", default="128,64,32")
     p.add_argument("--image_size", type=int, default=None)
@@ -300,7 +303,7 @@ def main(argv=None) -> VAETrainResult:
     config = VAETrainConfig(
         zdim=args.zdim, epochs=args.epochs, batch_size=args.bs, lr=args.lr,
         seed=args.seed, sigma_y=args.sigma_y, beta_kl=args.beta_kl,
-        compute_dtype=args.dtype, dec_upsample=args.dec_upsample,
+        compute_dtype=args.dtype, dec_upsample=args.dec_upsample, vae_layout=args.vae_layout,
         enc_features=tuple(int(f) for f in args.enc_features.split(",")),
         dec_features=tuple(int(f) for f in args.dec_features.split(",")),
         outdir=args.outdir, panel_every=args.panel_every,
