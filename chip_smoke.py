@@ -6,7 +6,7 @@
 Phases, one per printed line group; any failure ends the run non-zero:
   1. environment: torch / CUDA versions, the card's name and power limit,
      the TF32 flags. Raises without CUDA;
-  2. build: both CUDA kernels from gppvae_tpu_torch/csrc with nvcc for
+  2. build: the CUDA kernels from gppvae_tpu_torch/csrc with nvcc for
      sm_90a, one nvcc per source, started together;
   3. kernel vs plain on the card: the factor_prep kernels' registers and
      spills (nvcc.log) and their tensor-core products (HMMA…TF32 in
@@ -33,7 +33,12 @@ Phases, one per printed line group; any failure ends the run non-zero:
      `bound_ms` (the larger of FLOP over 165 TFLOP/s, float32-accurate
      products on the tensor cores in split TF32, a third of the TF32 peak,
      and bytes over 3.35 TB/s, counting what the function needs: G's lower
-     triangle, as G is symmetric);
+     triangle, as G is symmetric); conv3x3 at every kind of layer the main
+     paths run (SHAPES_CONV3X3, batch 64 or 128): y, dX, dW, db against
+     float64 and a bit-identical rerun, then the five numbers of fprop,
+     dgrad, wgrad and the whole backward, each through the calls a training
+     step makes (library: cuDNN's float32 F.conv2d and its backward, which
+     the port no longer calls);
   4. the slice at the full width of BASELINE's GPPVAE-joint: synthetic
      rotated digits (P = 400, Q = 16, 32×32×1), train_vae for 1 epoch, then
      train_gppvae --mode joint for 3 epochs from its vae_weights, both
@@ -177,6 +182,7 @@ from gppvae_tpu_torch.utils.kernel_timing import (
     max_err,
     max_rel_err,
     time_factor_prep,
+    time_conv3x3,
     timings,
 )
 
@@ -193,6 +199,18 @@ SHAPES_FACTOR_PREP = [(5700, 56, 16), (5701, 56, 16), (6401, 256, 16), (256, 204
 SHAPES_NLL_CORE = [(5700, 56, 16), (332, 232, 32), (5700, 560, 16), (6400, 600, 16),
                    (6400, 1024, 16), (6400, 2048, 8), (6400, 233, 16), (6400, 561, 16),
                    (6400, 1000, 16)]
+# conv3x3 (batch, H, W, Cin, Cout, stride, pads, ELU): FaceVAE's 32 → 32 at
+# 64² and 128² (stride 1; 128² → 64² at stride 2) and its first, 3 → 32 at
+# 128²; its last stage, 32 → 3 (the swapped weight gradient) and 3 → 3,
+# linear; the faces layout's 'SAME' (0, 1) stride 2 at 3 → 32 and 32 → 32;
+# the digits' 64 → 128 (the channel tile cut, N in tiles)
+PAD1, SAME = (1, 1, 1, 1), (0, 1, 0, 1)
+SHAPES_CONV3X3 = [(64, 64, 64, 32, 32, 1, PAD1, True), (64, 128, 128, 32, 32, 1, PAD1, True),
+                  (64, 128, 128, 32, 32, 2, PAD1, True), (64, 128, 128, 3, 32, 1, PAD1, True),
+                  (64, 128, 128, 32, 3, 1, PAD1, True), (64, 128, 128, 3, 3, 1, PAD1, False),
+                  (64, 128, 128, 3, 32, 2, SAME, True), (64, 64, 64, 32, 32, 2, SAME, True),
+                  (128, 8, 8, 64, 128, 2, SAME, True)]
+CONV3X3_REL_BOUND = 2e-6  # each pass, max abs err / max |float64|
 KERNEL_KEYS = ("max_abs_err", "ms", "device_ms", "device_ms_method", "plain_ms", "bound_ms",
                "bound_by", "library_ms")
 SLICE_NLL_REL_BOUND = 1e-4  # card (fp32, kernels) vs CPU float64, N = 5700
@@ -443,6 +461,51 @@ def check_nll_core(gen, n: int, r: int, l: int) -> dict:
     return {"shape": [n, r, l], "max_abs_err": verr, **t}
 
 
+def check_conv3x3(gen, n: int, h: int, w: int, cin: int, cout: int, stride: int, pads,
+                  elu: bool) -> list[dict]:
+    """conv3x3 at one shape: y, dX, dW, db through ops.conv3x3 against the
+    same layer in float64 (F.conv2d, F.elu, autograd) and a bit-identical
+    rerun, then each pass's timings (kernel_timing.time_conv3x3)."""
+    import torch.nn.functional as F
+
+    from gppvae_tpu_torch import ops
+    from gppvae_tpu_torch.ops.conv3x3 import out_size
+
+    x = torch.randn(n, h, w, cin, device="cuda", generator=gen)
+    wt = torch.randn(cout, cin, 3, 3, device="cuda", generator=gen) / (3 * cin ** 0.5)
+    b = 0.1 * torch.randn(cout, device="cuda", generator=gen)
+    dy = torch.randn(n, out_size(h, stride, *pads[:2]), out_size(w, stride, *pads[2:]), cout,
+                     device="cuda", generator=gen)
+
+    def passes(fn, x, wt, b):
+        x, wt, b = (t.detach().requires_grad_() for t in (x, wt, b))
+        y = fn(x, wt, b)
+        return [y.detach(), *torch.autograd.grad(y, (x, wt, b), dy.to(y.dtype))]
+
+    def f64(x, wt, b):
+        pt, pb, pl, pr = pads
+        y = F.conv2d(F.pad(x.permute(0, 3, 1, 2), (pl, pr, pt, pb)), wt, b, stride)
+        return (F.elu(y) if elu else y).permute(0, 2, 3, 1)
+
+    kern = lambda x, wt, b: ops.conv3x3(x, wt, b, stride, pads, elu)  # noqa: E731
+    got, again = passes(kern, x, wt, b), passes(kern, x, wt, b)
+    want = passes(f64, x.double(), wt.double(), b.double())
+    torch.cuda.synchronize()
+    rel = [float((g.double() - t).abs().max() / t.abs().max()) for g, t in zip(got, want)]
+    same = all(torch.equal(g, a) for g, a in zip(got, again))
+    label = f"conv3x3 {n}x{h}x{w} {cin}->{cout} stride {stride} pads {pads}"
+    say(f"{label}: y, dX, dW, db max rel err {[f'{r:.2e}' for r in rel]} (bound "
+        f"{CONV3X3_REL_BOUND:.0e}); bit-identical rerun {same}")
+    check(max(rel) <= CONV3X3_REL_BOUND, f"{label} error")
+    check(same, f"{label} is deterministic")
+    rows = []
+    for name, t in time_conv3x3(x, wt, b, dy, stride, pads, elu).items():
+        say_timings(f"{label} {name}", t)
+        rows.append({"shape": [n, h, w, cin, cout, stride, list(pads), name],
+                     "max_abs_err": max(rel), **t})
+    return rows
+
+
 def nll_core_shapes() -> list[tuple[int, int, int]]:
     """SHAPES_NLL_CORE, then at L = 16 each R where the plan changes driver
     on this card, with the R below and above it."""
@@ -499,6 +562,7 @@ def phase_kernels() -> dict:
     stats = {
         "factor_prep": [check_factor_prep(gen, *s) for s in SHAPES_FACTOR_PREP],
         "woodbury_nll_core": [check_nll_core(gen, *s) for s in nll_core_shapes()],
+        "conv3x3": [row for s in SHAPES_CONV3X3 for row in check_conv3x3(gen, *s)],
     }
     drivers = ops.driver_counts()
     say(f"3: nll_core launches per driver {drivers}")
@@ -518,7 +582,8 @@ def drive(label: str, fn):
     counts = ops.launch_counts()
     say(f"{label}: launch counts {counts}")
     check(counts["factor_prep_torch.cuda_calls"] == 0
-          and counts["nll_core_torch.cuda_calls"] == 0,
+          and counts["nll_core_torch.cuda_calls"] == 0
+          and counts["conv3x3_torch.cuda_calls"] == 0,
           f"{label}: no plain version ran on a CUDA tensor")
     return result, counts
 
@@ -1121,16 +1186,18 @@ def serve_exe_run(label: str, d: str, srv: str, ds, obs: dict, batch, state_side
 
 
 def path_serving(runs: dict) -> None:
-    """Path 6: serve every kept run; the serving path launches neither
-    kernel (gram and matmul_tn have no Pallas kernel in the JAX package), so
-    each run's counts must all be 0."""
+    """Path 6: serve every kept run; the serving path launches neither GP
+    kernel (gram and matmul_tn have no Pallas kernel in the JAX package) and
+    no gradient, so each run's counts must all be 0 but conv3x3's forward,
+    which a float32 model's encode and decode launch."""
     say("== 6 serving: generate --export_server, then serve --state (means, variances, "
         "observe, joint draws, the stdin loop, --repeat and --sustained), then serve "
         "--export_exe and the same through serve --exe, from paths 4, 5a, 5b")
     for label, run in runs.items():
         numbers, counts = drive(f"6 serving {label}", lambda: serve_run(label, run))
-        check(set(counts.values()) == {0}, f"6 serving {label}: no kernel launch, no plain "
-              "version on a CUDA tensor")
+        counts.pop("launch_conv3x3.fprop")
+        check(set(counts.values()) == {0}, f"6 serving {label}: no GP kernel or gradient "
+              "launch, no plain version on a CUDA tensor")
         say(f"6 serving {label} numbers: {json.dumps(numbers)}")
 
 
@@ -1251,7 +1318,8 @@ def path_protocol(tmp: str) -> dict:
     check(all(math.isfinite(v) for h in res.history for v in h.values() if isinstance(v, float)),
           "8b: every metric is finite")
     check(res.history[-1]["loss"] < res.history[0]["loss"], "8b: the loss falls")
-    check(set(c.values()) == {0}, "8b: the CVAE launches no kernel")
+    check(all(v == 0 for k, v in c.items() if "conv3x3" not in k),
+          "8b: the CVAE launches no GP kernel")
     check(all(os.path.exists(f"{tmp}/cvae/{f}") for f in
               (train_cvae.WEIGHTS_FILE, "final_state", "oos_panel.png", "metrics.jsonl")),
           "8b: cvae_weights.pt, final_state, oos_panel.png, metrics.jsonl on disk")
@@ -1594,10 +1662,14 @@ def main() -> None:
         "woodbury_nll_core": ("gppvae_tpu_torch/csrc/nll_core.cu",
                               "gppvae_tpu/ops/pallas_chol.py:167", "launch_nll_core.launches"),
     }
+    sources["conv3x3"] = ("gppvae_tpu_torch/csrc/conv3x3.cu", None, "launch_conv3x3.fprop")
     kernels = []
     for name, (src, rep, key) in sources.items():
         per_path = [c[key] for c in paths]
-        check(all(per_path), f"{name} launched in every path: {per_path}")
+        if rep is None:  # no TPU kernel: the float32 VAE's paths launch it, bfloat16's not
+            check(any(per_path), f"{name} launched in a path: {per_path}")
+        else:
+            check(all(per_path), f"{name} launched in every path: {per_path}")
         main_shape = stats[name][0]  # the main path's (phase 4)
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                         "launches": sum(per_path),

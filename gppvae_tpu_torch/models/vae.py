@@ -2,12 +2,18 @@
 
 Counterpart of gppvae_tpu/models/vae.py. The public layout is the JAX
 package's: images are NHWC (N, H, W, C) float32, latents (N, zdim), and the
-decoder returns NHWC logits. Only the conv stacks run in NCHW.
+decoder returns NHWC logits. The activations stay NHWC throughout: each
+3×3 convolution goes through `_conv3x3`, which on a float32 CUDA tensor
+runs the port's kernels (ops/conv3x3.py: the conv, its bias and ELU in one
+launch, NHWC in and out) and otherwise the aten ops on the NCHW view of the
+same memory (F.conv2d, F.elu); the weights stay nn.Conv2d's (OIHW), so
+the state_dict is the same in either case.
 
 Two layout facts make the converted flax weights give the same function:
   * flax `padding="SAME"` at stride 2 pads (lo, hi) = (0, 1) on an even
-    axis; `Conv2d(padding=1)` would pad (1, 1). The encoder pads explicitly
-    (`_same_pad`) before an unpadded stride-2 conv;
+    axis; `Conv2d(padding=1)` would pad (1, 1). The encoder's stride-2 conv
+    is unpadded and takes that padding per side (`_same_pad`): the kernels
+    fold it into their loads, the aten ops F.pad first;
   * the encoder flattens in H, W, C order and the decoder's dense output is
     reshaped as (h, w, c), as flax does.
 Nearest-resize ×2 (`jax.image.resize(..., "nearest")`) is
@@ -39,8 +45,9 @@ switch changes the lowering with the dtype.
 A layer whose weight tensor parallelism split (parallel/tensor.py: the
 layer's `tp_group` is set, its weight is this rank's block of output
 features) runs column-parallel: copy_to_model → the product with the block,
-without the bias → gather_columns (the channel dimension of NCHW, the last
-of a dense output) → + the whole bias. Adding the bias after the gather
+without the bias → gather_columns (the channel dimension: NHWC's last in
+`_conv3x3`'s kernel path, NCHW's second in the aten ops, the last of a
+dense output) → + the whole bias (→ ELU). Adding the bias after the gather
 keeps its gradient whole and alike on every rank of the model row. The
 decoder reshapes its dense output as (h, w, c) after the gather, so the
 feature order is the unsplit one.
@@ -89,6 +96,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gppvae_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_torch
 from gppvae_tpu_torch.parallel.collectives import copy_to_model, gather_columns
 from gppvae_tpu_torch.utils import prng
 from gppvae_tpu_torch.utils.timers import count
@@ -166,6 +174,40 @@ def _conv(layer: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
     return gather_columns(group, y, 1) + layer.bias.to(dtype)[:, None, None]
 
 
+def _conv3x3(layer: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype, same=None,
+             elu: bool = False) -> torch.Tensor:
+    """ELU(layer(x)) (or layer(x)) of an NHWC x, NHWC out; `same` is the
+    explicit 'SAME' padding (F.pad's order) of an unpadded layer, or None.
+    A float32 CUDA tensor runs the port's kernels (ops/conv3x3.py, also in
+    a graph that torch.export or torch.compile traces) with the padding
+    folded into their loads; anything else the plain version (CPU) or the
+    aten ops of `_conv` (bfloat16 on the card, a split layer on the CPU) on
+    the NCHW view."""
+    group = getattr(layer, "tp_group", None)
+    pad = layer.padding[0]
+    w0, w1, h0, h1 = same or (0, 0, 0, 0)
+    pads = (h0 + pad, h1 + pad, w0 + pad, w1 + pad)
+    stride = layer.stride[0]
+    if x.is_cuda and dtype == torch.float32:
+        x = x.contiguous()
+        if group is None:
+            return conv3x3(x, layer.weight, layer.bias, stride, pads, elu)
+        y = conv3x3(copy_to_model(group, x), layer.weight, None, stride, pads)
+        y = gather_columns(group, y, -1) + layer.bias
+        return F.elu(y) if elu else y
+    if group is None and not x.is_cuda:
+        return conv3x3_torch(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype),
+                             stride, pads, elu)
+    h = x.permute(0, 3, 1, 2)
+    h = _conv(layer, h if same is None else F.pad(h, same), dtype)
+    return (F.elu(h) if elu else h).permute(0, 2, 3, 1)
+
+
+def _up2(h: torch.Tensor) -> torch.Tensor:
+    """Nearest resize ×2 of an NHWC h, on its NCHW view (NHWC out)."""
+    return F.interpolate(h.permute(0, 3, 1, 2), scale_factor=2, mode="nearest").permute(0, 2, 3, 1)
+
+
 def _merge_taps(w: torch.Tensor) -> torch.Tensor:
     """The 4×4 kernel (f, cin, 4, 4) of nearest-resize ×2 followed by the
     3×3 kernel `w` (f, cin, 3, 3), in w's dtype: per axis the taps
@@ -232,13 +274,13 @@ class ConvEncoder(nn.Module):
 
     def forward(self, y: torch.Tensor):
         dt = self.dtype
-        h = y.permute(0, 3, 1, 2)  # NHWC → NCHW
+        h = y
         launched = 0
         for conv, pad in zip(self.convs, self.pads):
-            h = F.elu(_conv(conv, h if pad is None else F.pad(h, pad), dt))
+            h = _conv3x3(conv, h, dt, pad, elu=True)
             launched += 1
         count(CONV_COUNTER, launched)
-        h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)  # flatten H, W, C
+        h = h.reshape(h.shape[0], -1)  # flatten H, W, C
         if self.vae_layout == "port":
             h = F.elu(_dense(self.dense, h, dt))
         return (_dense(self.head_mu, h, dt).float(),
@@ -286,27 +328,25 @@ class ConvDecoder(nn.Module):
         h = _dense(self.dense, z, dt)
         if not facevae:
             h = F.elu(h)
-        h = h.reshape(z.shape[0], self.h0, self.w0, self.f0).permute(0, 3, 1, 2)
+        h = h.reshape(z.shape[0], self.h0, self.w0, self.f0)  # NHWC
         merged = self.upsample == "subpixel" and dt == torch.bfloat16
         convs = list(self.convs)  # a slice of the ModuleList would build a module per call
         per_stage = 2 if facevae else 1
         launched = 0
         for s in range(0, len(convs), per_stage):
             if merged:
-                h = F.elu(_upconv(convs[s], h, dt))
+                h = F.elu(_upconv(convs[s], h.permute(0, 3, 1, 2), dt)).permute(0, 2, 3, 1)
             else:
-                h = F.elu(_conv(convs[s], F.interpolate(h, scale_factor=2, mode="nearest"), dt))
+                h = _conv3x3(convs[s], _up2(h), dt, elu=True)
             launched += 1
             if facevae:
-                h = _conv(convs[s + 1], h, dt)
+                h = _conv3x3(convs[s + 1], h, dt, elu=s + 2 < len(convs))
                 launched += 1
-                if s + 2 < len(convs):
-                    h = F.elu(h)
         if not facevae:
-            h = _conv(self.out, h, dt)
+            h = _conv3x3(self.out, h, dt)
             launched += 1
         count(CONV_COUNTER, launched)
-        return h.permute(0, 2, 3, 1).float()  # NCHW → NHWC logits
+        return h.float()  # NHWC logits
 
 
 class VAE(nn.Module):

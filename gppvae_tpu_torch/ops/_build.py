@@ -34,7 +34,7 @@ from gppvae_tpu_torch.utils.timers import span
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("factor_prep.cu", "nll_core.cu")
+SOURCES = ("factor_prep.cu", "nll_core.cu", "conv3x3.cu")
 HEADERS = ("hopper.cuh",)  # included by the sources: part of the hash
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -50,6 +50,10 @@ _SIGNATURES = {
     "gppvae_nll_core_props": (_I, [_P]),
     "gppvae_nll_core_clusters": (_I, [_I, _I]),
     "gppvae_nll_core": (_I, [*[_P] * 8, *[_I] * 7, _P]),
+    "gppvae_conv3x3_fprop": (_I, [*[_P] * 4, ctypes.POINTER(_I), _P]),
+    "gppvae_conv3x3_backward": (_I, [*[_P] * 9, *[ctypes.POINTER(_I)] * 2, ctypes.c_longlong,
+                                     _P]),
+    "gppvae_conv3x3_ctas": (_I, [_I] * 5),
     "gppvae_error_string": (ctypes.c_char_p, [_I]),
 }
 

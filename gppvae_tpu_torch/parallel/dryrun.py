@@ -243,7 +243,7 @@ def column_parallel_rank(group, kind: str, weight: np.ndarray, bias: np.ndarray,
     split = tensor.split_model_axis(layer, group, min_size=1)
     counts = collections.Counter(group.counts)
     xt = torch.tensor(x, device=dev, requires_grad=True)
-    y = {"conv": vae._conv, "upconv": vae._upconv, "dense": vae._dense}[kind](
+    y = {"conv": _conv_nchw, "upconv": vae._upconv, "dense": vae._dense}[kind](
         layer, xt, getattr(torch, dtype))
     torch.sum(y.float() * torch.as_tensor(dy, device=dev)).backward()
     issued = summary(group.counts - counts)
@@ -251,6 +251,14 @@ def column_parallel_rank(group, kind: str, weight: np.ndarray, bias: np.ndarray,
     out = {k: t.detach().float().cpu().numpy() for k, t in
            dict(y=y, dx=xt.grad, dw=dw, db=layer.bias.grad).items()}
     return {**out, "split": split, "block_rows": layer.weight.shape[0], "collectives": issued}
+
+
+def _conv_nchw(layer, x, dtype):
+    """models/vae.py's `_conv3x3` (the port's kernels on a float32 CUDA
+    tensor) on an NCHW x, without ELU: NCHW out."""
+    from gppvae_tpu_torch.models import vae
+
+    return vae._conv3x3(layer, x.permute(0, 2, 3, 1), dtype).permute(0, 3, 1, 2)
 
 
 def perturbed_check_rank(group, differ: bool = True) -> str:

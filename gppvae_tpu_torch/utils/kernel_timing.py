@@ -183,3 +183,57 @@ def time_factor_prep(U: torch.Tensor, Z: torch.Tensor) -> dict:
     return timings(lambda: ops.launch_factor_prep(U, Z), lambda: ops.factor_prep_torch(U, Z),
                    lambda: torch.mm(U.T, UZ), flop=n * r * (r + 1) + 2.0 * n * r * l,
                    nbytes=4.0 * (n * (r + l) + r * (r + l) + 1))
+
+
+def time_conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dy: torch.Tensor,
+                 stride: int, pads, elu: bool) -> dict:
+    """timings() of conv3x3 on the card's x (NHWC), OIHW w, b and the
+    output's gradient dy (NHWC), through the calls a training step makes
+    (ops/conv3x3.py `fprop`, `grads`): "fprop" (bias and ELU fused);
+    "dgrad" and "wgrad", a layer's backward with only dX or only dW, db
+    (each with its ELU′ pass where `elu`); "backward", the whole of it.
+    The plain version is conv3x3_torch and autograd; the library calls are
+    cuDNN's float32 F.conv2d and its backward (aten convolution_backward
+    from g = dy·ELU′). Each GEMM pass needs 2·P·Cout·9·Cin FLOP (P output
+    pixels; db adds 2·P·Cout) and moves its inputs and outputs once."""
+    import torch.nn.functional as F
+
+    from gppvae_tpu_torch import ops
+    from gppvae_tpu_torch.ops.conv3x3 import fprop, grads
+
+    pads = tuple(pads)
+    cout, cin = w.shape[:2]
+    P = dy.numel() // cout
+    y, lay = fprop(x, w, b, stride, pads, elu)
+    ys = y if elu else None
+    pt, pb, pl, pr = pads
+    xp = F.pad(x.permute(0, 3, 1, 2), (pl, pr, pt, pb))
+    gn = (dy * torch.where(y > 0, 1.0, y + 1.0) if elu else dy).permute(0, 3, 1, 2)
+    xr, wr, br = (t.detach().requires_grad_() for t in (x, w, b))
+
+    def kernel(want_x, want_w):
+        return lambda: grads(lay, dy, x, w, ys, want_x, want_w)
+
+    def plain(wanted):
+        return lambda: torch.autograd.grad(ops.conv3x3_torch(xr, wr, br, stride, pads, elu),
+                                           wanted, dy)
+
+    def library(mask):
+        return lambda: torch.ops.aten.convolution_backward(
+            gn, xp, w, [cout], [stride] * 2, [0, 0], [1, 1], False, [0, 0], 1, mask)
+
+    flop = 2.0 * P * cout * 9 * cin
+    xb, yb, wb = 4.0 * x.numel(), 4.0 * dy.numel(), 4.0 * (w.numel() + cout)
+    gb = (2 if elu else 1) * yb  # dy, and y for ELU′
+    return {
+        "fprop": timings(lambda: fprop(x, w, b, stride, pads, elu),
+                         lambda: ops.conv3x3_torch(x, w, b, stride, pads, elu),
+                         lambda: F.conv2d(xp, w, b, stride), flop, xb + wb + yb),
+        "dgrad": timings(kernel(True, False), plain([xr]), library([True, False, False]),
+                         flop, gb + wb + xb),
+        "wgrad": timings(kernel(False, True), plain([wr, br]), library([False, True, True]),
+                         flop + 2.0 * P * cout, gb + xb + wb),
+        "backward": timings(kernel(True, True), plain([xr, wr, br]),
+                            library([True, True, True]), 2 * flop + 2.0 * P * cout,
+                            gb + 2 * xb + 2 * wb),
+    }

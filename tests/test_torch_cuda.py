@@ -10,7 +10,8 @@ Tolerances (float32 on the card): factor_prep max abs err ≤ 1e-5 of the
 largest |entry| (fp32 sums in another order); nll_core value rtol 1e-5 and
 gradients ≤ 1e-4 of the largest |entry|; the subpixel decoder against the
 resize decoder with the same weights ≤ 1e-5 of max |·| (cuDNN, TF32 off); a
-GP NLL trained on the card against CPU float64 rtol 1e-4. Both kernels sum
+GP NLL trained on the card against CPU float64 rtol 1e-4; conv3x3's passes
+within 2e-6 of max |float64| (split TF32, float32 sums). Every kernel sums
 in a fixed order, so reruns are bit-identical.
 """
 
@@ -168,7 +169,8 @@ def test_serving_on_card_matches_cpu_float64(gen):
     """A state folded on the card from a model trained there (rbf kernel,
     extra object effect) serves the held-out cells: images within 1e-5 and
     variances within rel 1e-5 of the same fold and prediction in float64 on
-    the CPU; no kernel launches on the serving path; every state tensor on
+    the CPU; no GP kernel launches on the serving path (its float32 encode
+    and decode run conv3x3's forward, no gradient); every state tensor on
     the card; the sustained-throughput chain returns a positive rate."""
     import copy
 
@@ -191,7 +193,9 @@ def test_serving_on_card_matches_cpu_float64(gen):
     y, var = serving.predict_images(res.model, state, d["d_ho"], d["q_ho"], x_map=res.x_map,
                                     extra_effects=extra, return_var=True)
     torch.cuda.synchronize()
-    assert set(ops.launch_counts().values()) == {0}
+    counts = ops.launch_counts()
+    assert counts.pop("launch_conv3x3.fprop") > 0
+    assert set(counts.values()) == {0}
     assert all(t.is_cuda for t in (*state.core, state.X, state.W, state.v_sig,
                                    *state.vae_params.values()))
 
@@ -272,8 +276,9 @@ def test_exported_program_round_trip_on_card(gen, tmp_path, dtype):
     cuda; means, variances and both kinds of draws equal the eager library
     calls on the same state within 1e-6; the observe entry's core within rel
     1e-5 of `observe`; one artifact answers b = 1 and k = 1 as well as
-    larger sizes; no kernel launch; and the artifact is refused by name on a
-    device it was not exported for."""
+    larger sizes; no GP kernel launch, and in float32 the exported decode
+    launches conv3x3's forward (bfloat16's graphs hold aten ops); and the
+    artifact is refused by name on a device it was not exported for."""
     from gppvae_tpu_torch.eval import serving
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -320,7 +325,16 @@ def test_exported_program_round_trip_on_card(gen, tmp_path, dtype):
     for g, w in zip(new, want):
         assert _rel_err(g, w) <= 1e-5
     torch.cuda.synchronize()
-    assert set(ops.launch_counts().values()) == {0}
+    counts = ops.launch_counts()
+    counts.pop("launch_conv3x3.fprop")  # the eager references' and the programs' decodes
+    assert set(counts.values()) == {0}
+    # the exported float32 graphs hold gppvae::conv3x3, which runs the kernels
+    ops.reset_launch_counts()
+    serving.load_compiled_program(exe, "var", "cuda")[0](d["d_ho"][:5], d["q_ho"][:5])
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert (counts.pop("launch_conv3x3.fprop") > 0) == (dtype == "float32")
+    assert set(counts.values()) == {0}
 
     with pytest.raises(ValueError, match="exported for \\['cuda'\\], not for 'cpu'"):
         serving.load_compiled_program(exe, "mean", "cpu")
@@ -462,3 +476,100 @@ def test_a_non_finite_step_is_skipped_on_the_card(gen):
     for p, q in zip(ps, cpu):
         torch.testing.assert_close(p.detach().cpu(), q.detach(), rtol=1e-6, atol=1e-7)
     assert (opt.notfinite_count, opt.steps) == (ref.notfinite_count, ref.steps) == (1, 2)
+
+
+# ---- conv3x3: the VAE's float32 convolutions (ops/conv3x3.py)
+
+PAD1, SAME = (1, 1, 1, 1), (0, 1, 0, 1)
+CONV_REL_BOUND = 2e-6  # each pass's max abs err / max |float64|: split TF32, float32 sums
+
+
+def _conv_f64(x, w, b, stride, pads, elu):
+    pt, pb, pl, pr = pads
+    y = torch.nn.functional.conv2d(torch.nn.functional.pad(
+        x.permute(0, 3, 1, 2), (pl, pr, pt, pb)), w, b, stride)
+    return (torch.nn.functional.elu(y) if elu else y).permute(0, 2, 3, 1)
+
+
+def _conv_passes(fn, x, w, b, dy, x_grad):
+    x = x.detach().requires_grad_(x_grad)
+    w, b = w.detach().requires_grad_(), b.detach().requires_grad_()
+    y = fn(x, w, b)
+    grads = torch.autograd.grad(y, [x, w, b] if x_grad else [w, b], dy)
+    return [y.detach(), *grads]
+
+
+@pytest.mark.parametrize("h,cin,cout,stride,pads,elu,x_grad", [
+    (128, 3, 32, 1, PAD1, True, False),   # FaceVAE's first conv (the images need no gradient)
+    (128, 3, 32, 2, SAME, True, True),    # the port's faces layout's first
+    (128, 32, 32, 1, PAD1, True, True),
+    (128, 32, 32, 2, PAD1, True, True),   # FaceVAE's stride 2
+    (64, 32, 32, 2, SAME, True, True),    # the port's stride 2
+    (128, 32, 3, 1, PAD1, True, True),    # FaceVAE's 32 → 3
+    (128, 32, 3, 1, PAD1, False, True),   # the port's output conv
+    (128, 3, 3, 1, PAD1, False, True),    # FaceVAE's 3 → 3, linear
+    (8, 32, 16, 1, PAD1, False, True),    # a tensor-parallel block
+    (7, 5, 7, 2, PAD1, True, True),       # odd sizes
+    (32, 1, 32, 2, SAME, True, False),    # the digits' widths: 1 → 32 → 64 → 128
+    (16, 32, 64, 2, SAME, True, True),
+    (8, 64, 128, 2, SAME, True, True),
+    (8, 128, 64, 1, PAD1, True, True),    # 128 sources: K tiled, fewer channels a tile
+])
+def test_conv3x3_passes_match_float64(gen, h, cin, cout, stride, pads, elu, x_grad):
+    """y, dX, dW, db against float64 at the cells' shapes (batch 16), each
+    within CONV_REL_BOUND of max |float64|; a rerun is bit-identical, and so
+    is the same layer through the custom operator gppvae::conv3x3 and its
+    backward, which torch.export and torch.compile trace."""
+    from gppvae_tpu_torch.ops.conv3x3 import out_size
+
+    x = torch.randn(16, h, h, cin, device="cuda", generator=gen)
+    w = torch.randn(cout, cin, 3, 3, device="cuda", generator=gen) / (3 * cin ** 0.5)
+    b = 0.1 * torch.randn(cout, device="cuda", generator=gen)
+    oh = out_size(h, stride, pads[0], pads[1])
+    dy = torch.randn(16, oh, oh, cout, device="cuda", generator=gen)
+    kern = lambda x, w, b: ops.conv3x3(x, w, b, stride, pads, elu)  # noqa: E731
+    got = _conv_passes(kern, x, w, b, dy, x_grad)
+    again = _conv_passes(kern, x, w, b, dy, x_grad)
+    op = lambda x, w, b: torch.ops.gppvae.conv3x3(x, w, b, stride, list(pads), elu)  # noqa: E731
+    via_op = _conv_passes(op, x, w, b, dy, x_grad)
+    want = _conv_passes(lambda x, w, b: _conv_f64(x, w, b, stride, pads, elu),
+                        x.double(), w.double(), b.double(), dy.double(), x_grad)
+    for g, a, o, wt in zip(got, again, via_op, want):
+        assert g.dtype == torch.float32 and g.shape == wt.shape
+        assert torch.equal(g, a) and torch.equal(g, o)  # fixed-order sums: the same bits
+        assert _rel_err(g.double(), wt) <= CONV_REL_BOUND
+
+
+def test_facevae_step_launches_each_pass(gen):
+    """One FaceVAE forward and backward at 128² on float32 CUDA tensors: 20
+    convolutions forward, 19 data gradients (the images need none), 20
+    weight gradients, and no plain version on the card."""
+    model = VAE(32, (128, 128, 3), (32,) * 5, (32,) * 5, vae_layout="facevae").cuda()
+    y = torch.rand(8, 128, 128, 3, device="cuda", generator=gen)
+    ops.reset_launch_counts()
+    mu, logvar = model.encode(y)
+    (model.decode(mu).square().mean() + logvar.mean()).backward()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert (counts["launch_conv3x3.fprop"], counts["launch_conv3x3.dgrad"],
+            counts["launch_conv3x3.wgrad"]) == (20, 19, 20)
+    assert counts["conv3x3_torch.cuda_calls"] == 0
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters())
+
+
+def test_bf16_forward_launches_no_conv3x3(gen):
+    model = VAE(16, (32, 32, 1), dtype=torch.bfloat16).cuda()
+    ops.reset_launch_counts()
+    model.decode(model.encode(torch.rand(8, 32, 32, 1, device="cuda", generator=gen))[0])
+    assert set(ops.launch_counts().values()) == {0}
+
+
+def test_conv3x3_refuses_float64_and_strided_inputs(gen):
+    x = torch.randn(2, 8, 8, 4, device="cuda", generator=gen)
+    w = torch.randn(5, 4, 3, 3, device="cuda", generator=gen)
+    with pytest.raises(TypeError, match="float32; x is torch.float64"):
+        ops.conv3x3(x.double(), w, None)
+    with pytest.raises(ValueError, match="contiguous tensors; x is not"):
+        ops.conv3x3(x.permute(0, 2, 1, 3), w, None)
+    with pytest.raises(TypeError, match="float32"):
+        ops.conv3x3(x.bfloat16(), w.bfloat16())

@@ -157,6 +157,8 @@ def test_cpu_tensors_launch_no_kernel():
     assert ops.launch_counts() == {
         "launch_factor_prep.launches": 0, "launch_nll_core.launches": 0,
         "factor_prep_torch.cuda_calls": 0, "nll_core_torch.cuda_calls": 0,
+        "launch_conv3x3.fprop": 0, "launch_conv3x3.dgrad": 0, "launch_conv3x3.wgrad": 0,
+        "conv3x3_torch.cuda_calls": 0,
     }
 
 
