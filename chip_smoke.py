@@ -12,9 +12,9 @@ Phases, one per printed line group; any failure ends the run non-zero:
      spills (nvcc.log) and their tensor-core products (HMMA…TF32 in
      cuobjdump -sass: above 0, no spills); factor_prep at (N, R, L) =
      (5700,56,16), (5701,56,16), (6401,256,16), (256,2048,8), (332,232,32),
-     (5700,560,16), (2850,56,16), the bench's (262144,256,16), a ragged R
-     across the tensor-core tiles (57, 130), L = 1 and N shorter than one
-     stage (20);
+     (5700,560,16), (2850,56,16), tools/kernel_ab.py's (262144,256,16), a
+     ragged R across the tensor-core tiles (57, 130), L = 1 and N shorter
+     than one stage (20);
      nll_core at R = 56, 232, 560, 600, 1024, 2048 (L 16, 32, 16, 16, 16, 8),
      a ragged R in each driver's band (233, 561, 1000) and, at L = 16, R on
      either side of and at each cut-over between its drivers that the plan
@@ -128,15 +128,6 @@ Phases, one per printed line group; any failure ends the run non-zero:
      dryrun(4) on the same ranks, the 2-D branch; (d) a split conv in
      bfloat16 against the unsplit one on the card (gloo's all-reduce of
      bfloat16 CUDA tensors);
- 11. the bench: bench_torch.main on a cut copy of its table, every config
-     at the published widths (the digits grid 400 × 16 at 32², faces 50 × 8
-     at 128² and 64²), each training config 4 epochs (skip 2), faces 64² 8,
-     the serving rows and the kernels block whole (both kernels at
-     tools/kernel_ab.py's shapes and the main path's, each held to its plain
-     version), no accuracy block (path 8 runs the protocol); checks that no
-     config holds an error, each kernel launched once per epoch in every
-     GPPVAE config and in none of the others, the kernels rows within their
-     bounds, and a last line that parses under 2,000 characters;
  12. the JAX package's random stream (utils/prng.py), which every trainer,
      generate and serve draw from: split(PRNGKey(0), 4) and flax's init of
      the VAE at the published widths from its init key held to constants
@@ -148,9 +139,9 @@ Phases, one per printed line group; any failure ends the run non-zero:
      epoch, finite metrics;
  13. the `kernels` line (each kernel at the main path's shape, launches
      summed over the training paths 4, 5a-d, 7, 8, 9a's and 10a's ranks,
-     11, 12), then the last line: {"ok": true, "device": ...}.
+     12), then the last line: {"ok": true, "device": ...}.
 
-Every path (4, 5a-d, 6 per run, each run of 7, 8, 11, 12) sets the kernels' counts
+Every path (4, 5a-d, 6 per run, each run of 7, 8, 12) sets the kernels' counts
 to 0 just before it and reads them just after; in paths 9 and 10 each rank
 does so around its own run (parallel/dryrun.py), and its counts come back
 with it.
@@ -188,9 +179,9 @@ from gppvae_tpu_torch.utils.kernel_timing import (
 
 # (N, R, L); the first of each is the main path's (phase 4), (332, 232, 32)
 # path (b)'s, (5700, 560, 16) path (d)'s, (2850, 56, 16) one rank's shard in
-# path 9; from R = 560 past the TPU kernel's 512. factor_prep then: the
-# bench's N 262,144 at R 256, R across the tensor-core tiles (57 and 130,
-# also the 4-byte copies), L = 1, and N shorter than one 32-row stage
+# path 9; from R = 560 past the TPU kernel's 512. factor_prep then:
+# tools/kernel_ab.py's N 262,144 at R 256, R across the tensor-core tiles (57
+# and 130, also the 4-byte copies), L = 1, and N shorter than one 32-row stage
 SHAPES_FACTOR_PREP = [(5700, 56, 16), (5701, 56, 16), (6401, 256, 16), (256, 2048, 8),
                       (332, 232, 32), (5700, 560, 16), (2850, 56, 16), (262144, 256, 16),
                       (5700, 57, 16), (5700, 130, 16), (5700, 56, 1), (20, 56, 16)]
@@ -288,10 +279,6 @@ TP_SPLIT = {"encoder.convs.1.weight", "encoder.convs.2.weight", "encoder.dense.w
 # a split bfloat16 conv against the unsplit one: max abs err / max |y|, a few
 # bfloat16 ulps (2^-8 each) where the two convolutions round apart
 TP_BF16_REL_BOUND = 2e-2
-# path 11: bench_torch.py's table at the published widths, depth cut; the
-# accuracy block is left out (path 8 runs the protocol)
-BENCH_EPOCHS, BENCH_SKIP, BENCH_FACES64_EPOCHS = 4, 2, 8
-BENCH_GPPVAE_KINDS = ("gppvae", "face_view", "face_accuracy")
 # path 12: what jax.random (jax 0.9.0: threefry2x32, partitionable, x64 off)
 # gave on the CPU at seed 0: split(PRNGKey(0), 4) (run, init, sample, x
 # keys), epoch 0's plan over the slice's 5,700 rows (its first entries and
@@ -1522,58 +1509,6 @@ def path_tp(tmp: str, card: str, singles: list[dict]) -> dict:
     return {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
 
 
-def path_bench() -> dict:
-    """Path 11: bench_torch.main on a cut table (see BENCH_*). Returns its
-    launch counts (the kernels block's comparisons leave them as they were)."""
-    import bench_torch
-
-    say(f"== 11 bench_torch.py at the published widths, {BENCH_EPOCHS} epochs per training "
-        f"config (skip {BENCH_SKIP}), faces 64² {BENCH_FACES64_EPOCHS}; the serving rows and "
-        "the kernels block whole; no accuracy block")
-    t_path = time.perf_counter()
-    table = bench_torch.TABLE
-    training = [n for n, spec in table.items() if "train" in spec]
-    table = bench_torch.cut(table, **{n: dict(skip=BENCH_SKIP, train=dict(epochs=BENCH_EPOCHS))
-                                      for n in training}, accuracy=None)
-    table["face_accuracy_64"]["train"]["epochs"] = BENCH_FACES64_EPOCHS
-    buf = io.StringIO()
-
-    def run():
-        with contextlib.redirect_stdout(buf):
-            return bench_torch.main(["--device", "cuda"], table=table)
-
-    art, counts = drive("11 bench", run)
-    lines = buf.getvalue().splitlines()
-    for line in lines:
-        say("  " + line)
-    last = json.loads(lines[-1])
-    configs = art["extra"]["configs"]
-    say(f"11 last line: {len(lines[-1])} characters (limit {bench_torch.LAST_LINE_LIMIT}), "
-        f"compacted by {last['extra'].get('compacted', 0)} steps; value {last['value']}")
-    check(last["metric"] == bench_torch.METRIC and len(lines[-1]) < bench_torch.LAST_LINE_LIMIT,
-          "11: the last line parses and is under the limit")
-    check(not [n for n, c in configs.items() if "error" in c],
-          f"11: no config holds an error ({[n for n, c in configs.items() if 'error' in c]})")
-    launched = {n: c["kernel_launches"] for n, c in configs.items() if "kernel_launches" in c}
-    for name, k in launched.items():
-        gppvae = table[name]["kind"] in BENCH_GPPVAE_KINDS
-        want = table[name]["train"]["epochs"] if gppvae else 0
-        check(set(k.values()) == {want},
-              f"11 {name}: kernel launches {k}, each kernel once per epoch in a GPPVAE config "
-              f"({want}), 0 elsewhere")
-    check(counts["launch_factor_prep.launches"] == sum(k["factor_prep"] for k in launched.values())
-          and counts["launch_nll_core.launches"]
-          == sum(k["woodbury_nll_core"] for k in launched.values()),
-          "11: the path's launches are its configs' (the kernels block's not counted)")
-    for kernel, rows in configs["kernels"].items():
-        for row in rows if isinstance(rows, list) else ():
-            check(row["rel_err"] <= row["rel_bound"]
-                  and row.get("grad_rel_err", 0.0) <= row.get("grad_rel_bound", 1.0),
-                  f"11 kernels {kernel} {row['shape']}: within its bound of the plain version")
-    say(f"11 path: {time.perf_counter() - t_path:.1f} s")
-    return counts
-
-
 def stream_fingerprint(batches, eps, n: int) -> dict:
     """PRNG_GOLDEN's keys of one epoch's plan and ε."""
     perm = batches.reshape(-1)[:n].numpy().astype(np.int64)
@@ -1655,7 +1590,7 @@ def main() -> None:
         path_serving({"4 slice": r4, "5a headline": r5a, "5b faces": r5b})
         paths += [*path_resume(tmp), path_protocol(tmp)]
         c9, singles = path_dp(tmp, card)
-        paths += [c9, path_tp(tmp, card, singles), path_bench(), path_stream(tmp)]
+        paths += [c9, path_tp(tmp, card, singles), path_stream(tmp)]
     sources = {
         "factor_prep": ("gppvae_tpu_torch/csrc/factor_prep.cu",
                         "gppvae_tpu/ops/pallas_gemm.py:162", "launch_factor_prep.launches"),

@@ -18,11 +18,10 @@ Other modes:
                   fold the posterior into the R-sized serving artifact
                   (eval/serving.py), with the RFF draws and landmarks
 
-The model is built in the run's compute dtype (bfloat16 for a bfloat16 run,
-with or without a float32 polish tail) and decoder, as the JAX package
-builds it. Random draws are the JAX package's (utils/prng.py) from
-PRNGKey(--draw_seed), else PRNGKey(the run's seed); each function also
-takes injected draws.
+The model is the run's recorded architecture (models/vae.py
+`vae_from_record`, which states the dtype it computes in). Random draws are
+the JAX package's (utils/prng.py) from PRNGKey(--draw_seed), else
+PRNGKey(the run's seed); each function also takes injected draws.
 The object kernel's RFF draws and landmarks come from final_params.pt, not
 from the seed.
 """
@@ -46,8 +45,7 @@ from gppvae_tpu_torch.eval.serving import (
     save_server_state,
     stable_cholesky,
 )
-from gppvae_tpu_torch.models import VAE, encode_all
-from gppvae_tpu_torch.train.device import compute_dtype as _dtype
+from gppvae_tpu_torch.models import ARCH_DEFAULTS, encode_all, vae_from_record
 from gppvae_tpu_torch.train.device import resolve_device, set_float32_precision
 from gppvae_tpu_torch.utils import prng
 
@@ -94,18 +92,16 @@ def _check_grid_matches(params, fixed_W, dataset: GridDataset) -> None:
         )
 
 
-def _model_and_xmap(state: dict, dataset: GridDataset, *, zdim, enc_features, dec_features,
-                    object_kernel, rff_lengthscale, dec_upsample="resize",
-                    compute_dtype="float32", vae_layout="port", **_ignored):
+def _model_and_xmap(state: dict, dataset: GridDataset, *, object_kernel, rff_lengthscale,
+                    **arch):
     """Checkpoint → (model holding the run's VAE weights, on the state's
-    device; object-kernel map), with the grid-mismatch guard. The model
-    computes in the run's compute_dtype through its decoder lowering."""
+    device; object-kernel map), with the grid-mismatch guard. `arch`: the
+    run's architecture record (vae_from_record), other keys ignored."""
     _check_grid_matches(_params(state), state.get("fixed_W"), dataset)
     ok = state.get("object_kernel") or {}
     x_map = gp.make_x_map(object_kernel, _rff_draws(state), rff_lengthscale,
                           ok.get("nystrom_idx"))
-    model = VAE(zdim, dataset.image_shape, tuple(enc_features), tuple(dec_features),
-                dec_upsample, dtype=_dtype(compute_dtype), vae_layout=vae_layout)
+    model = vae_from_record(arch, dataset.image_shape)
     model.load_state_dict(state["vae"])
     return model.to(_device(state)), x_map
 
@@ -294,10 +290,8 @@ def main(argv=None):
     # the model architecture from the run's config.json, --zdim overriding
     run_dir = os.path.dirname(os.path.abspath(args.state))
     arch = {
-        "zdim": 16, "enc_features": (32, 64, 128),
-        "dec_features": (128, 64, 32), "object_kernel": "linear",
-        "rff_features": 32, "rff_lengthscale": 1.0, "extra_effects": (),
-        "seed": 0, "dec_upsample": "resize", "compute_dtype": "float32", "vae_layout": "port",
+        **ARCH_DEFAULTS, "object_kernel": "linear", "rff_features": 32,
+        "rff_lengthscale": 1.0, "extra_effects": (), "seed": 0,
     }
     cfg_path = os.path.join(run_dir, "config.json")
     saved = {}

@@ -64,9 +64,9 @@ from torch.func import functional_call
 from gppvae_tpu_torch import gp
 from gppvae_tpu_torch.checkpoint import load_tree, save_tree
 from gppvae_tpu_torch.eval.panels import save_panel
-from gppvae_tpu_torch.models import VAE
+from gppvae_tpu_torch.models import VAE, vae_from_record
 from gppvae_tpu_torch.parallel import all_reduce, row_block
-from gppvae_tpu_torch.train.device import compute_dtype, resolve_device, set_float32_precision
+from gppvae_tpu_torch.train.device import resolve_device, set_float32_precision
 from gppvae_tpu_torch.utils import prng
 from gppvae_tpu_torch.utils.timers import span
 
@@ -833,16 +833,9 @@ def _sustained_throughput(call, d: torch.Tensor, q: torch.Tensor, P: int, Q: int
 
 
 def _model_from_meta(meta: dict, vae_params: dict, device) -> VAE:
-    """The VAE an artifact was exported with: architecture (its
-    `vae_layout` too; 'port' for an artifact that predates it), decoder and the
-    compute dtype the run trained with (bfloat16 for a bfloat16 run, float32
-    polish tail or not, as the JAX serve builds it), holding vae_params."""
-    model = VAE(int(meta["zdim"]), tuple(meta["image_shape"]),
-                tuple(meta.get("enc_features", (32, 64, 128))),
-                tuple(meta.get("dec_features", (128, 64, 32))),
-                meta.get("dec_upsample", "resize"),
-                dtype=compute_dtype(meta.get("compute_dtype", "float32")),
-                vae_layout=meta.get("vae_layout", "port"))
+    """The VAE an artifact was exported with (the architecture its meta
+    records, read by vae_from_record), holding vae_params."""
+    model = vae_from_record(meta, tuple(meta["image_shape"]))
     model.load_state_dict(vae_params)
     return model.to(device)
 

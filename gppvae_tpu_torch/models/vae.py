@@ -84,11 +84,19 @@ feature order is the unsplit one.
 Each forward of either half counts the convolutions it launched in the
 tracer's counter `vae.conv3x3`, tallied at each launch and added with one
 `count` per half.
+
+The architecture is six values, `ARCH_DEFAULTS`' keys: zdim, the encoder's
+and the decoder's widths, the decoder's upsample, the compute dtype and the
+layout. A trainer's config holds them, a run records them (config.json, a
+.srv meta), and every reader rebuilds the VAE from such a record through
+`vae_from_record`; `add_arch_flags` / `arch_from_flags` are the trainers'
+flags for them.
 """
 
 from __future__ import annotations
 
 import math
+from collections.abc import Mapping
 from typing import Sequence
 
 import numpy as np
@@ -103,7 +111,28 @@ from gppvae_tpu_torch.utils.timers import count
 
 UPSAMPLES = ("resize", "subpixel")
 LAYOUTS = ("port", "facevae")
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the architecture's defaults: the trainers' configs and flags, the VAE's
+# signature and a record that predates one of the values all read them here
+ARCH_DEFAULTS = {
+    "zdim": 16,
+    "enc_features": (32, 64, 128),
+    "dec_features": (128, 64, 32),
+    "dec_upsample": "resize",
+    "compute_dtype": "float32",
+    "vae_layout": "port",
+}
 CONV_COUNTER = "vae.conv3x3"
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    """The VAE's compute dtype for a --dtype value."""
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"unknown compute_dtype {name!r}; want one of {sorted(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[name]
+
+
+_DTYPE = COMPUTE_DTYPES[ARCH_DEFAULTS["compute_dtype"]]
 
 
 def _check_layout(vae_layout: str) -> None:
@@ -244,9 +273,8 @@ class ConvEncoder(nn.Module):
     convs and a hidden dense layer; 'facevae', a stride-1 and a stride-2
     conv per stage and the heads on the flat features (module docstring)."""
 
-    def __init__(self, zdim: int, image_shape: Sequence[int],
-                 features: Sequence[int] = (32, 64, 128),
-                 dtype: torch.dtype = torch.float32, vae_layout: str = "port"):
+    def __init__(self, zdim: int, image_shape: Sequence[int], features: Sequence[int],
+                 dtype: torch.dtype = _DTYPE, vae_layout: str = ARCH_DEFAULTS["vae_layout"]):
         super().__init__()
         _check_layout(vae_layout)
         self.dtype, self.vae_layout = dtype, vae_layout
@@ -294,9 +322,9 @@ class ConvDecoder(nn.Module):
     ('facevae'); returned NHWC float32. 'subpixel' in bfloat16 runs each
     stage's first conv as `_upconv` (the module docstring)."""
 
-    def __init__(self, zdim: int, image_shape: Sequence[int],
-                 features: Sequence[int] = (128, 64, 32), upsample: str = "resize",
-                 dtype: torch.dtype = torch.float32, vae_layout: str = "port"):
+    def __init__(self, zdim: int, image_shape: Sequence[int], features: Sequence[int],
+                 upsample: str = ARCH_DEFAULTS["dec_upsample"], dtype: torch.dtype = _DTYPE,
+                 vae_layout: str = ARCH_DEFAULTS["vae_layout"]):
         super().__init__()
         if upsample not in UPSAMPLES:
             raise ValueError(f"unknown upsample {upsample!r}; want one of {UPSAMPLES}")
@@ -357,12 +385,12 @@ class VAE(nn.Module):
     next. `vae_layout`: 'port' or 'facevae' (the module docstring)."""
 
     def __init__(self, zdim: int, image_shape: Sequence[int],
-                 enc_features: Sequence[int] = (32, 64, 128),
-                 dec_features: Sequence[int] = (128, 64, 32),
-                 upsample: str = "resize",
+                 enc_features: Sequence[int] = ARCH_DEFAULTS["enc_features"],
+                 dec_features: Sequence[int] = ARCH_DEFAULTS["dec_features"],
+                 upsample: str = ARCH_DEFAULTS["dec_upsample"],
                  key=None,
-                 dtype: torch.dtype = torch.float32,
-                 vae_layout: str = "port"):
+                 dtype: torch.dtype = _DTYPE,
+                 vae_layout: str = ARCH_DEFAULTS["vae_layout"]):
         super().__init__()
         self.zdim = zdim
         self.image_shape = tuple(image_shape)
@@ -386,6 +414,52 @@ class VAE(nn.Module):
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         return self.decoder(z)
+
+
+def vae_from_record(record: Mapping, image_shape: Sequence[int], *,
+                    dtype: torch.dtype | None = None, key=None) -> VAE:
+    """The VAE of a recorded architecture, the one way the package builds
+    one. `record`: a run's config.json, a .srv meta or a trainer's config
+    (`vars(config)`), other keys ignored; a value it lacks reads as its
+    `ARCH_DEFAULTS` entry, which is what an artifact written before that
+    value was recorded was built with. `key` gives flax's init (`VAE`).
+
+    The dtype: the record's `compute_dtype`, unless `dtype` is given. So
+    generate and serve build a bfloat16 run in bfloat16, with a float32
+    polish tail or without, as the JAX package's generate and serve do;
+    load_final, which rebuilds where the trainer ended, passes float32 for a
+    run that ended in a polish tail."""
+    arch = {k: record.get(k, v) for k, v in ARCH_DEFAULTS.items()}
+    return VAE(int(arch["zdim"]), image_shape, tuple(arch["enc_features"]),
+               tuple(arch["dec_features"]), arch["dec_upsample"], key=key,
+               dtype=compute_dtype(arch["compute_dtype"]) if dtype is None else dtype,
+               vae_layout=arch["vae_layout"])
+
+
+def add_arch_flags(parser, *, dtype_help: str, layout_help: str) -> None:
+    """The trainers' architecture flags, each defaulting to ARCH_DEFAULTS:
+    --zdim, --dtype, --dec_upsample, --vae_layout, and --enc_features /
+    --dec_features as comma-separated widths. The two help texts are the
+    trainer's own."""
+    d = ARCH_DEFAULTS
+    parser.add_argument("--zdim", type=int, default=d["zdim"])
+    parser.add_argument("--dtype", default=d["compute_dtype"], choices=list(COMPUTE_DTYPES),
+                        help=dtype_help)
+    parser.add_argument("--dec_upsample", default=d["dec_upsample"], choices=list(UPSAMPLES))
+    parser.add_argument("--vae_layout", default=d["vae_layout"], choices=list(LAYOUTS),
+                        help=layout_help)
+    for name in ("enc_features", "dec_features"):
+        parser.add_argument(f"--{name}", default=",".join(map(str, d[name])))
+
+
+def arch_from_flags(args) -> dict:
+    """add_arch_flags' parsed values as a trainer config's fields."""
+    def widths(s: str) -> tuple:
+        return tuple(int(f) for f in s.split(","))
+
+    return {"zdim": args.zdim, "compute_dtype": args.dtype, "dec_upsample": args.dec_upsample,
+            "vae_layout": args.vae_layout, "enc_features": widths(args.enc_features),
+            "dec_features": widths(args.dec_features)}
 
 
 @torch.no_grad()

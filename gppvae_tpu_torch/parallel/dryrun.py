@@ -51,7 +51,7 @@ import torch
 
 from gppvae_tpu_torch import ops
 from gppvae_tpu_torch.data import build_rotated_digits
-from gppvae_tpu_torch.models import VAE
+from gppvae_tpu_torch.models import vae_from_record
 from gppvae_tpu_torch.parallel import tensor
 from gppvae_tpu_torch.parallel.collectives import check_replicated, gather, summary
 from gppvae_tpu_torch.parallel.launch import RankPool
@@ -194,12 +194,13 @@ def serving_rank(group, model_kw: dict, params: dict, fixed_W, images_tr, d_tr, 
     """The data-parallel serving calls (numpy in, numpy out): the fold of
     the rank's block of the training rows, predict_images of the cells
     (d_ho, q_ho) with variances, observe of the rank's block of y_obs (the
-    images of those cells), and predict_images again. Returns both cores'
-    M, the replies and the collectives the calls issued."""
+    images of those cells), and predict_images again. `model_kw`: the VAE's
+    architecture record (vae_from_record) with its `image_shape`. Returns
+    both cores' M, the replies and the collectives the calls issued."""
     from gppvae_tpu_torch.eval import serving
 
     dev = group.device
-    model = VAE(**model_kw).to(dev)
+    model = vae_from_record(model_kw, model_kw["image_shape"]).to(dev)
 
     def t(a, dtype=None):
         return None if a is None else torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import torch
 
+from gppvae_tpu_torch.models.vae import COMPUTE_DTYPES, compute_dtype  # noqa: F401  (for the trainers)
 from gppvae_tpu_torch.utils.timers import PhaseTimer  # noqa: F401  (its home since the move)
 
 
@@ -17,16 +18,6 @@ def resolve_device(name: str) -> torch.device:
             "to run on the CPU"
         )
     return device
-
-
-COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def compute_dtype(name: str) -> torch.dtype:
-    """The VAE's compute dtype for a --dtype value."""
-    if name not in COMPUTE_DTYPES:
-        raise ValueError(f"unknown compute_dtype {name!r}; want one of {sorted(COMPUTE_DTYPES)}")
-    return COMPUTE_DTYPES[name]
 
 
 def set_float32_precision(compute_dtype_name: str) -> None:

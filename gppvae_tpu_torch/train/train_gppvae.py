@@ -88,7 +88,15 @@ from gppvae_tpu_torch.convert import gp_params_from_numpy
 from gppvae_tpu_torch.data import GridDataset
 from gppvae_tpu_torch.eval.oos import predict_heldout
 from gppvae_tpu_torch.eval.panels import save_panel
-from gppvae_tpu_torch.models import LAYOUTS, UPSAMPLES, VAE, encode_all, sample_reconstruction
+from gppvae_tpu_torch.models import (
+    ARCH_DEFAULTS,
+    VAE,
+    add_arch_flags,
+    arch_from_flags,
+    encode_all,
+    sample_reconstruction,
+    vae_from_record,
+)
 from gppvae_tpu_torch.parallel import (
     all_reduce_grads,
     check_replicated,
@@ -100,13 +108,7 @@ from gppvae_tpu_torch.parallel import (
 from gppvae_tpu_torch.parallel import tensor as tp
 from gppvae_tpu_torch.parallel.tensor import split_model_axis
 from gppvae_tpu_torch.train.batching import make_draws, masked_means, num_batches
-from gppvae_tpu_torch.train.device import (
-    COMPUTE_DTYPES,
-    PhaseTimer,
-    compute_dtype,
-    resolve_device,
-    set_float32_precision,
-)
+from gppvae_tpu_torch.train.device import PhaseTimer, resolve_device, set_float32_precision
 from gppvae_tpu_torch.train.losses import (
     gaussian_recon_nll,
     logit_saturation_penalty,
@@ -131,13 +133,13 @@ _SHAPE_FIELDS = (
     "learn_sigma_y", "vae_layout",
 )
 # what a state written before one of _SHAPE_FIELDS existed was written under
-_SHAPE_DEFAULTS = {"vae_layout": "port"}
+_SHAPE_DEFAULTS = {"vae_layout": ARCH_DEFAULTS["vae_layout"]}
 
 
 @dataclasses.dataclass(frozen=True)
 class GPPVAETrainConfig:
     mode: str = "joint"  # 'joint' | 'dis'
-    zdim: int = 16
+    zdim: int = ARCH_DEFAULTS["zdim"]
     epochs: int = 100
     batch_size: int = 128
     lr_vae: float = 2e-4
@@ -155,11 +157,11 @@ class GPPVAETrainConfig:
     extra_effects: tuple = ()  # of 'object', 'view'
     init_v_sig: float = 1.0
     init_v_noise: float = 0.5
-    enc_features: Sequence[int] = (32, 64, 128)
-    dec_features: Sequence[int] = (128, 64, 32)
-    compute_dtype: str = "float32"  # VAE compute: 'float32' | 'bfloat16'
-    dec_upsample: str = "resize"  # 'resize' | 'subpixel' (same params: models/vae.py)
-    vae_layout: str = "port"  # 'port' | 'facevae' (models/vae.py)
+    enc_features: Sequence[int] = ARCH_DEFAULTS["enc_features"]
+    dec_features: Sequence[int] = ARCH_DEFAULTS["dec_features"]
+    compute_dtype: str = ARCH_DEFAULTS["compute_dtype"]  # VAE compute
+    dec_upsample: str = ARCH_DEFAULTS["dec_upsample"]  # same params either way: models/vae.py
+    vae_layout: str = ARCH_DEFAULTS["vae_layout"]
     polish_epochs: int = 0  # bfloat16 runs: the last K epochs in float32
     clip_grad_norm: float = 1e5  # global-norm clip in front of Adam (<=0 off)
     sat_penalty: float = 1.0  # saturation-death barrier weight (<=0 off)
@@ -262,9 +264,7 @@ def _setup(dataset: GridDataset, config: GPPVAETrainConfig, device: torch.device
     init_params = init_params or {}
     _, init_key, _, x_key = run_keys(config.seed)
     with span("setup.model"):
-        model = VAE(config.zdim, dataset.image_shape, config.enc_features,
-                    config.dec_features, config.dec_upsample, key=init_key,
-                    dtype=compute_dtype(config.compute_dtype), vae_layout=config.vae_layout)
+        model = vae_from_record(vars(config), dataset.image_shape, key=init_key)
         if "vae" in init_params:
             model.load_state_dict({k: torch.as_tensor(v) for k, v in init_params["vae"].items()})
         elif config.vae_weights:
@@ -783,10 +783,8 @@ def load_final(outdir: str, *, device: torch.device | str = "cpu",
                                           config.seed, image_size=grid["image_size"])
     final = torch.load(os.path.join(outdir, FINAL_PARAMS_FILE), map_location=device,
                        weights_only=True)
-    model = VAE(config.zdim, dataset.image_shape, config.enc_features, config.dec_features,
-                config.dec_upsample,
-                dtype=torch.float32 if _polish_epochs(config) else compute_dtype(config.compute_dtype),
-                vae_layout=config.vae_layout)
+    model = vae_from_record(vars(config), dataset.image_shape,
+                            dtype=torch.float32 if _polish_epochs(config) else None)
     model.load_state_dict(final["vae"])
     x_draws = final["object_kernel"]
     return GPPVAETrainResult(
@@ -806,7 +804,6 @@ def main(argv=None) -> GPPVAETrainResult:
     p.add_argument("--mode", default="joint", choices=["joint", "dis"])
     p.add_argument("--vae_weights", default=None,
                    help="vae_weights.pt from train_vae (the handoff)")
-    p.add_argument("--zdim", type=int, default=16)
     p.add_argument("--bs", type=int, default=128)
     p.add_argument("--lr", type=float, default=2e-4, help="VAE learning rate")
     p.add_argument("--gp_lr", type=float, default=1e-3)
@@ -828,12 +825,10 @@ def main(argv=None) -> GPPVAETrainResult:
                    help="comma-separated random effects beyond object×view: object,view")
     p.add_argument("--num_objects", type=int, default=400)
     p.add_argument("--num_views", type=int, default=16)
-    p.add_argument("--dtype", default="float32", choices=list(COMPUTE_DTYPES),
-                   help="VAE compute dtype (params and the GP path stay float32)")
-    p.add_argument("--dec_upsample", default="resize", choices=list(UPSAMPLES))
-    p.add_argument("--vae_layout", default="port", choices=list(LAYOUTS),
-                   help="port: one conv a stage and a hidden dense layer; facevae: FaceVAE's "
-                        "two convs a stage, heads on the flat features (models/vae.py)")
+    add_arch_flags(p, dtype_help="VAE compute dtype (params and the GP path stay float32)",
+                   layout_help="port: one conv a stage and a hidden dense layer; facevae: "
+                               "FaceVAE's two convs a stage, heads on the flat features "
+                               "(models/vae.py)")
     p.add_argument("--polish_epochs", type=int, default=0,
                    help="with --dtype bfloat16: run the final K epochs in float32")
     p.add_argument("--clip_grad_norm", type=float, default=1e5)
@@ -844,8 +839,6 @@ def main(argv=None) -> GPPVAETrainResult:
                         "(0 = once per epoch)")
     p.add_argument("--init_v_sig", type=float, default=1.0)
     p.add_argument("--init_v_noise", type=float, default=0.5)
-    p.add_argument("--enc_features", default="32,64,128")
-    p.add_argument("--dec_features", default="128,64,32")
     p.add_argument("--encode_chunk", type=int, default=1024)
     p.add_argument("--image_size", type=int, default=None)
     p.add_argument("--panel_every", type=int, default=10,
@@ -861,7 +854,7 @@ def main(argv=None) -> GPPVAETrainResult:
     ds = build_dataset_from_flag(args.data, args.num_objects, args.num_views,
                                  args.seed, image_size=args.image_size)
     config = GPPVAETrainConfig(
-        mode=args.mode, zdim=args.zdim, epochs=args.epochs, batch_size=args.bs,
+        mode=args.mode, epochs=args.epochs, batch_size=args.bs,
         lr_vae=args.lr, lr_gp=args.gp_lr, seed=args.seed, sigma_y=args.sigma_y,
         learn_sigma_y=args.learn_sigma_y,
         obj_feature_dim=args.xdim, view_num_freqs=args.view_freqs,
@@ -869,13 +862,11 @@ def main(argv=None) -> GPPVAETrainResult:
         rff_features=args.rff_features, rff_lengthscale=args.rff_lengthscale,
         nystrom_rank=args.nystrom_rank,
         extra_effects=tuple(e.strip() for e in args.extra_effects.split(",") if e.strip()),
-        compute_dtype=args.dtype, dec_upsample=args.dec_upsample, vae_layout=args.vae_layout,
-        polish_epochs=args.polish_epochs, clip_grad_norm=args.clip_grad_norm,
+        **arch_from_flags(args), polish_epochs=args.polish_epochs,
+        clip_grad_norm=args.clip_grad_norm,
         grad_accum_steps=args.grad_accum_steps,
         refresh_every_steps=args.refresh_every_steps,
         init_v_sig=args.init_v_sig, init_v_noise=args.init_v_noise,
-        enc_features=tuple(int(f) for f in args.enc_features.split(",")),
-        dec_features=tuple(int(f) for f in args.dec_features.split(",")),
         encode_chunk=args.encode_chunk, vae_weights=args.vae_weights,
         resume=args.resume, profile_dir=args.profile_dir,
         outdir=args.outdir, panel_every=args.panel_every,

@@ -46,15 +46,17 @@ from gppvae_tpu_torch.checkpoint import save_tree
 from gppvae_tpu_torch.config import build_dataset_from_flag
 from gppvae_tpu_torch.data import GridDataset
 from gppvae_tpu_torch.eval.panels import save_panel
-from gppvae_tpu_torch.models import LAYOUTS, UPSAMPLES, VAE, sample_reconstruction
+from gppvae_tpu_torch.models import (
+    ARCH_DEFAULTS,
+    VAE,
+    add_arch_flags,
+    arch_from_flags,
+    sample_reconstruction,
+    vae_from_record,
+)
 from gppvae_tpu_torch.parallel import all_reduce, all_reduce_grads, replicate, row_block
 from gppvae_tpu_torch.train.batching import make_draws, masked_means, num_batches
-from gppvae_tpu_torch.train.device import (
-    COMPUTE_DTYPES,
-    compute_dtype,
-    resolve_device,
-    set_float32_precision,
-)
+from gppvae_tpu_torch.train.device import resolve_device, set_float32_precision
 from gppvae_tpu_torch.train.losses import (
     gaussian_recon_nll,
     kl_standard_normal,
@@ -67,19 +69,19 @@ WEIGHTS_FILE = "vae_weights.pt"
 
 @dataclasses.dataclass(frozen=True)
 class VAETrainConfig:
-    zdim: int = 16
+    zdim: int = ARCH_DEFAULTS["zdim"]
     epochs: int = 50
     batch_size: int = 128
     lr: float = 2e-4
     seed: int = 0
     sigma_y: float = 0.1  # decoder Gaussian likelihood std
     beta_kl: float = 1.0
-    enc_features: Sequence[int] = (32, 64, 128)
-    dec_features: Sequence[int] = (128, 64, 32)
-    compute_dtype: str = "float32"  # 'float32' | 'bfloat16' (VAE compute; params f32)
+    enc_features: Sequence[int] = ARCH_DEFAULTS["enc_features"]
+    dec_features: Sequence[int] = ARCH_DEFAULTS["dec_features"]
+    compute_dtype: str = ARCH_DEFAULTS["compute_dtype"]  # VAE compute; params f32
     sat_penalty: float = 1.0  # saturation-death barrier weight (<=0 off)
-    dec_upsample: str = "resize"  # 'resize' | 'subpixel' (same params: models/vae.py)
-    vae_layout: str = "port"  # 'port' | 'facevae' (models/vae.py); train_gppvae takes the same
+    dec_upsample: str = ARCH_DEFAULTS["dec_upsample"]  # same params either way: models/vae.py
+    vae_layout: str = ARCH_DEFAULTS["vae_layout"]  # train_gppvae takes the same
     outdir: str | None = None
     panel_every: int = 0  # epochs between image panels (0 = off)
     checkpoint_every: int = 0  # epochs between vae_weights_NNNN.pt (0 = end only)
@@ -157,9 +159,7 @@ def train_vae(
     log = log or (MetricsLogger(config.outdir) if writer else NullLogger())
     outdir = config.outdir if writer else None
     run_key, init_key, _ = prng.split(prng.PRNGKey(config.seed), 3)
-    model = VAE(config.zdim, dataset.image_shape, config.enc_features,
-                config.dec_features, config.dec_upsample, key=init_key,
-                dtype=compute_dtype(config.compute_dtype), vae_layout=config.vae_layout)
+    model = vae_from_record(vars(config), dataset.image_shape, key=init_key)
     if init_params is not None:
         model.load_state_dict({k: torch.as_tensor(v) for k, v in init_params.items()})
     model.to(device)
@@ -275,7 +275,6 @@ def main(argv=None) -> VAETrainResult:
                    help="synthetic | sklearn | mnist:<dir> | faces[:h5:<path>] | npz:<path>")
     p.add_argument("--outdir", default="./out/vae")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    p.add_argument("--zdim", type=int, default=16)
     p.add_argument("--bs", type=int, default=128)
     p.add_argument("--lr", type=float, default=2e-4)
     p.add_argument("--epochs", type=int, default=50)
@@ -284,13 +283,8 @@ def main(argv=None) -> VAETrainResult:
     p.add_argument("--beta_kl", type=float, default=1.0)
     p.add_argument("--num_objects", type=int, default=400)
     p.add_argument("--num_views", type=int, default=16)
-    p.add_argument("--dtype", default="float32", choices=list(COMPUTE_DTYPES),
-                   help="VAE compute dtype (params stay float32)")
-    p.add_argument("--dec_upsample", default="resize", choices=list(UPSAMPLES))
-    p.add_argument("--vae_layout", default="port", choices=list(LAYOUTS),
-                   help="port or facevae (models/vae.py); pass train_gppvae the same")
-    p.add_argument("--enc_features", default="32,64,128")
-    p.add_argument("--dec_features", default="128,64,32")
+    add_arch_flags(p, dtype_help="VAE compute dtype (params stay float32)",
+                   layout_help="port or facevae (models/vae.py); pass train_gppvae the same")
     p.add_argument("--image_size", type=int, default=None)
     p.add_argument("--panel_every", type=int, default=10,
                    help="epochs between panel_NNNN.png (0 = off)")
@@ -301,11 +295,8 @@ def main(argv=None) -> VAETrainResult:
     ds = build_dataset_from_flag(args.data, args.num_objects, args.num_views,
                                  args.seed, image_size=args.image_size)
     config = VAETrainConfig(
-        zdim=args.zdim, epochs=args.epochs, batch_size=args.bs, lr=args.lr,
-        seed=args.seed, sigma_y=args.sigma_y, beta_kl=args.beta_kl,
-        compute_dtype=args.dtype, dec_upsample=args.dec_upsample, vae_layout=args.vae_layout,
-        enc_features=tuple(int(f) for f in args.enc_features.split(",")),
-        dec_features=tuple(int(f) for f in args.dec_features.split(",")),
+        epochs=args.epochs, batch_size=args.bs, lr=args.lr, seed=args.seed,
+        sigma_y=args.sigma_y, beta_kl=args.beta_kl, **arch_from_flags(args),
         outdir=args.outdir, panel_every=args.panel_every,
         checkpoint_every=args.checkpoint_every,
     )

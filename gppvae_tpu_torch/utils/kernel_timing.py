@@ -1,9 +1,10 @@
 """Timing a kernel on the card against its plain version and its library call.
 
 The port's counterpart of the part of tools/kernel_ab.py that bench.py
-imports: `chip_smoke.py` (phase 3) and `bench_torch.py` (the kernels block)
-time the two CUDA kernels with these functions and hold them to the same
-bounds. Every timing here synchronises the card; call them on CUDA tensors.
+imports: `chip_smoke.py` (phase 3), tools/torch_factor_prep_steps.py and
+tools/torch_nll_core_drivers.py time the CUDA kernels with these functions
+and hold them to the same bounds. Every timing here synchronises the card;
+call them on CUDA tensors.
 
 The peaks are NVIDIA's data sheet for the H100 SXM, dense, at the full 700 W
 power limit: a card set below it reaches less, so a result names the card's
@@ -18,7 +19,6 @@ import time
 import torch
 
 FP32_FLOPS = 67e12  # fp32 outside the tensor cores
-BF16_FLOPS = 989e12  # bfloat16 on the tensor cores
 # float32-accurate products on the tensor cores: split TF32 (x = hi + lo,
 # lo·hi + hi·lo + hi·hi) takes three TF32 passes at 495 TFLOP/s each
 SPLIT_TF32_FLOPS = 495e12 / 3

@@ -2,9 +2,8 @@
 
 A module that runs many small torch ops at the golden size gains nothing
 from more threads, and under the tier's six test workers every process's
-thread pool oversubscribes the shared cores: tests/test_torch_bench.py's
-golden cut run took 222.5 s so and 8.5 s with one thread. A test module
-takes it with `from _one_thread import one_thread  # noqa: F401`.
+thread pool oversubscribes the shared cores: a golden-size bench run took
+222.5 s so and 8.5 s with one thread. A test module takes it with `from _one_thread import one_thread  # noqa: F401`.
 """
 
 import pytest

@@ -1,8 +1,8 @@
 """The card-free parts of utils/kernel_timing.py, on the CPU.
 
 `max_rel_err` holds each output of a kernel to its own scale, as
-tests/test_torch_cuda.py's `_rel_err` does: chip_smoke.py's phase 3 and the
-bench's kernels block check factor_prep's (G, UᵀZ, ‖Z‖²) with it, where
+tests/test_torch_cuda.py's `_rel_err` does: chip_smoke.py's phase 3 checks
+factor_prep's (G, UᵀZ, ‖Z‖²) with it, where
 dividing by the largest |want| of all three (‖Z‖² ≈ N·L) would let an error
 in G of a thousand times the bound pass. `per_call_us` turns torch.profiler's
 per-kernel totals into a time per call that stays right when the profiler

@@ -76,7 +76,7 @@ CASES = {
     "refresh_every_steps": dict(refresh_every_steps=2),
     "subpixel": dict(dec_upsample="subpixel"),
 }
-# the headline's compute dtype and decoder (bench_torch.py's gppvae_joint), and
+# the headline's compute dtype and decoder (bench.py's gppvae_joint), and
 # the same with a float32 polish epoch, held to the JAX trainer by
 # test_bf16_headline_trajectory_matches_jax; CASES["subpixel"] is their
 # float32 run
@@ -453,7 +453,8 @@ def test_package_imports_no_jax(tmp_path):
         "import validate_torch\n"
         "validate_torch.run_validation(epochs=1, pretrain=1, num_objects=12, device='cpu')\n"
         "sys.path.insert(0, 'tools')\n"
-        "import bench_torch, torch_bench_diff, torch_observe_throughput\n"
+        "import torch_dp_cards, torch_factor_prep_steps, torch_nll_core_drivers, "
+        "torch_nll_core_steps\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax', 'optax')))\n"
         "assert not bad, bad\n"
         "ref = sorted(m for m in sys.modules if m == 'gppvae_tpu' or m.startswith('gppvae_tpu.'))\n"
@@ -473,16 +474,12 @@ def test_package_imports_no_jax(tmp_path):
         np.load(tmp_path / "options" / "served" / "served.npz")["images"], rtol=0, atol=1e-2)
 
     # and no source of the port (utils/prng.py included), nor chip_smoke.py,
-    # validate_torch.py, bench_torch.py or the card's tools, names the JAX
-    # package or a JAX library
+    # validate_torch.py or the card's tools, names the JAX package or a JAX
+    # library
     sources = [*sorted((REPO / "gppvae_tpu_torch").rglob("*.py")), REPO / "chip_smoke.py",
-               REPO / "validate_torch.py", REPO / "bench_torch.py",
-               REPO / "tools" / "torch_observe_throughput.py",
-               REPO / "tools" / "torch_bench_diff.py", REPO / "tools" / "torch_stream_cost.py",
-               REPO / "tools" / "torch_headline_seeds.py",
-               REPO / "tools" / "torch_subpixel_lowering.py",
-               REPO / "tools" / "torch_nll_core_steps.py",
-               REPO / "tools" / "torch_nll_core_drivers.py"]
+               REPO / "validate_torch.py",
+               *(REPO / "tools" / f"torch_{name}.py" for name in (
+                   "dp_cards", "factor_prep_steps", "nll_core_steps", "nll_core_drivers"))]
     found = []
     for path in sources:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -492,8 +489,8 @@ def test_package_imports_no_jax(tmp_path):
                       if n.split(".")[0] in ("gppvae_tpu", "jax", "flax", "optax")]
     assert len(sources) > 35 and not found, found
     assert {"train_cvae.py", "plots.py", "cvae.py", "profiling.py", "kernel_timing.py",
-            "prng.py", "bench_torch.py", "torch_bench_diff.py", "torch_nll_core_steps.py",
-            "nll_core.py"} <= {p.name for p in sources}
+            "prng.py", "validate_torch.py", "torch_nll_core_drivers.py",
+            "torch_nll_core_steps.py", "nll_core.py"} <= {p.name for p in sources}
 
 
 def test_guarded_adam_matches_optax_spike_guard():

@@ -3,7 +3,7 @@
     JAX_PLATFORMS=cpu python tools/torch_headline_parity.py --seed 0 --epochs 6 \
         [--parent DIR]
 
-bench_torch.py's `gppvae_joint` (the headline: GPPVAE-joint on synthetic
+bench.py's `gppvae_joint`, config 3b (the headline: GPPVAE-joint on synthetic
 rotated digits, 400 objects × 16 views, 5,700 training rows, 32×32, zdim
 16, R = 56, bs 128, bfloat16 compute with the subpixel decoder, no float32
 polish) at the published widths and a depth of --epochs, trained by the
@@ -33,7 +33,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 DATA = dict(num_objects=400, num_views=16, seed=0)
-# bench_torch.py TABLE["gppvae_joint"]["train"] (bench.py:236-241), less its epochs
+# bench.py's config 3b (bench.py:237-242), less its epochs and epochs_per_dispatch
 HEADLINE = dict(mode="joint", zdim=16, batch_size=128, obj_feature_dim=8, view_num_freqs=3,
                 compute_dtype="bfloat16", dec_upsample="subpixel", polish_epochs=0)
 KEYS = ("loss", "oos_mse")
