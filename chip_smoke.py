@@ -633,21 +633,65 @@ def final_nll_check(result, label: str) -> tuple:
     return Z, Vs, v_sigs, v_noise
 
 
+GRAPH_COUNTERS = ("C.graph_capture", "C.graph_replay")
+
+
+def graph_counts() -> dict:
+    """Phase C's CUDA graphs so far: captures and replayed steps."""
+    from gppvae_tpu_torch.utils import timers
+
+    return {k: timers.TRACER.counts.get(k, 0) for k in GRAPH_COUNTERS}
+
+
+def since(before: dict) -> dict:
+    return {k: v - before[k] for k, v in graph_counts().items()}
+
+
+def replays_per_epoch(fn):
+    """(fn(), the steps replayed from a graph in each epoch fn ran), from
+    the tracer's spans: C.graph_replay credited under each C_minibatch."""
+    from gppvae_tpu_torch.utils import timers
+
+    timers.take()
+    timers.set_tracing(True)
+    try:
+        out = fn()
+    finally:
+        timers.set_tracing(False)
+    spans = timers.take()
+    epoch = {}
+    for i, sp in enumerate(spans):
+        epoch[i] = i if sp.parent == -1 and sp.name == "C_minibatch" else epoch.get(sp.parent)
+    roots = [i for i, sp in enumerate(spans) if sp.parent == -1 and sp.name == "C_minibatch"]
+    return out, [sum(sp.counts.get("C.graph_replay", 0) for i, sp in enumerate(spans)
+                     if epoch[i] == r) for r in roots]
+
+
 def phase_slice(tmp: str, card: str) -> tuple[dict, dict]:
     from gppvae_tpu_torch.train import train_gppvae, train_vae
 
     say("== 4 slice: train_vae 1 epoch → train_gppvae --mode joint 3 epochs "
         "(P=400, Q=16, zdim 16, R=56, bs 128, f32)")
+    replays = []
 
     def run():
         train_vae.main([*SLICE_ARGS, "--epochs", "1", "--outdir", f"{tmp}/vae"])
-        return train_gppvae.main([
+        result, per_epoch = replays_per_epoch(lambda: train_gppvae.main([
             *SLICE_ARGS, "--mode", "joint", "--epochs", "3",
             "--vae_weights", f"{tmp}/vae/{train_vae.WEIGHTS_FILE}",
             "--outdir", f"{tmp}/gppvae",
-        ])
+        ]))
+        replays.extend(per_epoch)
+        return result
 
     result, counts = drive("4 slice", run)
+    nb = -(-result.data["images_tr"].shape[0] // result.config.batch_size)
+    from gppvae_tpu_torch.train.train_gppvae import WARMUP_STEPS
+
+    say(f"4 slice: steps replayed from Phase C's CUDA graph per epoch {replays} of {nb}")
+    check(len(replays) == 3 and replays[0] == nb - WARMUP_STEPS
+          and all(r == nb for r in replays[1:]),
+          "4: Phase C's graph replays every step after the warm-ups")
     hist = result.history
     report(hist)
     report_flops("4 slice", result, card)
@@ -795,10 +839,13 @@ def path_faces(tmp: str) -> tuple[dict, dict]:
     say("== 5b GP options at face-view 128² (config 4 widths): rbf (32 RFF) + object "
         "effect, learn_sigma_y, grad_accum 2, refresh every 3 steps, subpixel, 2 epochs")
     epochs, refresh = 2, 3
+    graphs = graph_counts()
     result, counts = drive("5b faces", lambda: train_gppvae.main([
         *FACES_ARGS, "--mode", "joint", "--epochs", str(epochs), "--outdir", f"{tmp}/faces"]))
     hist = result.history
     report(hist)
+    check(since(graphs) == {k: 0 for k in GRAPH_COUNTERS},
+          "5b: accumulating steps run eager, no CUDA graph captured or replayed")
     nb = -(-result.data["images_tr"].shape[0] // result.config.batch_size)
     launches = epochs * -(-nb // refresh)  # epochs × (1 + refreshes per epoch)
     check(counts["launch_factor_prep.launches"] == launches
@@ -1200,9 +1247,13 @@ def path_resume(tmp: str) -> list[dict]:
     common = [*SLICE_ARGS, "--mode", "joint", "--dtype", "bfloat16", "--polish_epochs", "2",
               "--vae_weights", f"{tmp}/vae/{train_vae.WEIGHTS_FILE}"]
     out = f"{tmp}/resume"
+    graphs = graph_counts()
     full, c_full = drive("7 uninterrupted", lambda: train_gppvae.main([
         *common, "--epochs", "4", "--checkpoint_every", "1", "--panel_every", "1",
         "--outdir", out]))
+    say(f"7 uninterrupted: Phase C's CUDA graphs {since(graphs)}")
+    check(since(graphs)["C.graph_capture"] == 2,
+          "7 uninterrupted: one graph in bfloat16, one after the float32 switch")
     report(full.history)
     files = sorted(os.listdir(out))
     say(f"7 artifacts: {files}")
@@ -1212,11 +1263,16 @@ def path_resume(tmp: str) -> list[dict]:
     all_counts = [c_full]
     nb = -(-full.data["images_tr"].shape[0] // full.config.batch_size)
     for start, label in ((2, "boundary"), (3, "mid-polish")):
+        graphs = graph_counts()
         res, counts = drive(f"7 resumed from state_{start:04d} ({label})",
                             lambda: train_gppvae.main([
                                 *common, "--epochs", "4", "--resume", f"{out}/state_{start:04d}",
                                 "--outdir", f"{tmp}/resume_{start}"]))
         all_counts.append(counts)
+        made = since(graphs)
+        say(f"7 {label}: Phase C's CUDA graphs {made}")
+        check(made["C.graph_capture"] == 1 and made["C.graph_replay"] > 0,
+              f"7 {label}: the resumed run captures its graph after its state is loaded")
         epochs = [h["epoch"] for h in res.history]
         check(epochs == list(range(start, 4)), f"7 {label}: ran epochs {list(range(start, 4))}")
         check(res.model.dtype == torch.float32, f"7 {label}: the polish tail runs float32")

@@ -39,14 +39,15 @@ def pivoted_cholesky_landmarks(V, m: int, tol: float = 1e-10) -> np.ndarray:
 def nystrom_features(V: torch.Tensor, landmark_idx, jitter: float = 1e-10) -> torch.Tensor:
     """Φ = V V_Sᵀ L_SS⁻ᵀ (N, len(landmark_idx)), so that Φ Φᵀ is the Nyström
     approximation of V Vᵀ. The jitter scales with the landmark kernel's
-    trace. A Cholesky that fails gives NaN, as jax.lax.linalg.cholesky does,
-    and never a host sync."""
+    trace (the diagonal's sum: torch.trace's gradient reads its grad back
+    on the host). A Cholesky that fails gives NaN, as
+    jax.lax.linalg.cholesky does, and never a host sync."""
     idx = torch.as_tensor(landmark_idx, dtype=torch.int64, device=V.device)
     V_S = V[idx]  # (m, R)
     C = V @ V_S.T  # (N, m) cross-covariance K(·, S)
     K_SS = V_S @ V_S.T
     m = K_SS.shape[0]
-    eps = jitter * (torch.trace(K_SS) / m + 1.0)
+    eps = jitter * (torch.diagonal(K_SS).sum() / m + 1.0)
     L_SS, info = torch.linalg.cholesky_ex(
         K_SS + eps * torch.eye(m, dtype=V.dtype, device=V.device))
     L_SS = torch.where(info == 0, L_SS, torch.full_like(L_SS, float("nan")))

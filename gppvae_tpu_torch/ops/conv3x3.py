@@ -412,7 +412,9 @@ def _check_shapes(x: torch.Tensor, weight: torch.Tensor, stride: int, pads) -> N
 # (device, stream) → scratch kept between calls and grown when a shape
 # needs more (a layer's g, then the weight gradient's partial tiles): calls
 # on one stream run in order, so each call's kernels are done with it before
-# the next call's start.
+# the next call's start. A call captured in a CUDA graph that needs more
+# takes scratch of its own from the graph's memory, which is never kept for
+# a later call (a graph's replays write it).
 _SCRATCH: dict = {}
 
 
@@ -421,7 +423,8 @@ def _workspace(dev, stream: int, floats: int) -> torch.Tensor:
     if ws is None or ws.numel() < floats:
         ws = torch.empty(max(floats, 0 if ws is None else ws.numel()), device=dev,
                          dtype=torch.float32)
-        _SCRATCH[(dev, stream)] = ws
+        if not torch.cuda.is_current_stream_capturing():
+            _SCRATCH[(dev, stream)] = ws
     return ws
 
 

@@ -15,7 +15,10 @@ selects: the clip is a select of two 0-d factors applied with
 holds back the parameters, both moments and the step count), and the skips
 are counted in a device counter. A step only enqueues work; the host waits
 for the device only where it reads `notfinite_count` or `steps` (the
-tracer's read `sync.notfinite`), at most once an epoch.
+tracer's read `sync.notfinite`), at most once an epoch. With `capturable`
+the fused Adam may be captured in a CUDA graph (train_gppvae's Phase C
+step): the same update, its step counts on the device either way; the
+host's `guarded` count is then advanced by whoever replays the graph.
 
 With accum_steps = k > 1 the guard sits inside optax.MultiSteps: each call
 folds the gradients into a running mean (optax's Welford form
@@ -79,13 +82,15 @@ class GuardedAdam:
     device, and `notfinite_count` / `steps` read a device counter."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], lr: float,
-                 clip_grad_norm: float = 1e5, accum_steps: int = 1, shards=None):
+                 clip_grad_norm: float = 1e5, accum_steps: int = 1, shards=None,
+                 capturable: bool = False):
         self.params = list(params)
         # (MeshGroup, [is a block per parameter]) under tensor parallelism
         self.group, self.shards = shards if shards and any(shards[1]) else (None, None)
         self.clip = clip_grad_norm
+        self.capturable = capturable
         self.adam = torch.optim.Adam(self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                                     fused=True)
+                                     fused=True, capturable=capturable)
         self.accum_steps = accum_steps
         self.mini_step = 0
         self.acc: list[torch.Tensor] | None = None  # running mean gradients
@@ -134,11 +139,13 @@ class GuardedAdam:
 
     def load_state_dict(self, state: dict) -> None:
         # the learning rate stays this optimizer's own (optax keeps it
-        # outside its state), and the update the fused one, whatever wrote
-        # the state: its step counts then load onto the parameters' device
+        # outside its state), and the update the fused one, capturable or
+        # not as this one, whatever wrote the state: its step counts then
+        # load onto the parameters' device
         lr = self.adam.param_groups[0]["lr"]
         adam = dict(state["adam"], param_groups=[
-            {**g, "lr": lr, "fused": True} for g in state["adam"]["param_groups"]])
+            {**g, "lr": lr, "fused": True, "capturable": self.capturable}
+            for g in state["adam"]["param_groups"]])
         if self.group is not None:
             adam["state"] = {
                 i: {k: self._mine(i, v) if torch.is_tensor(v) and v.dim() else v

@@ -12,7 +12,9 @@ phase-per-dispatch path (`_run_profiled`), one epoch at a time:
            guarded Adam for the VAE and one for the GP parameters, each
            stepping every grad_accum_steps minibatches; with
            refresh_every_steps = k, Phase A+B re-run at the current
-           parameters after every k steps
+           parameters after every k steps. In one process on a CUDA device
+           with an Adam step every minibatch, the step is captured once as a
+           CUDA graph and replayed (`_GraphStep`)
   Eval     a fresh encode, GP-predictive latents for the held-out cells,
            decoded; pixel MSE → oos_mse
 
@@ -73,9 +75,11 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import json
 import math
 import os
+import warnings
 from typing import Callable, Sequence
 
 import numpy as np
@@ -117,7 +121,7 @@ from gppvae_tpu_torch.train.losses import (
 from gppvae_tpu_torch.train.optim import GuardedAdam, resolve_grad_accum
 from gppvae_tpu_torch.utils import MetricsLogger, NullLogger, prng
 from gppvae_tpu_torch.utils.profiling import maybe_trace
-from gppvae_tpu_torch.utils.timers import read, span
+from gppvae_tpu_torch.utils.timers import count, read, span, tally
 
 _METRIC_KEYS = (
     "loss", "recon_term", "gp_term", "pen_term", "mse",
@@ -360,6 +364,110 @@ def _polish_epochs(config: GPPVAETrainConfig) -> int:
     return 0
 
 
+def graph_steps(device: torch.device, group, accum_steps: int) -> bool:
+    """Whether Phase C's steps run as a CUDA graph: in one process on a CUDA
+    device, with an Adam step every call (an accumulating step branches on
+    the host, a group's step all-reduces)."""
+    return device.type == "cuda" and group is None and accum_steps == 1
+
+
+WARMUP_STEPS = 2  # eager steps on the capture stream before each capture
+# what torch.optim warns of a capturable Adam's eager steps (the warm-ups)
+_UNCAPTURED = "This instance was constructed with capturable=True"
+
+
+@functools.cache
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The side stream Phase C's graphs are captured on, one per device, so
+    that what the warm-ups make per stream (cuBLAS's workspace, conv3x3's
+    scratch) serves every capture."""
+    return torch.cuda.Stream(device)
+
+
+def _coeff_tensors(c: gp.TaylorCoefficients) -> list[torch.Tensor]:
+    dV = c.dV if isinstance(c.dV, list) else [c.dV]
+    return [c.value, c.dZ, *dV, *(c.daux[k] for k in sorted(c.daux))]
+
+
+def _coeff_layout(c: gp.TaylorCoefficients) -> tuple:
+    return (isinstance(c.dV, list), tuple(sorted(c.daux)),
+            tuple((t.shape, t.dtype) for t in _coeff_tensors(c)))
+
+
+class _GraphStep:
+    """One Phase C step as a CUDA graph over static buffers.
+
+    Each call copies the step's (pos, w, eps) into the static inputs, and
+    Taylor coefficients other than those last copied into the static ones.
+    The first WARMUP_STEPS calls run the eager step on the capture stream
+    (Adam's state, conv3x3's plans and that stream's scratch are made
+    there); the next captures it, and it and every later call replay the
+    graph and return a copy of its (5,) metrics. What the captured step
+    counted on the host (the tracer's counts, each guarded Adam's calls)
+    is credited again on each replay. A graph serves the owners (both
+    optimizers, their states, the config) and the layout (the inputs'
+    shapes and dtypes, the compute dtype, the coefficients') it was
+    captured with (`fits`)."""
+
+    def __init__(self, owners: tuple, layout: tuple, coeffs, inputs, opts):
+        self.owners, self.layout, self.opts = owners, layout, opts
+        self.coeffs = gp.TaylorCoefficients(
+            torch.empty_like(coeffs.value), torch.empty_like(coeffs.dZ),
+            [torch.empty_like(v) for v in coeffs.dV] if isinstance(coeffs.dV, list)
+            else torch.empty_like(coeffs.dV),
+            {k: torch.empty_like(v) for k, v in coeffs.daux.items()})
+        self.inputs = [torch.empty_like(t) for t in inputs]
+        self.source = None  # the coefficients last copied in
+        self.stream = _capture_stream(inputs[0].device)
+        self.warm = 0
+        self.graph = self.metrics = None
+        self.tallies: dict = {}
+        self.guarded: list[int] = []
+
+    def fits(self, owners: tuple, layout: tuple) -> bool:
+        return self.layout == layout and all(a is b for a, b in zip(self.owners, owners))
+
+    def load(self, coeffs, inputs) -> None:
+        if coeffs is not self.source:
+            torch._foreach_copy_(_coeff_tensors(self.coeffs), _coeff_tensors(coeffs))
+            self.source = coeffs
+        torch._foreach_copy_(self.inputs, list(inputs))
+
+    def __call__(self, step: Callable) -> torch.Tensor:
+        if self.warm < WARMUP_STEPS:
+            self.warm += 1
+            here = torch.cuda.current_stream(self.stream.device)
+            self.stream.wait_stream(here)
+            with torch.cuda.stream(self.stream), warnings.catch_warnings():
+                warnings.filterwarnings("ignore", _UNCAPTURED)
+                metrics = step(self.coeffs, *self.inputs)
+            here.wait_stream(self.stream)
+            return metrics
+        if self.graph is None:
+            self._capture(step)
+        with span("C.replay"):
+            self.graph.replay()
+            count("C.graph_replay")
+            for name, n in self.tallies.items():
+                count(name, n)
+            for opt, n in zip(self.opts, self.guarded):
+                opt.guarded += n
+            return self.metrics.clone()
+
+    def _capture(self, step: Callable) -> None:
+        before = [opt.guarded for opt in self.opts]
+        for opt in self.opts:
+            opt.zero_grad()
+        graph = torch.cuda.CUDAGraph()
+        with tally() as self.tallies, torch.cuda.graph(graph, stream=self.stream):
+            self.metrics = step(self.coeffs, *self.inputs)
+        self.guarded = [opt.guarded - b for opt, b in zip(self.opts, before)]
+        for opt, b in zip(self.opts, before):
+            opt.guarded = b
+        self.graph = graph
+        count("C.graph_capture")
+
+
 class _Loop:
     """The epoch's building blocks over one model, its GP params and data.
     With a group, `data` holds the rank's block of the padded training rows
@@ -377,6 +485,8 @@ class _Loop:
             raise ValueError(f"batch_size {config.batch_size} exceeds train set {num_train}")
         self.nb = num_batches(num_train, config.batch_size)
         self.chunk = min(config.encode_chunk, num_train)
+        self.graphs = graph_steps(data["images_tr"].device, group, accum_steps)
+        self.graph: _GraphStep | None = None
         with torch.no_grad():  # rejects an unknown extra effect before any work
             self.build_effects(gp_params["X"], self.view_W(), data["d_tr"][:1],
                                data["q_tr"][:1])
@@ -388,9 +498,11 @@ class _Loop:
         params = list(self.model.parameters())
         self.shards = tp.shard_mask(self.model, params)
         self.opt_vae = GuardedAdam(params, config.lr_vae, config.clip_grad_norm,
-                                   self.accum_steps, shards=(self.group, self.shards))
+                                   self.accum_steps, shards=(self.group, self.shards),
+                                   capturable=self.graphs)
         self.opt_gp = GuardedAdam([self.gp[k] for k in sorted(self.gp)], config.lr_gp,
-                                  config.clip_grad_norm, self.accum_steps)
+                                  config.clip_grad_norm, self.accum_steps,
+                                  capturable=self.graphs)
 
     def view_W(self):
         return self.gp["W"] if self.config.mode == "joint" else self.fixed_W
@@ -456,37 +568,58 @@ class _Loop:
         local to its block; there may be none): its share of the loss is
         differentiated, and one all-reduce sums the gradients of both Adams'
         parameters with the metric sums, so that both Adams see the whole
-        batch's gradient on every rank."""
+        batch's gradient on every rank.
+
+        Where `graph_steps` holds, the step runs as a CUDA graph
+        (`_GraphStep`), captured anew when the inputs' shapes or dtypes, the
+        coefficients' layout, the compute dtype, an optimizer or its state,
+        or the config change."""
         with span("C.step"):
-            self.opt_vae.zero_grad()
-            self.opt_gp.zero_grad()
-            if self.group is None:
+            if not self.graphs:
+                return self._step(coeffs, pos, w, eps)
+            inputs = (pos, w, eps)
+            owners = (self.opt_vae, self.opt_vae.adam.state, self.opt_gp,
+                      self.opt_gp.adam.state, self.config)
+            layout = (*((t.shape, t.dtype) for t in inputs), self.model.dtype,
+                      _coeff_layout(coeffs))
+            if self.graph is None or not self.graph.fits(owners, layout):
+                self.graph = None  # the old graph's memory goes first
+                self.graph = _GraphStep(owners, layout, coeffs, inputs,
+                                        (self.opt_vae, self.opt_gp))
+            self.graph.load(coeffs, inputs)
+            return self.graph(self._step)
+
+    def _step(self, coeffs, pos, w, eps) -> torch.Tensor:
+        """The step's work, eager: what minibatch_step runs or captures."""
+        self.opt_vae.zero_grad()
+        self.opt_gp.zero_grad()
+        if self.group is None:
+            with span("C.forward"):
+                loss, recon, gp_term, pen_rows, mse = self.batch_terms(coeffs, pos, w, eps)
+                recon_m, pen_m, mse_m = masked_means(w, recon, pen_rows, mse)
+                metrics = torch.stack([loss, recon_m, gp_term, pen_m, mse_m]).detach()
+            with span("C.backward"):
+                loss.backward()
+        else:
+            # loss, Σw·recon, gp_term, Σw·pen, Σw·mse, Σw
+            sums = torch.zeros(6, device=w.device)
+            if pos.numel():
                 with span("C.forward"):
-                    loss, recon, gp_term, pen_rows, mse = self.batch_terms(coeffs, pos, w, eps)
-                    recon_m, pen_m, mse_m = masked_means(w, recon, pen_rows, mse)
-                    metrics = torch.stack([loss, recon_m, gp_term, pen_m, mse_m]).detach()
+                    loss, recon, gp_term, pen_rows, mse = self.batch_terms(
+                        coeffs, pos, w, eps)
                 with span("C.backward"):
                     loss.backward()
-            else:
-                # loss, Σw·recon, gp_term, Σw·pen, Σw·mse, Σw
-                sums = torch.zeros(6, device=w.device)
-                if pos.numel():
-                    with span("C.forward"):
-                        loss, recon, gp_term, pen_rows, mse = self.batch_terms(
-                            coeffs, pos, w, eps)
-                    with span("C.backward"):
-                        loss.backward()
-                    sums = torch.stack([loss, torch.sum(w * recon), gp_term,
-                                        torch.sum(w * pen_rows), torch.sum(w * mse),
-                                        torch.sum(w)]).detach()
-                sums = all_reduce_grads(self.group, [*self.opt_vae.params, *self.opt_gp.params],
-                                        sums, [*self.shards, *[False] * len(self.opt_gp.params)])
-                metrics = sums[:5].clone()
-                metrics[[1, 3, 4]] /= sums[5]  # the masked means
-            with span("C.optim"):
-                self.opt_vae.step()
-                self.opt_gp.step()
-            return metrics
+                sums = torch.stack([loss, torch.sum(w * recon), gp_term,
+                                    torch.sum(w * pen_rows), torch.sum(w * mse),
+                                    torch.sum(w)]).detach()
+            sums = all_reduce_grads(self.group, [*self.opt_vae.params, *self.opt_gp.params],
+                                    sums, [*self.shards, *[False] * len(self.opt_gp.params)])
+            metrics = sums[:5].clone()
+            metrics[[1, 3, 4]] /= sums[5]  # the masked means
+        with span("C.optim"):
+            self.opt_vae.step()
+            self.opt_gp.step()
+        return metrics
 
     def epoch_steps(self, batches, weights, eps) -> list[tuple]:
         """The epoch's (pos, w, eps) per step on the device, from the plan's

@@ -20,6 +20,10 @@ The tracer is one per process (`TRACER`; the module-level `span`, `count`,
   count(name)    a counter, always kept (the kernels' launch counts live
                  here); while a span is open, the increment is also
                  credited to the innermost one.
+  tally()        a context manager that holds the counts made inside it
+                 back from the counters and the spans and yields them as a
+                 dict: work recorded once and run many times (a captured
+                 CUDA graph) credits them again on each run.
   read(site, convert, value)
                  convert(value) where the host waits for the device: a read
                  of a device value (`bool`, `float`, `torch.Tensor.tolist`)
@@ -122,6 +126,7 @@ class Tracer:
         self.spans: list[list] = []  # [name, parent, start_ns, end_ns, counts | None]
         self.stack: list[int] = []  # the open recorded spans, innermost last
         self.dropped = 0  # spans not recorded because the list was full
+        self.held: dict | None = None  # the counts of an open tally()
 
     def set_tracing(self, on: bool) -> None:
         self.on = bool(on)
@@ -132,12 +137,23 @@ class Tracer:
         return _Open(self, name)
 
     def count(self, name: str, n: int = 1) -> None:
+        if self.held is not None:
+            self.held[name] = self.held.get(name, 0) + n
+            return
         self.counts[name] = self.counts.get(name, 0) + n
         if self.stack:
             rec = self.spans[self.stack[-1]]
             if rec[4] is None:
                 rec[4] = {}
             rec[4][name] = rec[4].get(name, 0) + n
+
+    @contextlib.contextmanager
+    def tally(self):
+        outer, self.held = self.held, {}
+        try:
+            yield self.held
+        finally:
+            self.held = outer
 
     def read(self, site: str, convert, value):
         if not (self.on or _profiling()):
@@ -184,7 +200,7 @@ class Counters(collections.abc.MutableMapping):
 
 
 TRACER = Tracer()
-span, count, read = TRACER.span, TRACER.count, TRACER.read
+span, count, read, tally = TRACER.span, TRACER.count, TRACER.read, TRACER.tally
 set_tracing, take = TRACER.set_tracing, TRACER.take
 
 

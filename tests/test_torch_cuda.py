@@ -478,6 +478,177 @@ def test_a_non_finite_step_is_skipped_on_the_card(gen):
     assert (opt.notfinite_count, opt.steps) == (ref.notfinite_count, ref.steps) == (1, 2)
 
 
+# ---- Phase C's steps as a CUDA graph (train_gppvae._GraphStep)
+
+GRAPH_CFG = dict(zdim=6, epochs=1, batch_size=16, obj_feature_dim=4, view_num_freqs=2,
+                 enc_features=(8, 16), dec_features=(16, 8), seed=5)
+GRAPH_COUNTERS = ("C.graph_capture", "C.graph_replay")
+
+
+def _graph_loops(**overrides):
+    """Two loops on the card from the same initial state and config: the
+    first steps as a graph, the second eagerly (as a group or accumulation
+    would); the first epoch's coefficients and steps of the eager one."""
+    ds = build_rotated_digits("synthetic", num_objects=10, num_views=8, seed=7)
+    cfg = train_gppvae.GPPVAETrainConfig(**{**GRAPH_CFG, **overrides})
+    loops = []
+    for graphs in (True, False):
+        model, gp_params, fixed_W, data, n = train_gppvae._setup(ds, cfg, torch.device("cuda"))
+        x_map, _ = train_gppvae._object_kernel(cfg, gp_params["X"], {}, torch.device("cuda"))
+        loop = train_gppvae._Loop(model, gp_params, fixed_W, data, n, cfg, x_map=x_map)
+        assert loop.graphs
+        loop.graphs = graphs
+        loop.restart_optimizers()
+        loops.append(loop)
+    coeffs = loops[1].solve(loops[1].encode())
+    draws = train_gppvae.make_draws(train_gppvae.run_keys(cfg.seed)[0], n, cfg.batch_size,
+                                    cfg.zdim)
+    steps = loops[1].epoch_steps(*draws(0)) + loops[1].epoch_steps(*draws(1))
+    return loops, coeffs, steps
+
+
+def _counts(names) -> dict:
+    from gppvae_tpu_torch.utils import timers
+
+    return {k: timers.TRACER.counts.get(k, 0) for k in names}
+
+
+def _opt_state(opt) -> list:
+    """An Adam's parameters, moments and step tensors."""
+    return [*(p.detach().clone() for p in opt.params),
+            *(opt.adam.state[p][k].clone() for p in opt.params
+              for k in ("exp_avg", "exp_avg_sq", "step"))]
+
+
+def _state(loop) -> list:
+    return _opt_state(loop.opt_vae) + _opt_state(loop.opt_gp)
+
+
+@pytest.mark.parametrize("options", [
+    {},
+    {"object_kernel": "rbf", "rff_features": 16},
+    {"object_kernel": "rbf-nystrom", "rff_features": 16, "nystrom_rank": 6},
+    {"mode": "dis", "extra_effects": ("object", "view"), "learn_sigma_y": True},
+], ids=["linear", "rbf", "rbf-nystrom", "dis-effects-sigma"])
+def test_replayed_steps_equal_the_eager_steps_bit_for_bit(gen, options):
+    """From one state on the same inputs, ten steps (two warm-ups, the
+    capture, seven replays, across two epochs' plans) give the eager
+    steps' metrics, parameters, Adam moments and step counts bit for bit,
+    for each object kernel and the GP's options; a replay makes no
+    synchronising call; C.graph_capture counts 1 and C.graph_replay steps −
+    warm-ups; the Adams of the graph are capturable."""
+    (graph, eager), coeffs, steps = _graph_loops(**options)
+    assert len(steps) == 10
+    assert graph.opt_vae.capturable and not eager.opt_vae.capturable
+    before = _counts(GRAPH_COUNTERS)
+    for i, s in enumerate(steps):
+        if i == len(steps) - 1:
+            torch.cuda.synchronize()
+            got = []
+            assert _synchronising(lambda: got.append(graph.minibatch_step(coeffs, *s))) == (0, 0)
+            got = got[0]
+        else:
+            got = graph.minibatch_step(coeffs, *s)
+        want = eager.minibatch_step(coeffs, *s)
+        assert torch.equal(got, want), i
+    torch.cuda.synchronize()
+    after = _counts(GRAPH_COUNTERS)
+    warm = train_gppvae.WARMUP_STEPS
+    assert after["C.graph_capture"] - before["C.graph_capture"] == 1
+    assert after["C.graph_replay"] - before["C.graph_replay"] == len(steps) - warm
+    for a, b in zip(_state(graph), _state(eager)):
+        assert torch.equal(a, b)
+    for opt in ("opt_vae", "opt_gp"):
+        g, e = getattr(graph, opt), getattr(eager, opt)
+        assert (g.steps, g.notfinite_count) == (e.steps, e.notfinite_count) == (10, 0)
+
+
+def test_a_replay_counts_the_eager_steps_launches(gen):
+    """A replayed step credits every count the captured step made (the
+    VAE's convolutions, vae.conv3x3, and conv3x3's launches per pass among
+    them) as one eager step counts them, under C.replay inside C.step."""
+    from gppvae_tpu_torch.utils import timers
+
+    def counted(fn) -> dict:
+        before = dict(timers.TRACER.counts)
+        fn()
+        return {k: v - before.get(k, 0) for k, v in timers.TRACER.counts.items()
+                if v != before.get(k, 0)}
+
+    (graph, eager), coeffs, steps = _graph_loops()
+    for s in steps[:3]:
+        graph.minibatch_step(coeffs, *s)
+        eager.minibatch_step(coeffs, *s)
+    per_eager = counted(lambda: eager.minibatch_step(coeffs, *steps[3]))
+    timers.take()
+    timers.set_tracing(True)
+    try:
+        per_replay = counted(lambda: graph.minibatch_step(coeffs, *steps[3]))
+    finally:
+        timers.set_tracing(False)
+    spans = timers.take()
+    assert per_replay == {**per_eager, "C.graph_replay": 1}
+    assert per_eager["vae.conv3x3"] > 0 and "host_sync" not in per_eager
+    assert all(per_eager[f"launch_conv3x3.{p}"] > 0 for p in ("fprop", "dgrad", "wgrad"))
+    assert [s.name for s in spans] == ["C.step", "C.replay"]
+    assert spans[1].counts == per_replay
+
+
+def test_a_non_finite_step_skips_under_replay_as_it_does_eagerly(gen):
+    """A NaN in ε after the capture makes the VAE's gradient non-finite:
+    the replay leaves the VAE's parameters and Adam as they were and counts
+    the skip, while the GP's Adam (whose gradient does not reach ε) steps,
+    as the eager step does, bit for bit; the next finite replay steps both."""
+    (graph, eager), coeffs, steps = _graph_loops()
+    for s in steps[:4]:
+        graph.minibatch_step(coeffs, *s)
+        eager.minibatch_step(coeffs, *s)
+    pos, w, eps = steps[4]
+    eps = eps.clone()
+    eps[0, 0] = float("nan")
+    was = _opt_state(graph.opt_vae)
+    got, want = graph.minibatch_step(coeffs, pos, w, eps), eager.minibatch_step(coeffs, pos, w,
+                                                                               eps)
+    assert torch.isnan(got[0]) and torch.isnan(want[0])
+    assert all(torch.equal(a, b) for a, b in zip(_opt_state(graph.opt_vae), was))
+    assert all(torch.equal(a, b) for a, b in zip(_state(graph), _state(eager)))
+    for loop in (graph, eager):
+        assert (loop.opt_vae.steps, loop.opt_vae.notfinite_count) == (4, 1)
+        assert (loop.opt_gp.steps, loop.opt_gp.notfinite_count) == (5, 0)
+    assert torch.equal(graph.minibatch_step(coeffs, *steps[5]),
+                       eager.minibatch_step(coeffs, *steps[5]))
+    assert all(torch.equal(a, b) for a, b in zip(_state(graph), _state(eager)))
+    assert (graph.opt_vae.steps, graph.opt_gp.steps) == (5, 6)
+
+
+def test_half_a_batch_and_a_polish_switch_each_capture_a_new_graph(gen):
+    """Inputs of another shape (the harness's half batch) and the float32
+    switch of a bfloat16 run (the compute dtype changes and both Adams
+    restart) each capture anew after their warm-ups; the eager loop agrees
+    on every step."""
+    (graph, eager), coeffs, steps = _graph_loops(compute_dtype="bfloat16")
+    before = _counts(GRAPH_COUNTERS)
+    warm = train_gppvae.WARMUP_STEPS
+
+    def run(batch):
+        for s in batch:
+            assert torch.equal(graph.minibatch_step(coeffs, *s), eager.minibatch_step(coeffs, *s))
+
+    run(steps[:3])
+    first = graph.graph
+    run([tuple(t[:8] for t in s) for s in steps[3:6]])
+    assert graph.graph is not first
+    for loop in (graph, eager):
+        loop.model.dtype = torch.float32
+        loop.restart_optimizers()
+    run(steps[6:9])
+    after = _counts(GRAPH_COUNTERS)
+    assert after["C.graph_capture"] - before["C.graph_capture"] == 3
+    assert after["C.graph_replay"] - before["C.graph_replay"] == 9 - 3 * warm
+    for a, b in zip(_state(graph), _state(eager)):
+        assert torch.equal(a, b)
+
+
 # ---- conv3x3: the VAE's float32 convolutions (ops/conv3x3.py)
 
 PAD1, SAME = (1, 1, 1, 1), (0, 1, 0, 1)

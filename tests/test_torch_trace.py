@@ -106,6 +106,23 @@ def test_nested_spans_record_parents_self_time_and_credited_counts():
     assert all(s.start_ns <= s.end_ns for s in spans) and t.take() == []
 
 
+def test_a_tally_holds_its_counts_back_from_the_counters_and_the_spans():
+    """What is counted inside tally() is handed over as a dict and reaches
+    neither the counters nor the open span; after it, counting is as
+    before (a captured CUDA graph's step credits its tallies on replay)."""
+    t = Tracer()
+    t.set_tracing(True)
+    with t.span("step"):
+        t.count("x")
+        with t.tally() as held:
+            t.count("x", 2)
+            t.count("y")
+        t.count("x")
+    (step,) = t.take()
+    assert held == {"x": 2, "y": 1}
+    assert step.counts == {"x": 2} and t.counts == {"x": 2}
+
+
 def test_the_span_list_is_bounded_and_take_refuses_open_spans():
     t = Tracer(limit=2)
     t.set_tracing(True)

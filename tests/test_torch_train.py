@@ -611,6 +611,45 @@ def test_a_phase_c_step_makes_no_host_sync(golden):
     assert loop.opt_vae.steps == loop.opt_gp.steps == 1
 
 
+@pytest.mark.parametrize("device,group,accum,want", [
+    ("cuda", None, 1, True),
+    ("cpu", None, 1, False),
+    ("cuda", object(), 1, False),  # a data-parallel or mesh rank
+    ("cuda", None, 2, False),      # gradient accumulation
+])
+def test_graph_steps_only_in_one_cuda_process_stepping_every_call(device, group, accum, want):
+    assert train_gppvae.graph_steps(torch.device(device), group, accum) is want
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_eager_steps_record_no_graph_counter(golden, accum):
+    """On the CPU (and with accumulation) every step is the eager one: no
+    graph, no C.replay span, no graph counter, and Adams that are not
+    capturable."""
+    loop = _port(golden)
+    loop.accum_steps = accum
+    loop.restart_optimizers()
+    assert not loop.graphs and not loop.opt_vae.capturable and not loop.opt_gp.capturable
+    coeffs = loop.solve(loop.encode())
+    steps = loop.epoch_steps(*train_gppvae.make_draws(train_gppvae.run_keys(7)[0],
+                                                      golden["num_train"], 16, 6)(0))
+    names = ("C.graph_capture", "C.graph_replay")
+    before = {k: timers.TRACER.counts.get(k) for k in names}
+    timers.take()
+    timers.set_tracing(True)
+    try:
+        for s in steps[:3]:
+            loop.minibatch_step(coeffs, *s)
+    finally:
+        timers.set_tracing(False)
+    spans = timers.take()
+    assert loop.graph is None
+    assert {k: timers.TRACER.counts.get(k) for k in names} == before
+    assert [s.name for s in spans if s.parent == -1] == ["C.step"] * 3
+    assert "C.replay" not in {s.name for s in spans}
+    assert loop.opt_vae.steps == loop.opt_gp.steps == 3 // accum
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_sigma_y_fill_equals_the_copy_bit_for_bit(dtype):
     """_like fills a number in on y's device with the bits that
