@@ -10,6 +10,10 @@ plain reference (benchmark/reference/, float64) gives for the same inputs:
                    d log v_n) by ‖c − c_ref‖ / max(‖c_ref‖, the median ‖c_ref‖),
                    each side at its own latents
   step_loss_gap    the worst of the first steps' |loss − loss_ref| / |loss_ref|
+  first_loss_gap   the same of the first step alone, which no optimizer step
+                   has touched: from the second step on each side carries
+                   Adam's first move, lr·g/(|g| + ε) an element, whose sign
+                   rounding decides where a gradient is near zero
   first_grad_gap   the worst parameter's |‖g‖ − ‖g_ref‖| / max(‖g_ref‖, the
                    median ‖g_ref‖), g the first step's gradient as Adam got it
   update_gap       the same of each parameter's change after the first steps,
@@ -93,6 +97,7 @@ def training_numbers(prog: dict, ref: dict) -> dict:
         "taylor_gap": worst_leaf({k: pc[k] for k in leaves}, {k: rc[k] for k in leaves}),
         "step_loss_gap": max(abs(a - b) / abs(b) for a, b in zip(prog["losses"], ref["losses"],
                                                                   strict=True)),
+        "first_loss_gap": abs(prog["losses"][0] - ref["losses"][0]) / abs(ref["losses"][0]),
         "first_grad_gap": worst_norm_gap(prog["grads"], ref["grads"]),
         "update_gap": worst_norm_gap(prog["change"], ref["change"], moved_leaves(ref["grads"])),
         "oos_image_gap": max_abs(prog["y_pred"], ref["y_pred"]),

@@ -98,16 +98,15 @@ def steps(run) -> tuple[list, list[list[int]]] | None:
     return (spans, subtrees(spans, step_roots)) if step_roots else None
 
 
-def ms_per_step(run, match, own: bool) -> float | None:
+def ms_per_step(run, match) -> float | None:
     """Milliseconds per Phase C step in the spans under C.step whose name
-    `match(name)` accepts: their own time (less their children's) or whole."""
+    `match(name)` accepts, each whole."""
     found = steps(run)
     if found is None:
         return None
     spans, trees = found
-    length = (tracer().self_ns(spans) if own
-              else [s.end_ns - s.start_ns for s in spans])
-    total = sum(length[i] for tree in trees for i in tree if match(spans[i].name))
+    total = sum(spans[i].end_ns - spans[i].start_ns
+                for tree in trees for i in tree if match(spans[i].name))
     return 1e-6 * total / len(trees)
 
 

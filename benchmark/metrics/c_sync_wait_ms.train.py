@@ -8,4 +8,4 @@ from benchmark.harness import spans
 
 
 def read(run):
-    return spans.ms_per_step(run, lambda name: name.startswith("sync."), own=False)
+    return spans.ms_per_step(run, lambda name: name.startswith("sync."))

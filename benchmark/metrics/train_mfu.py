@@ -1,8 +1,9 @@
 """train_mfu: the epoch's FLOP (yardstick/flops.py epoch_flops of the
 per-image encoder and decoder FLOP that the configuration's reference module
 gives, the decoder priced in its least-MAC form) over the unprofiled
-window's seconds per epoch, against the published peak of the
-configuration's compute dtype (yardstick/peaks.py STEP_PEAK), in percent."""
+window's seconds per epoch, against the peak of the configuration's compute
+dtype (yardstick/peaks.py STEP_PEAK: split TF32's 165 TFLOP/s for float32,
+989 TFLOP/s for bfloat16), in percent."""
 
 from benchmark.yardstick import flops, peaks
 

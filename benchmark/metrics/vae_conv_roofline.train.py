@@ -2,8 +2,11 @@
 (yardstick/flops.py epoch_flops, phases A, C and eval, of the per-image
 encoder and decoder FLOP that the configuration's reference module gives)
 over the traced slice's seconds per epoch in convolution kernels, against
-the published peak of the configuration's compute dtype
-(yardstick/peaks.py STEP_PEAK), in percent.
+the peak of the configuration's compute dtype (yardstick/peaks.py
+STEP_PEAK), in percent: for float32 split TF32's 165 TFLOP/s, a third of
+TF32's 495, since the program's float32 convolutions
+(gppvae_tpu_torch/csrc/conv3x3.cu) take three TF32 products for each
+float32 product; for bfloat16 989 TFLOP/s.
 
 A kernel counts as a convolution's when its name holds one of PATTERNS, in
 any case: cuDNN's implicit-GEMM and direct forward, data and weight

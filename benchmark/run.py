@@ -133,7 +133,8 @@ def main(argv=None) -> int:
         return 3
     print(f"# card (name, power limit): {_card()}")
     print(f"# peaks: bf16 {peaks.BF16_FLOPS:.4g} FLOP/s, TF32 {peaks.TF32_FLOPS:.4g} FLOP/s, "
-          f"fp32 {peaks.FP32_FLOPS:.4g} FLOP/s, HBM {peaks.HBM_BYTES_PER_S:.4g} B/s")
+          f"split TF32 {peaks.SPLIT_TF32_FLOPS:.4g} FLOP/s, fp32 {peaks.FP32_FLOPS:.4g} FLOP/s, "
+          f"HBM {peaks.HBM_BYTES_PER_S:.4g} B/s")
     print(f"# set-up by part (s): {json.dumps(out.pop('setup_parts'))}")
     print(f"# the reference's seconds, after the window: {out.pop('reference_s')}")
     print(f"# window: each epoch's seconds, or the requests' latency quartiles: "

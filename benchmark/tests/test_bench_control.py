@@ -68,3 +68,17 @@ def test_the_same_run_without_a_fault_is_within_its_limits(tiny, cell):
     seconds = 1.0 if cell in SERVE_CELLS else 0.2
     for name, row in _run_with(tiny, cell, None, seconds)["checks"].items():
         assert row["value"] <= (1e-2 if name == "update_gap" else row["limit"]), (name, row)
+
+
+def test_the_first_loss_gap_reads_the_first_step_alone():
+    """A later step's loss that strays (Adam's first move of an element
+    whose gradient rounding turned) moves step_loss_gap, not first_loss_gap."""
+    coeffs = {"value": torch.tensor(7.0),
+              **{k: torch.ones(3) for k in ("dZ", "dV", "dlog_vs", "dlog_vn")}}
+    leaves = {"a": torch.ones(4), "b": torch.full((2,), 2.0)}
+    ref = {"Z0": torch.ones(5), "coeffs": coeffs, "losses": [100.0, 90.0, 80.0],
+           "grads": leaves, "change": leaves, "y_pred": torch.zeros(2)}
+    prog = {**ref, "losses": [100.0001, 90.0, 80.008]}
+    numbers = checks.training_numbers(prog, ref)
+    assert numbers["first_loss_gap"] == pytest.approx(1e-6)
+    assert numbers["step_loss_gap"] == pytest.approx(1e-4)

@@ -61,7 +61,7 @@ def test_the_roofline_reader_prices_the_convolution_kernels_alone():
     parts = flops.epoch_flops(229_670_912, 164_793_344, zdim=256, n_train=4119, n_heldout=542,
                               batch_size=64, rank=576)
     work = parts["phase_a"] + parts["phase_c"] + parts["eval_oos"]
-    want = 100.0 * work / conv_s / peaks.FP32_FLOPS
+    want = 100.0 * work / conv_s / peaks.SPLIT_TF32_FLOPS
     assert reader(_stub_run(events, 2)) == pytest.approx(want)
     assert reader(_stub_run([_kernel(n, 0.0, 9.0) for n in other], 2)) is None
     assert reader(types.SimpleNamespace(slice=None)) is None
@@ -108,7 +108,7 @@ def test_a_tiny_facevae_cell_runs_traced_on_the_cpu(tiny):
     m = out["metrics"]
     assert m["vae_convs_per_step.train"]["value"] == 8.0
     assert "vae_conv_roofline.train" not in m
-    assert {"train_mfu", "c_forward_ms.train", "encode_s.train"} <= set(m)
+    assert {"train_mfu", "c_sync_wait_ms.train", "encode_s.train"} <= set(m)
 
 
 @pytest.mark.parametrize("fault", sorted(faults.TRAINING))

@@ -2,16 +2,46 @@
 
 from __future__ import annotations
 
+import types
+
 import pytest
 from conftest import ROOT  # noqa: F401  (puts the repository on the path)
 
+from benchmark.harness import trace
+from benchmark.harness.manifest import Manifest
 from benchmark.yardstick import flops, kernel_cost, peaks
 
 
 def test_peaks_are_the_published_h100_sxm_rates():
     assert (peaks.BF16_FLOPS, peaks.TF32_FLOPS, peaks.FP32_FLOPS) == (989e12, 495e12, 67e12)
     assert peaks.HBM_BYTES_PER_S == 3.35e12
-    assert peaks.STEP_PEAK == {"bfloat16": 989e12, "float32": 67e12}
+    # float32 on the tensor cores in split TF32: three TF32 products a float32 product
+    assert peaks.SPLIT_TF32_FLOPS == 165e12
+    assert peaks.STEP_PEAK == {"bfloat16": 989e12, "float32": 165e12}
+
+
+@pytest.mark.parametrize("dtype, peak", [("float32", 165e12), ("bfloat16", 989e12)])
+def test_the_step_readers_price_a_dtype_at_its_step_peak(dtype, peak):
+    """train_mfu and vae_conv_roofline.train divide the same epoch FLOP by
+    split TF32's peak for float32 and by bfloat16's for bfloat16."""
+    enc, dec = 1_000_003, 2_000_029
+    module = types.SimpleNamespace(vae_flops=lambda model, image_shape: (enc, dec))
+    shapes = {"n_train": 4119, "n_heldout": 542, "zdim": 256, "rank": 576, "batch_size": 64,
+              "image_shape": (128, 128, 3)}
+    parts = flops.epoch_flops(enc, dec, **{k: v for k, v in shapes.items()
+                                           if k != "image_shape"})
+    # 4 epochs in 2 s; 3 epochs traced, 0.3 s of conv kernels among other work
+    events = [{"cat": "kernel", "name": "conv3x3_fprop", "ts": 0.0, "dur": 1e5},
+              {"cat": "kernel", "name": "conv3x3_wgrad", "ts": 2e5, "dur": 2e5},
+              {"cat": "kernel", "name": "elementwise_kernel", "ts": 5e5, "dur": 3e5}]
+    run = types.SimpleNamespace(
+        epochs=[{}] * 4, window_s=2.0, shapes=shapes, slice=trace.Slice(events, 1.0, 3),
+        cfg={"model": {"compute_dtype": dtype}, "reference_module": module})
+    man = Manifest()
+    assert man.reader("train_mfu")(run) == pytest.approx(100.0 * parts["total"] / 0.5 / peak)
+    conv_work = parts["phase_a"] + parts["phase_c"] + parts["eval_oos"]
+    assert man.reader("vae_conv_roofline.train")(run) == pytest.approx(
+        100.0 * conv_work / 0.1 / peak)
 
 
 def test_factor_prep_at_the_digits_shape():
